@@ -1,0 +1,27 @@
+"""Sample extraction: TRLWE -> LWE at a coefficient index.
+
+Reference: rs-tfhe trlwe.rs:106-136. The extracted mask is
+p[i] = a[(k - i) mod* N] with negacyclic sign: a gather with a static index
+pattern, built once on the host. Exact negation is used where the reference
+uses MAX - x (see torus.neg_torus).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..torus import neg_torus
+
+
+def sample_extract(trlwe: torch.Tensor, k: int = 0) -> torch.Tensor:
+    """int32 [..., 2, N] -> LWE lv1 [..., N+1] extracting coefficient k."""
+    a = trlwe[..., 0, :]
+    b = trlwe[..., 1, :]
+    n = a.shape[-1]
+    idx = (k - np.arange(n)) % (2 * n)
+    wrap = torch.as_tensor(idx >= n, device=trlwe.device)
+    sel = torch.as_tensor(np.where(idx >= n, idx - n, idx), device=trlwe.device)
+    vals = a[..., sel]
+    p = torch.where(wrap, neg_torus(vals), vals)
+    return torch.cat([p, b[..., k : k + 1]], dim=-1)

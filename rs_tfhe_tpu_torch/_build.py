@@ -1,12 +1,12 @@
 """Build and load the package's CUDA kernels at first use.
 
-The sources under `csrc/` are compiled with `nvcc` for Hopper (`sm_90a`) into
-one shared library with a plain C interface, loaded with `ctypes`. Nothing is
-built when the package is imported: `load()` builds on its first call. The
-library goes to `_kernels_build/<hash>/`, keyed by a hash of the sources and
-the compiler flags, so an edited source rebuilds; the directory is listed in
-`.gitignore`. A missing `nvcc` or a failed compile raises — there is no
-fallback.
+The sources under `csrc/` are compiled with `nvcc` for Hopper (`sm_90a`), one
+`nvcc` process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with `ctypes`. Nothing is built when
+the package is imported: `load()` builds on its first call. The library goes
+to `_kernels_build/<hash>/`, keyed by a hash of the sources and the compiler
+flags, so an edited source rebuilds; the directory is listed in `.gitignore`.
+A missing `nvcc` or a failed compile raises — there is no fallback.
 """
 
 from __future__ import annotations
@@ -20,11 +20,14 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "blind_rotate.cu",)
+_SOURCES = tuple(
+    _PKG / "csrc" / name
+    for name in ("blind_rotate.cu", "blind_rotate_mb.cu", "external_product.cu")
+)
 _OUT_ROOT = _PKG / "_kernels_build"
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "librs_tfhe_kernels.so"
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -58,25 +61,43 @@ def library_path() -> Path:
     return _OUT_ROOT / h.hexdigest()[:16] / _LIB_NAME
 
 
+def _run(cmds: list[list[str]], log: Path) -> None:
+    """Run the commands concurrently; append their output to `log`; raise
+    naming the first that failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    with log.open("a") as f:
+        for c, out in zip(cmds, outs):
+            f.write(f"$ {' '.join(c)}\n{out}")
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:\n{' '.join(c)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
-    The compiler's output (with ptxas' register and shared-memory report) is
+    The compilers' output (with ptxas' register and shared-memory report) is
     kept beside the library as build.log."""
     path = library_path()
     if path.exists():
         return path
     nvcc = find_nvcc()
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (path.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    log = path.parent / "build.log"
+    log.write_text("")
+    tag = f"{os.getpid()}.tmp"
+    objs = [path.with_name(f"{src.stem}.{tag}.o") for src in _SOURCES]
+    tmp = path.with_name(f"{_LIB_NAME}.{tag}")
+    try:
+        _run([[nvcc, *_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_SOURCES, objs)], log)
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], log)
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return path
 
 
@@ -86,6 +107,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, p,
     ]
     lib.tfhe_blind_rotate.restype = i
+    lib.tfhe_blind_rotate_mb.argtypes = lib.tfhe_blind_rotate.argtypes
+    lib.tfhe_blind_rotate_mb.restype = i
+    lib.tfhe_external_product.argtypes = [p, p, p, i, i, i, i, p]
+    lib.tfhe_external_product.restype = i
+    for name in ("tfhe_blind_rotate", "tfhe_blind_rotate_mb", "tfhe_external_product"):
+        getattr(lib, f"{name}_max_tile").argtypes = [i]
+        getattr(lib, f"{name}_max_tile").restype = i
     lib.tfhe_cuda_error_string.argtypes = [i]
     lib.tfhe_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -259,6 +259,10 @@ int tfhe_blind_rotate(const void* b_til, const void* a_til, const void* testvec,
   }
 }
 
+// The largest batch tile the launcher takes at ring size 2^log_n; the
+// wrapper picks its tile up to this.
+int tfhe_blind_rotate_max_tile(int log_n) { return max_tile(1 << log_n); }
+
 const char* tfhe_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

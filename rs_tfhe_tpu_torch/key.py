@@ -12,7 +12,12 @@ Layouts:
   - `ksk_limbs`: the key-switching key as balanced int8 limb planes,
     [N*t*base, 4*W] with W = n0+1 rounded up to a multiple of 8
     (`ksk_width`), the operand of the one-hot int8 product of
-    ops/keyswitch.py. Rows with digit k = 0 are zero.
+    ops/keyswitch.py. Rows with digit k = 0 are zero;
+  - `bsk_mb` (optional, `CloudKey.generate(multibit=True)`): the multi-bit
+    key as raw torus words, int32 [n0/2, 4, 2L, 2, N] — the layout the
+    multi-bit kernel reads, and the JAX key's `bsk_mb` bit for bit. The
+    JAX key's `bsk_mb_vecs` (an int8 limb layout for the TPU) has no
+    counterpart.
 
 `cloud_key_from_numpy` / `secret_key_from_numpy` build the port's keys from a
 JAX key's arrays (as numpy), so the two packages can be held against each
@@ -61,25 +66,36 @@ class SecretKey(nn.Module):
 
 class CloudKey(nn.Module):
     """Evaluation key bundle (reference key.rs:51-75): testvec int32 [2, N],
-    bsk int32 [n0, 2L, 2, N], ksk_limbs int8 [N*t*base, 4*ksk_width]."""
+    bsk int32 [n0, 2L, 2, N], ksk_limbs int8 [N*t*base, 4*ksk_width] and,
+    for a multi-bit key, bsk_mb int32 [n0/2, 4, 2L, 2, N] (else None)."""
 
     def __init__(
         self, testvec: torch.Tensor, bsk: torch.Tensor, ksk_limbs: torch.Tensor,
-        params: TfheParams,
+        params: TfheParams, bsk_mb: torch.Tensor | None = None,
     ):
         super().__init__()
         self.params = params
         self.register_buffer("testvec", testvec)
         self.register_buffer("bsk", bsk)
         self.register_buffer("ksk_limbs", ksk_limbs)
+        self.register_buffer("bsk_mb", bsk_mb)
 
     @classmethod
-    def generate(cls, sk: SecretKey, generator: torch.Generator) -> "CloudKey":
+    def generate(
+        cls, sk: SecretKey, generator: torch.Generator, multibit: bool = False
+    ) -> "CloudKey":
         """Key-switching then bootstrapping key, both drawn from `generator`
-        (on the device the keys are made on, which must be sk's)."""
+        (on the device the keys are made on, which must be sk's).
+
+        multibit: also draw the multi-bit key (`gen_bootstrapping_key_mb`),
+        after the other two, so the KSK and BSK are the same as those of a
+        key generated with multibit=False from an equally seeded generator
+        (as the JAX package keeps them, rs_tfhe_tpu/key.py:175-178).
+        """
         ksk = gen_key_switching_key(generator, sk)
         bsk = gen_bootstrapping_key(generator, sk)
-        return cls(gen_testvec(sk.params, sk.lv1.device), bsk, ksk, sk.params)
+        mb = gen_bootstrapping_key_mb(generator, sk) if multibit else None
+        return cls(gen_testvec(sk.params, sk.lv1.device), bsk, ksk, sk.params, mb)
 
 
 def gen_testvec(params: TfheParams, device=None) -> torch.Tensor:
@@ -142,6 +158,32 @@ def gen_bootstrapping_key(generator: torch.Generator, sk: SecretKey) -> torch.Te
     )
 
 
+def gen_bootstrapping_key_mb(generator: torch.Generator, sk: SecretKey) -> torch.Tensor:
+    """Multi-bit (grouping factor 2) bootstrapping key
+    (rs_tfhe_tpu/key.py:243-280).
+
+    For each pair of lv0 key bits (s1, s2) = (s[2i], s[2i+1]), TRGSW-encrypt
+    the four pair indicators under s_lv1, in pattern order
+    [(0,0), (1,0), (0,1), (1,1)]:
+
+        (1-s1)(1-s2),  s1(1-s2),  (1-s1)s2,  s1*s2
+
+    so that sum_v X^(a1*v1 + a2*v2) * ind_v = X^(a1*s1 + a2*s2) and one
+    external product advances the rotation by two mask elements
+    (ops/blind_rotate.blind_rotate_mb_plain). On the BSK's grid
+    (params.bsk_round_bits). Returns int32 [n0/2, 4, 2L, 2, N].
+    """
+    params = sk.params
+    if params.n0 % 2:
+        raise ValueError(f"multi-bit grouping needs an even n0, got {params.n0}")
+    s1, s2 = sk.lv0[0::2], sk.lv0[1::2]
+    inds = torch.stack([(1 - s1) * (1 - s2), s1 * (1 - s2), (1 - s1) * s2, s1 * s2], dim=1)
+    return trgsw_encrypt_torus(
+        generator, sk.lv1, inds, params.bsk_alpha, params,
+        mask_grid_bits=params.bsk_round_bits,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Key material from the JAX package's keys
 # ---------------------------------------------------------------------------
@@ -160,7 +202,9 @@ def cloud_key_from_numpy(arrays, params: TfheParams, device=None) -> CloudKey:
     `ksk_limbs` int8 [K, 4*P], the JAX planar-padded limb table
     (`rs_tfhe_tpu.tlwe.lwe_encrypt_rows_limbs`, P = n0+1 padded to 128 lanes).
     The limb planes are recombined to the rows' torus words, the lane padding
-    is stripped, and the rows are re-split into the port's layout.
+    is stripped, and the rows are re-split into the port's layout. A
+    multi-bit key's `bsk_mb` uint32 [n0/2, 4, 2L, 2, N] is taken as it is
+    when `arrays` has it (and is not None).
     """
     g = params.trgsw_lv1
     k_rows = params.n1 * g.iks_t * params.ks_base
@@ -174,6 +218,12 @@ def cloud_key_from_numpy(arrays, params: TfheParams, device=None) -> CloudKey:
     expect = (params.n0, 2 * g.l, 2, params.n1)
     if tuple(bsk.shape) != expect:
         raise ValueError(f"bsk: expected shape {expect}, got {tuple(bsk.shape)}")
+    bsk_mb = arrays["bsk_mb"] if "bsk_mb" in arrays else None
+    if bsk_mb is not None:
+        bsk_mb = to_torch(bsk_mb)
+        expect_mb = (params.n0 // 2, 4, 2 * g.l, 2, params.n1)
+        if tuple(bsk_mb.shape) != expect_mb:
+            raise ValueError(f"bsk_mb: expected shape {expect_mb}, got {tuple(bsk_mb.shape)}")
     return CloudKey(
-        to_torch(arrays["testvec"]), bsk, ksk_limbs_from_rows(rows, params), params
+        to_torch(arrays["testvec"]), bsk, ksk_limbs_from_rows(rows, params), params, bsk_mb
     ).to(device)

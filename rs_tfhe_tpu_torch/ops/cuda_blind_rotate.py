@@ -10,6 +10,8 @@ it launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .. import _build
@@ -18,23 +20,26 @@ from ..params import TfheParams
 #: Launches of the kernel in this process (the wrapper adds one per launch).
 launches = 0
 
-#: Largest batch tile per ring size, as `max_tile` in the kernel source: at
-#: N >= 2048 the block's N/4 threads leave fewer registers for the T x 8
-#: accumulators each thread holds.
-_MAX_TILE = {2048: 4, 4096: 2}
+#: Launches by (ring size N, tile) in this process, beside `launches`: which
+#: instantiations of the kernel ran.
+launched_tiles: collections.Counter = collections.Counter()
 
 
-def select_tile(batch: int, n: int, sm_count: int) -> int:
-    """Ciphertexts per block: the largest tile (up to the ring size's cap)
-    that still gives every SM a block; smaller tiles cost more shared-memory
-    loads per multiply-add but keep the card full at small batches."""
-    tile = _MAX_TILE.get(n, 8)
+def fit_tile(batch: int, max_tile: int, sm_count: int) -> int:
+    """The largest power-of-two tile up to `max_tile` that still gives every
+    SM a block; smaller tiles cost more shared-memory loads per multiply-add
+    but keep the card full at small batches. Each kernel states its
+    `max_tile` per ring size in its source and exports it through the C
+    interface (`tfhe_*_max_tile`)."""
+    tile = max_tile
     while tile > 1 and -(-batch // tile) < sm_count:
         tile //= 2
     return tile
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """Raise unless t is a contiguous int32 tensor of this shape on `device`
+    (the kernels' operand contract)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != torch.int32:
@@ -43,6 +48,15 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_shapes(params: TfheParams) -> None:
+    """Raise unless the kernels take this ring size and gadget."""
+    g, n = params.trgsw_lv1, params.n1
+    if n & (n - 1) or not 64 <= n <= 4096:
+        raise ValueError(f"ring size N={n}: the kernels take powers of two in [64, 4096]")
+    if not 1 <= g.bgbit <= 31 or g.l * g.bgbit > 32:
+        raise ValueError(f"gadget bgbit={g.bgbit}, L={g.l} outside the kernels' range")
 
 
 def blind_rotate_kernel(
@@ -61,28 +75,25 @@ def blind_rotate_kernel(
         raise ValueError(f"blind_rotate_kernel takes CUDA tensors, got {b_til.device}")
     g = params.trgsw_lv1
     n0, n = params.n0, params.n1
-    if n & (n - 1) or not 64 <= n <= 4096:
-        raise ValueError(f"ring size N={n}: the kernel takes powers of two in [64, 4096]")
-    if not 1 <= g.bgbit <= 31 or g.l * g.bgbit > 32:
-        raise ValueError(f"gadget bgbit={g.bgbit}, L={g.l} outside the kernel's range")
+    check_shapes(params)
     dev = b_til.device
     batch = b_til.shape[0]
-    _check("b_til", b_til, (batch,), dev)
-    _check("a_til", a_til, (batch, n0), dev)
-    _check("bsk", bsk, (n0, 2 * g.l, 2, n), dev)
+    check_tensor("b_til", b_til, (batch,), dev)
+    check_tensor("a_til", a_til, (batch, n0), dev)
+    check_tensor("bsk", bsk, (n0, 2 * g.l, 2, n), dev)
     if testvec.dim() == 2:
-        _check("testvec", testvec, (2, n), dev)
+        check_tensor("testvec", testvec, (2, n), dev)
         tv_stride = 0
     else:
-        _check("testvec", testvec, (batch, 2, n), dev)
+        check_tensor("testvec", testvec, (batch, 2, n), dev)
         tv_stride = 2 * n
     out = torch.empty((batch, 2, n), dtype=torch.int32, device=dev)
     if batch == 0:
         return out
+    lib = _build.load()
     if tile is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tile = select_tile(batch, n, sms)
-    lib = _build.load()
+        tile = fit_tile(batch, lib.tfhe_blind_rotate_max_tile(n.bit_length() - 1), sms)
     dec_offset = (params.decomposition_offset + params.decomposition_round_bit) & 0xFFFFFFFF
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -95,4 +106,5 @@ def blind_rotate_kernel(
         msg = lib.tfhe_cuda_error_string(err).decode()
         raise RuntimeError(f"blind_rotate kernel launch failed (tile={tile}): {msg} ({err})")
     launches += 1
+    launched_tiles[(n, tile)] += 1
     return out

@@ -8,7 +8,10 @@ Plain PyTorch versions of the products the pipeline needs, exact mod 2^32:
     times torus polynomials, as a float64 matmul against the negacyclic
     circulant of the torus side. Every product and partial sum is an integer
     below 2^53 in magnitude (checked, see `_check_f64_exact`), so the float64
-    result is the exact integer, reduced mod 2^32 afterwards;
+    result is the exact integer, reduced mod 2^32 afterwards. Digits wider
+    than 8 bits (the Uint sets, bgbit 10-23) would pass that bound against
+    whole 32-bit words, so there the torus side is split into 16-bit halves
+    and the two products are recombined mod 2^32;
   - `polymul_torus_by_binary`: torus polynomials times a binary key, the
     same float64 circulant product with entries in {-1, 0, 1}.
 
@@ -54,14 +57,18 @@ def _circulant_index(n: int, device) -> torch.Tensor:
     return torch.remainder(m[None, :] - m[:, None], 2 * n)
 
 
-def _check_f64_exact(terms: int, max_small: int, what: str) -> None:
-    """A float64 sum of `terms` products |small| <= max_small times a signed
-    int32 word (|w| <= 2^31) is exact while terms * max_small * 2^31 < 2^53."""
-    if terms * max_small * (1 << 31) >= _F64_EXACT:
+def _f64_exact(terms: int, max_small: int, word_bits: int) -> bool:
+    """A float64 sum of `terms` products |small| <= max_small times a word of
+    magnitude <= 2^word_bits is exact while terms * max_small * 2^word_bits
+    < 2^53."""
+    return terms * max_small * (1 << word_bits) < _F64_EXACT
+
+
+def _check_f64_exact(terms: int, max_small: int, word_bits: int, what: str) -> None:
+    if not _f64_exact(terms, max_small, word_bits):
         raise ValueError(
-            f"{what}: {terms} terms of |d| <= {max_small} times 32-bit words "
-            "can reach 2^53, beyond exact float64; this parameter set needs "
-            "the CUDA kernel"
+            f"{what}: {terms} terms of |d| <= {max_small} times {word_bits}-bit "
+            "words can reach 2^53, beyond exact float64"
         )
 
 
@@ -83,13 +90,27 @@ def polymul_small_by_torus(
     d: int32 [..., J, N] with |d| <= max_small; t: int32 [J, O, N] shared over
     the batch. Returns int32 [..., O, N] mod 2^32 (the external-product core,
     reference trgsw.rs:77-116).
+
+    One product against the signed words where J*N*max_small*2^31 < 2^53
+    (every set with bgbit <= 8). Otherwise t = hi * 2^16 + lo with lo the
+    unsigned low half in [0, 2^16) and hi the signed high half in
+    [-2^15, 2^15): two products, each bounded by J*N*max_small*2^16 (2^48 at
+    SECURITY_UINT4), recombined as (hi << 16) + lo mod 2^32.
     """
     j, o, n = t.shape
-    _check_f64_exact(j * n, max_small, "polymul_small_by_torus")
     lead = d.shape[:-2]
     lhs = d.reshape(-1, j * n).to(torch.float64)
-    out = lhs @ _step_circulant(t)  # [F, O*N], exact integers
-    return wrap_i32(out.to(torch.int64)).reshape(*lead, o, n)
+
+    def product(words: torch.Tensor) -> torch.Tensor:  # exact integers, int64
+        return (lhs @ _step_circulant(words)).to(torch.int64)
+
+    if _f64_exact(j * n, max_small, 31):
+        out = product(t)
+    else:
+        _check_f64_exact(j * n, max_small, 16, "polymul_small_by_torus")
+        lo, hi = t & 0xFFFF, t >> 16  # arithmetic shift: hi is signed
+        out = ((product(hi) & 0xFFFF) << 16) + product(lo)
+    return wrap_i32(out).reshape(*lead, o, n)
 
 
 def polymul_torus_by_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -99,7 +120,7 @@ def polymul_torus_by_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     phase (reference trlwe.rs:45, :70). |sum| <= N * 2^31 < 2^53.
     """
     n = s.shape[-1]
-    _check_f64_exact(n, 1, "polymul_torus_by_binary")
+    _check_f64_exact(n, 1, 31, "polymul_torus_by_binary")
     ext = negacyclic_extend(s).to(torch.float64)
     circ = ext[_circulant_index(n, s.device)]  # [N(m), N(c)]
     out = a.to(torch.float64) @ circ

@@ -9,6 +9,7 @@ uint32 arithmetic mod 2^32 bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .torus import (
@@ -17,6 +18,7 @@ from .torus import (
     gaussian_torus,
     i32,
     neg_torus,
+    to_numpy,
     uniform_torus,
     wrap_i32,
 )
@@ -63,6 +65,37 @@ def lwe_decrypt_bool(ct: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Sign test on the phase (reference tlwe.rs:60-68): the torus word read
     as a signed int32 is >= 0 for phases in [0, 1/2)."""
     return lwe_phase(ct, s) >= 0
+
+
+def _message_mu(msg, message_modulus: int, device) -> torch.Tensor:
+    """msg mod modulus times the torus word of 1/(2*modulus), mod 2^32."""
+    msg = torch.remainder(torch.as_tensor(msg, dtype=torch.int64, device=device), message_modulus)
+    return wrap_i32(msg * int(f64_to_torus(1.0 / (2.0 * message_modulus))))
+
+
+def lwe_encrypt_message(
+    generator: torch.Generator, s: torch.Tensor, msg, message_modulus: int, alpha: float
+) -> torch.Tensor:
+    """LWE message encoding msg/(2*modulus) for programmable bootstrapping
+    (reference tlwe.rs:84-98; rs_tfhe_tpu/tlwe.py:216-230)."""
+    return lwe_encrypt_torus(generator, s, _message_mu(msg, message_modulus, s.device), alpha)
+
+
+def lwe_decrypt_message(ct: torch.Tensor, s: torch.Tensor, message_modulus: int) -> np.ndarray:
+    """Round the phase to the nearest message (reference tlwe.rs:111-126):
+    int64 numpy array, in f64 semantics as rs_tfhe_tpu/tlwe.py:233-238."""
+    res_f64 = to_numpy(lwe_phase(ct, s)).astype(np.float64) / float(1 << 32)
+    scale = 1.0 / (2.0 * message_modulus)
+    return (res_f64 / scale + 0.5).astype(np.int64) % message_modulus
+
+
+def lwe_trivial_message(msg, message_modulus: int, n: int, device=None) -> torch.Tensor:
+    """Noiseless maskless ciphertexts under the msg/(2*modulus) encoding
+    (lwe_encrypt_message with zero mask and zero noise)."""
+    mu = _message_mu(msg, message_modulus, device)
+    ct = torch.zeros((*mu.shape, n + 1), dtype=TORUS_DTYPE, device=mu.device)
+    ct[..., -1] = mu
+    return ct
 
 
 def lwe_trivial_bool(msg, n: int, device=None) -> torch.Tensor:

@@ -9,7 +9,10 @@ from __future__ import annotations
 import torch
 
 from .ops.poly import polymul_torus_by_binary
-from .torus import gaussian_torus, uniform_torus
+from .torus import TORUS_DTYPE, f64_to_torus, gaussian_torus, i32, uniform_torus
+
+_MU_TRUE = i32(int(f64_to_torus(0.125)))
+_MU_FALSE = i32(int(f64_to_torus(-0.125)))
 
 
 def trlwe_encrypt_torus(
@@ -40,6 +43,21 @@ def trlwe_encrypt_torus(
     return torch.stack([a, b], dim=-2)
 
 
+def trlwe_encrypt_bool(
+    generator: torch.Generator, s1: torch.Tensor, msg, alpha: float
+) -> torch.Tensor:
+    """Per-coefficient boolean +/- 1/8 encoding (reference trlwe.rs:55-66;
+    rs_tfhe_tpu/trlwe.py:49-56). msg: bool [..., N]."""
+    msg = torch.as_tensor(msg, dtype=torch.bool, device=s1.device)
+    mu = torch.where(msg, _MU_TRUE, _MU_FALSE).to(TORUS_DTYPE)
+    return trlwe_encrypt_torus(generator, s1, mu, alpha)
+
+
 def trlwe_phase(ct: torch.Tensor, s1: torch.Tensor) -> torch.Tensor:
     """b - a (*) s (mod 2^32): int32 [..., N]."""
     return ct[..., 1, :] - polymul_torus_by_binary(ct[..., 0, :], s1)
+
+
+def trlwe_decrypt_bool(ct: torch.Tensor, s1: torch.Tensor) -> torch.Tensor:
+    """Per-coefficient sign test (reference trlwe.rs:69-81): bool [..., N]."""
+    return trlwe_phase(ct, s1) >= 0

@@ -165,10 +165,17 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_select_tile():
+    """The wrappers' tile choice, `fit_tile`: the largest power of two up to
+    the kernel's `max_tile` (the whole-rotation kernel's: 8 up to N=1024, 4
+    at 2048, 2 at 4096; the multi-bit kernel's: 4, 2, 1) that still gives
+    each of 132 SMs a block."""
     sms = 132
-    assert CBR.select_tile(4096, 1024, sms) == 8
-    assert CBR.select_tile(512, 1024, sms) == 2
-    assert CBR.select_tile(1, 1024, sms) == 1
-    assert CBR.select_tile(8, 1024, sms) == 1
-    assert CBR.select_tile(4096, 2048, sms) == 4
-    assert CBR.select_tile(4096, 4096, sms) == 2
+    assert CBR.fit_tile(4096, 8, sms) == 8
+    assert CBR.fit_tile(512, 8, sms) == 2
+    assert CBR.fit_tile(1, 8, sms) == 1
+    assert CBR.fit_tile(8, 8, sms) == 1
+    assert CBR.fit_tile(4096, 4, sms) == 4
+    assert CBR.fit_tile(4096, 2, sms) == 2
+    assert CBR.fit_tile(528, 4, sms) == 4
+    assert CBR.fit_tile(264, 2, sms) == 2
+    assert CBR.fit_tile(256, 2, sms) == 1

@@ -1,7 +1,8 @@
-"""PyTorch port: the committed JAX fixture (tests/vectors/torch_port_tiny.npz)
-that holds the port against the reference on machines without JAX.
+"""PyTorch port: the committed JAX fixtures (tests/vectors/torch_port_tiny.npz
+and tests/vectors/torch_port_tiny_mb.npz) that hold the port against the
+reference on machines without JAX.
 
-The fixture is regenerated with JAX and compared with the file, so it cannot
+Each fixture is regenerated with JAX and compared with its file, so it cannot
 drift; the port reproduces every stored output word for word from the stored
 keys and ciphertexts (tolerance 0). chip_smoke.py runs the same comparison on
 the card."""
@@ -17,16 +18,21 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from rs_tfhe_tpu_torch import gates, key  # noqa: E402
-from rs_tfhe_tpu_torch.ops.blind_rotate import blind_rotate  # noqa: E402
+from rs_tfhe_tpu_torch import bootstrap, gates, key  # noqa: E402
+from rs_tfhe_tpu_torch.ops.blind_rotate import (  # noqa: E402
+    blind_rotate,
+    blind_rotate_mb_plain,
+    rotation_exponents,
+)
 from rs_tfhe_tpu_torch.ops.extract import sample_extract  # noqa: E402
 from rs_tfhe_tpu_torch.ops.keyswitch import identity_key_switch  # noqa: E402
 from rs_tfhe_tpu_torch.params import TEST_TINY  # noqa: E402
-from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool  # noqa: E402
+from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool, lwe_decrypt_message  # noqa: E402
 from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VEC = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny.npz")
+VEC_MB = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_mb.npz")
 
 
 def _load_generator():
@@ -44,6 +50,39 @@ def test_fixture_matches_jax_regeneration():
     for name, arr in fresh.items():
         assert stored[name].dtype == arr.dtype, name
         np.testing.assert_array_equal(stored[name], arr, err_msg=name)
+
+
+def test_mb_fixture_matches_jax_regeneration():
+    stored = np.load(VEC_MB)
+    fresh = _load_generator().make_vectors_mb()
+    assert sorted(stored.files) == sorted(fresh)
+    for name, arr in fresh.items():
+        assert stored[name].dtype == arr.dtype, name
+        np.testing.assert_array_equal(stored[name], arr, err_msg=name)
+
+
+def test_port_reproduces_mb_fixture():
+    """The multi-bit rotation, a NAND at B=1 and LUT bootstraps with and
+    without the multi-bit route, from the stored JAX multi-bit key."""
+    v = np.load(VEC_MB)
+    sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY)
+    ck = key.cloud_key_from_numpy(v, TEST_TINY)
+    a, b, m = (to_torch(v[n]) for n in ("ct_a", "ct_b", "ct_m"))
+    lut, lut_per_ct = to_torch(v["lut"]), to_torch(v["lut_per_ct"])
+    b_til, a_til = rotation_exponents(a, TEST_TINY)
+    outputs = {
+        "blind_rotate_mb": blind_rotate_mb_plain(b_til, a_til, ck.testvec, ck.bsk_mb, TEST_TINY),
+        "nand_b1": gates.nand(a[:1], b[:1], ck),
+        "pbs_mb": bootstrap.bootstrap_with_testvec(m, lut, ck, allow_mb=True),
+        "pbs_std": bootstrap.bootstrap_with_testvec(m, lut, ck, allow_mb=False),
+        "pbs_mb_per_ct": bootstrap.bootstrap_with_testvec(m, lut_per_ct, ck, allow_mb=True),
+    }
+    for name, out in outputs.items():
+        np.testing.assert_array_equal(to_numpy(out), v[name], err_msg=name)
+    bits, msgs, modulus = v["bits"], v["msgs"], _load_generator().MB_MODULUS
+    np.testing.assert_array_equal(lwe_decrypt_bool(outputs["nand_b1"], sk.lv0).numpy(), ~(bits[0, :1] & bits[1, :1]))
+    for name in ("pbs_mb", "pbs_std"):
+        np.testing.assert_array_equal(lwe_decrypt_message(outputs[name], sk.lv0, modulus), (msgs + 1) % modulus)
 
 
 def test_port_reproduces_fixture():

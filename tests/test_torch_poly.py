@@ -83,13 +83,20 @@ def test_polymul_small_by_torus_matches_schoolbook():
 
 
 def test_float64_bound_is_enforced():
-    """The plain product refuses digit sets whose float64 sums could pass
-    2^53 instead of rounding silently (SECURITY_UINT2: bgbit=18)."""
+    """Digit sets whose float64 sums against whole words could pass 2^53
+    (SECURITY_UINT2: bgbit=18) take the split 16-bit product and stay exact;
+    digits beyond even the split product's bound are refused instead of
+    rounded silently."""
     p = params_from(JP.SECURITY_UINT2)
-    d = torch.zeros((1, 2 * p.trgsw_lv1.l, p.n1), dtype=torch.int32)
-    t = torch.zeros((2 * p.trgsw_lv1.l, 2, p.n1), dtype=torch.int32)
+    j, n = 2 * p.trgsw_lv1.l, p.n1
+    rng = np.random.default_rng(10)
+    d = rng.integers(-p.trgsw_lv1.half_bg, p.trgsw_lv1.half_bg, (1, j, n)).astype(np.int32)
+    t = _u32(rng, (j, 2, n))
+    port = PPo.polymul_small_by_torus(torch.from_numpy(d), to_torch(t), p.trgsw_lv1.half_bg)
+    ref = JPo.polymul_small_by_torus_multi(jnp.asarray(d), JPo.build_step_matrix(jnp.asarray(t)), p.digit_limbs, 2)
+    _eq(port, ref)
     with pytest.raises(ValueError, match="2\\^53"):
-        PPo.polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg)
+        PPo.polymul_small_by_torus(torch.from_numpy(d), to_torch(t), 1 << 30)
 
 
 @pytest.mark.parametrize(

@@ -25,9 +25,18 @@ the last line):
        3d both rotation kernels per rotation at a few batches of FAST,
           strict and RADIX: the multi-bit kernel is the faster, which is why
           a multi-bit key takes it at every batch;
+       3e the seven probe and primitive-rate kernels (csrc/probes.cu) on
+          random inputs: the integer dots (s8 on the tensor cores, s16 and
+          s32 on the CUDA cores), roll, bitcast, unpack, and the chained dot
+          (both units) and chained roll+add at every shape of
+          scripts/bench_hopper_prims.py;
+     every case with its bound: the least time the card could take, the
+     larger of bytes over the memory rate and operations over the peak rate
+     (for 32-bit multiply-adds the better of the CUDA cores and of s8 limb
+     products on the tensor cores);
   4. the card against the JAX package through the committed fixtures
-     tests/vectors/torch_port_tiny.npz and torch_port_tiny_mb.npz (TEST_TINY,
-     bit for bit);
+     tests/vectors/torch_port_tiny.npz, torch_port_tiny_mb.npz and
+     torch_port_tiny_circuits.npz (TEST_TINY, bit for bit);
   5. the gate path at full width, SECURITY_128_BIT_FAST: keygen on the card,
      4096 encrypted bit pairs through batch_gate("nand"), decrypted 100%
      correct, gates/s, and B = 1 latency as the slope between chains of 5
@@ -45,8 +54,21 @@ the last line):
      per-ciphertext LUT through bootstrap_with_testvec; B = 1 and 2 through
      the multi-bit route, time per PBS;
   9. step_impl="pallas": a FAST NAND batch at B = 4096 through the
-     per-step route equals the default route's output bit for bit.
-Each path of phases 5-9 is driven with the kernels' launch counts set to 0
+     per-step route equals the default route's output bit for bit;
+ 10. the probes' own path: scripts/probe_hopper.py (PASS/FAIL per
+     capability) and scripts/bench_hopper_prims.py (the chained-dot and
+     roll+add rate tables);
+ 11. boolean circuits at SECURITY_128_BIT_FAST with a standard and with a
+     multi-bit key: encrypt_uint -> ripple_carry_adder(32) through
+     netlist.evaluate and netlist.compile_circuit -> decrypt_uint equals
+     (x + y) mod 2^32, wall time and gates/s through the plan, and the
+     device's idle share over one compiled run (torch.profiler);
+     add_kogge_stone on a batch of 32-bit pairs and mul_csa on a batch of
+     8-bit pairs, decrypted and checked;
+ 12. multi-value bootstrapping at SECURITY_128_BIT_RADIX: two LUTs from one
+     rotation on B = 2048 messages, each output decrypting to what the
+     dedicated bootstrap_with_testvec gives.
+Each path of phases 5-12 is driven with the kernels' launch counts set to 0
 just before it and read just after; every kernel of a path must have
 launched, and every (N, tile) instantiation a path launched must be one
 that phase 3 held against the plain version. The line before the last is a JSON object of the kernels
@@ -68,6 +90,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny.npz")
 FIXTURE_MB = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_mb.npz")
+FIXTURE_CIRCUITS = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_circuits.npz")
+#: The circuit fixture's LUT family (scripts/gen_torch_port_vectors.py MV_FUNCTIONS, MV_MODULUS).
+FIXTURE_MV_MODULUS = 4
+FIXTURE_MV_FUNCTIONS = (lambda x: (x + 1) % 4, lambda x: (3 * x) % 4)
+#: Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device memory
+#: bytes/s; s8 multiply-adds/s on the tensor cores (1,979 TOP/s); 32-bit
+#: integer multiply-adds/s on the CUDA cores, half the float32 lanes' rate
+#: (67 TFLOP/s is 33.5 T fused multiply-adds/s on 128 lanes an SM, of which
+#: 64 take int32: 132 SMs x 64 x 1.98 GHz).
+PEAK_BYTES = 3.35e12
+PEAK_S8_MACS = 1979e12 / 2
+PEAK_INT32_MACS = 67e12 / 4
 SEED = 1234
 T_START = time.perf_counter()
 
@@ -118,6 +152,53 @@ def tile_list(tiles) -> list:
 
 def max_abs_err(out: torch.Tensor, ref: torch.Tensor) -> int:
     return int(((out.to(torch.int64) & 0xFFFFFFFF) - (ref.to(torch.int64) & 0xFFFFFFFF)).abs().max())
+
+
+def bound(nbytes: float, macs: float = 0.0, s8_limbs: int | None = None, int32_ops: float = 0.0) -> dict:
+    """The least time the card could take, ms, and what binds it.
+
+    nbytes: every input read once and every output written once. macs:
+    multiply-adds on 32-bit words mod 2^32 when s8_limbs is the number of s8
+    limb products one of them splits into (the better of the CUDA cores and
+    the tensor cores is taken), or plain s8 multiply-adds when s8_limbs is
+    None. int32_ops: other 32-bit integer operations (adds), CUDA cores."""
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    out = {"bytes_ms": bytes_ms}
+    if s8_limbs is None:
+        ops_ms = macs / PEAK_S8_MACS * 1e3
+    else:
+        out["int32_cuda_core_ms"] = macs / PEAK_INT32_MACS * 1e3
+        out["s8_tensor_core_ms"] = macs * s8_limbs / PEAK_S8_MACS * 1e3
+        out["s8_limbs_per_mac"] = s8_limbs
+        ops_ms = min(out["int32_cuda_core_ms"], out["s8_tensor_core_ms"])
+    ops_ms += int32_ops / PEAK_INT32_MACS * 1e3
+    out["bound_ms"] = max(bytes_ms, ops_ms)
+    out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return out
+
+
+def rotation_bound(p, batch: int, tv_words: int, multibit: bool) -> dict:
+    """Bound of one blind rotation of `batch` ciphertexts: n0 steps (n0/2
+    groups with a multi-bit key) of 2L x 2 negacyclic products of N x N
+    multiply-adds; the key streamed once. One 32-bit multiply-add is
+    (4 - dropped limbs of the key) x (digit limbs) s8 products."""
+    g, n = p.trgsw_lv1, p.n1
+    steps = p.n0 // 2 if multibit else p.n0
+    macs = batch * steps * 2 * g.l * 2 * n * n
+    key_words = (p.n0 // 2 * 4 if multibit else p.n0) * 2 * g.l * 2 * n
+    nbytes = 4 * (batch * (p.n0 + 1) + tv_words + key_words + batch * 2 * n)
+    limbs = (4 - p.bsk_round_bits // 8) * -(-g.bgbit // 8)
+    return {"macs": macs, **bound(nbytes, macs, limbs)}
+
+
+def case_row(case: str, ms: float, plain_ms: float, bnd: dict) -> dict:
+    """One compared case as it goes into the kernels line."""
+    return {"case": case, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"], "bound": bnd}
+
+
+def show_bound(b: dict) -> str:
+    return f"bound {b['bound_ms']:.3g} ms by {b['bound_by']}"
 
 
 def phase_environment() -> str:
@@ -192,6 +273,7 @@ def phase_kernel_vs_plain(dev) -> dict:
     for p, bsk, batch, per_ct in cases:
         n = p.n1
         tv = rnd((batch, 2, n) if per_ct else (2, n))
+        bnd = rotation_bound(p, batch, tv.numel(), multibit=False)
         b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
         out, tile = launched_tile(cuda_blind_rotate, lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p))
         tiles.add(tile)
@@ -210,13 +292,14 @@ def phase_kernel_vs_plain(dev) -> dict:
         print(
             f"[3a] blind_rotate {name} B={batch} testvec={'per-ct' if per_ct else 'shared'} "
             f"(N={tile[0]}, tile {tile[1]}): equal={torch.equal(out, ref)} max_abs_err={err} "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms"
+            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, {show_bound(bnd)}"
         )
         check(torch.equal(out, ref), f"kernel == plain at {name} B={batch}")
-        rows[(name, batch, per_ct)] = (k_ms, p_ms)
-    k_ms, p_ms = rows[("128_BIT_FAST", 4096, False)]
+        rows[(name, batch, per_ct)] = case_row(f"{name} B={batch}" + (" per-ct testvec" if per_ct else ""),
+                                               k_ms, p_ms, bnd)
     print(f"[3a] done {elapsed()}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "tiles_compared": tile_list(tiles)}
+    return {"max_abs_err": max_err, **rows[("128_BIT_FAST", 4096, False)], "library_ms": None,
+            "cases": list(rows.values()), "tiles_compared": tile_list(tiles)}
 
 
 def phase_mb_kernel_vs_plain(dev) -> dict:
@@ -250,6 +333,7 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
     for p, key, batch, per_ct in cases:
         n = p.n1
         tv = rnd((batch, 2, n) if per_ct else (2, n))
+        bnd = rotation_bound(p, batch, tv.numel(), multibit=True)
         b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
         out, tile = launched_tile(cuda_blind_rotate_mb, lambda: blind_rotate_mb_kernel(b_til, a_til, tv, key, p))
         tiles.add(tile)
@@ -267,20 +351,21 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         print(
             f"[3b] blind_rotate_mb {name} B={batch} testvec={'per-ct' if per_ct else 'shared'} "
             f"(N={tile[0]}, tile {tile[1]}): equal={torch.equal(out, ref)} max_abs_err={err} "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms"
+            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, {show_bound(bnd)}"
         )
         check(torch.equal(out, ref), f"multi-bit kernel == plain at {name} B={batch}")
-        rows[(name, batch, per_ct)] = (k_ms, p_ms)
-    k_ms, p_ms = rows[("128_BIT_FAST", 1, False)]
+        rows[(name, batch, per_ct)] = case_row(f"{name} B={batch}" + (" per-ct testvec" if per_ct else ""),
+                                               k_ms, p_ms, bnd)
     print(f"[3b] done {elapsed()}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "tiles_compared": tile_list(tiles)}
+    return {"max_abs_err": max_err, **rows[("128_BIT_FAST", 1, False)], "library_ms": None,
+            "cases": list(rows.values()), "tiles_compared": tile_list(tiles)}
 
 
 def phase_step_kernel_vs_plain(dev) -> dict:
     from rs_tfhe_tpu_torch import params as P
     from rs_tfhe_tpu_torch.ops import cuda_step
     from rs_tfhe_tpu_torch.ops.cuda_step import external_product_kernel
-    from rs_tfhe_tpu_torch.ops.poly import polymul_small_by_torus
+    from rs_tfhe_tpu_torch.ops.poly import _step_circulant, polymul_small_by_torus
 
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     rnd = _rnd(g, dev)
@@ -297,14 +382,23 @@ def phase_step_kernel_vs_plain(dev) -> dict:
         max_err = max(max_err, err)
         k_ms = cuda_ms(lambda: external_product_kernel(digits, trgsw, p), 5)
         p_ms = cuda_ms(lambda: polymul_small_by_torus(digits, trgsw, gp.half_bg), 5)
+        # the one PyTorch call that computes the product: the float64 matmul
+        # inside the plain version, on operands laid out beforehand
+        lhs, circ = digits.reshape(batch, -1).to(torch.float64), _step_circulant(trgsw)
+        lib_ms = cuda_ms(lambda: torch.matmul(lhs, circ), 5)
+        del lhs, circ
+        macs = batch * 2 * gp.l * 2 * n * n
+        limbs = 4 * -(-gp.bgbit // 8)
+        bnd = {"macs": macs, **bound(4 * (digits.numel() + trgsw.numel() + out.numel()), macs, limbs)}
         name = _name(p)
         print(f"[3c] external_product {name} B={batch} (N={tile[0]}, tile {tile[1]}): "
-              f"equal={torch.equal(out, ref)} max_abs_err={err} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+              f"equal={torch.equal(out, ref)} max_abs_err={err} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"float64 torch.matmul {lib_ms:.3f} ms, {show_bound(bnd)}")
         check(torch.equal(out, ref), f"step kernel == plain at {name} B={batch}")
-        rows[name] = (k_ms, p_ms)
-    k_ms, p_ms = rows["128_BIT_FAST"]
+        rows[name] = {**case_row(f"{name} B={batch}", k_ms, p_ms, bnd), "library_ms": lib_ms}
     print(f"[3c] done {elapsed()}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "tiles_compared": tile_list(tiles)}
+    return {"max_abs_err": max_err, **rows["128_BIT_FAST"], "cases": list(rows.values()),
+            "tiles_compared": tile_list(tiles)}
 
 
 def phase_crossover(dev) -> dict:
@@ -321,7 +415,7 @@ def phase_crossover(dev) -> dict:
     plan = (
         (P.SECURITY_128_BIT_FAST, (1, 256, 4096)),
         (P.SECURITY_128_BIT, (1, 512)),
-        (P.SECURITY_128_BIT_RADIX, (1, 256)),
+        (P.SECURITY_128_BIT_RADIX, (1, 256, 2048)),
     )
     for p, batches in plan:
         n, gp = p.n1, p.trgsw_lv1
@@ -330,19 +424,28 @@ def phase_crossover(dev) -> dict:
         name = _name(p)
         for batch in batches:
             b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
-            std = cuda_ms(lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p), 1)
-            mb = cuda_ms(lambda: blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p), 1)
-            table[f"{name} B={batch}"] = {"blind_rotate_ms": std, "blind_rotate_mb_ms": mb}
-            print(f"[3d] {name} B={batch}: blind_rotate {std:.2f} ms, blind_rotate_mb {mb:.2f} ms "
-                  f"({'multi-bit' if mb < std else 'standard'} faster)")
+            if batch >= 2048:  # seconds each: one timed call, no warm-up (both kernels ran above)
+                std = timed(lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p))[1]
+                mb = timed(lambda: blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p))[1]
+            else:
+                std = cuda_ms(lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p), 1)
+                mb = cuda_ms(lambda: blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p), 1)
+            bnds = [rotation_bound(p, batch, tv.numel(), multibit=m) for m in (False, True)]
+            table[f"{name} B={batch}"] = {"blind_rotate_ms": std, "blind_rotate_mb_ms": mb,
+                                          "blind_rotate_bound_ms": bnds[0]["bound_ms"],
+                                          "blind_rotate_mb_bound_ms": bnds[1]["bound_ms"]}
+            print(f"[3d] {name} B={batch}: blind_rotate {std:.2f} ms ({show_bound(bnds[0])}), blind_rotate_mb "
+                  f"{mb:.2f} ms ({show_bound(bnds[1])}; {'multi-bit' if mb < std else 'standard'} faster)")
     print(f"[3d] crossover table: {json.dumps(table)}")
     print(f"[3d] done {elapsed()}")
     return table
 
 
 def phase_fixture(dev) -> None:
-    from rs_tfhe_tpu_torch import gates, key
+    from rs_tfhe_tpu_torch import bit_utils, gates, key
     from rs_tfhe_tpu_torch.bootstrap import bootstrap_with_testvec
+    from rs_tfhe_tpu_torch.lut import factor_test_vectors, multi_value_bootstrap
+    from rs_tfhe_tpu_torch.models import circuits, netlist
     from rs_tfhe_tpu_torch.ops.blind_rotate import blind_rotate, rotation_exponents
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate_mb import blind_rotate_mb_kernel
     from rs_tfhe_tpu_torch.ops.extract import sample_extract
@@ -382,6 +485,33 @@ def phase_fixture(dev) -> None:
         "pbs_std": bootstrap_with_testvec(m, lut, ck, allow_mb=False),
         "pbs_mb_per_ct": bootstrap_with_testvec(m, lut_per_ct, ck, allow_mb=True),
     }, v, os.path.basename(FIXTURE_MB))
+
+    v = np.load(FIXTURE_CIRCUITS)
+    sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY, dev)
+    ck = key.cloud_key_from_numpy(v, TEST_TINY, dev)
+    xs, ys, m, luts = (to_torch(v[n], dev) for n in ("ct_x", "ct_y", "ct_m", "luts"))
+    ckt, _, _, sums = netlist.ripple_carry_adder(xs.shape[1])
+    adder_in = torch.cat([xs[0], ys[0]])
+    outputs = {
+        "adder_wires": netlist.evaluate(ckt, adder_in, ck),
+        "add_kogge_stone": circuits.add_kogge_stone(xs, ys, ck),
+        "mul_csa": circuits.mul_csa(xs, ys, ck),
+        "multi_value": multi_value_bootstrap(m, factor_test_vectors(list(luts)), ck),
+    }
+    compare(outputs, v, os.path.basename(FIXTURE_CIRCUITS))
+    compiled = netlist.compile_circuit(ckt)(adder_in, ck)
+    check(np.array_equal(to_numpy(compiled), v["adder_wires"]), "compile_circuit equals the JAX fixture")
+    mask = (1 << xs.shape[1]) - 1
+    for i, (x, y) in enumerate(v["pairs"]):
+        check(bit_utils.decrypt_uint(outputs["add_kogge_stone"][i], sk.lv0) == (x + y) & mask, "fixture sum decrypts")
+        check(bit_utils.decrypt_uint(outputs["mul_csa"][i], sk.lv0) == (x * y) & mask, "fixture product decrypts")
+    check(bit_utils.decrypt_uint(outputs["adder_wires"][sums], sk.lv0) == int(v["pairs"][0].sum()) & mask,
+          "fixture adder decrypts")
+    from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_message
+
+    for k, f in enumerate(FIXTURE_MV_FUNCTIONS):
+        got = lwe_decrypt_message(outputs["multi_value"][:, k], sk.lv0, FIXTURE_MV_MODULUS)
+        check(bool((got == f(v["msgs"])).all()), f"fixture multi-value output {k} decrypts")
     print(f"[4] done {elapsed()}")
 
 
@@ -531,10 +661,9 @@ def run_pbs(p, dev, label: str) -> dict:
     print(f"[{label}] keygen (multibit=True) {keygen_ms:.1f} ms; B=2048 (3v mod 8): correctness {correct:.6f}, "
           f"{2048 / batch_s:.1f} PBS/s ({batch_s * 1e3:.1f} ms per batch, multi-bit route)")
     lut3 = Generator(modulus, p).generate_lookup_table(f).poly.to(dev)
-    out = bootstrap_with_testvec(ct, lut3, ck, allow_mb=False)
+    out, std_ms = timed(lambda: bootstrap_with_testvec(ct, lut3, ck, allow_mb=False))
     check(bool((lwe_decrypt_message(out, sk.lv0, modulus) == f(msgs)).all()),
           f"{label}: every PBS of the B=2048 batch decrypts correctly with allow_mb=False")
-    _, std_ms = timed(lambda: bootstrap_with_testvec(ct, lut3, ck, allow_mb=False))
     print(f"[{label}] the same batch with allow_mb=False (whole-rotation kernel): 100% correct, "
           f"{2048e3 / std_ms:.1f} PBS/s ({std_ms:.1f} ms)")
     stages = _stage_split(ct, lut3, ck)
@@ -644,14 +773,276 @@ def run_pallas_route(p, batch: int, dev, label: str) -> dict:
     return {"gates_per_s_pallas": batch / pallas_s, "gates_per_s_default": batch / default_s}
 
 
+def _load_script(name: str):
+    """scripts/<name>.py as a module (the probe scripts live there)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_script_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_probes_vs_plain(dev) -> dict:
+    """Each of the seven probe kernels against its plain version on random
+    inputs, with times, bound and, where one PyTorch call computes the same
+    function, that call's time. Returns the kernels-line fields by wrapper
+    name."""
+    from rs_tfhe_tpu_torch.ops import cuda_probes as CP
+
+    bench = _load_script("bench_hopper_prims")
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    ranges = {torch.int8: (-128, 128), torch.int16: (-(1 << 15), 1 << 15), torch.int32: (-(1 << 31), 1 << 31)}
+
+    def rnd(shape, dtype):
+        return torch.randint(*ranges[dtype], shape, generator=g, dtype=dtype, device=dev)
+
+    def compare(label, kernel, plain, bnd, library=None, reps=20):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        outs, refs = (out if isinstance(out, tuple) else (out,)), (ref if isinstance(ref, tuple) else (ref,))
+        same = all(torch.equal(o, r) for o, r in zip(outs, refs))
+        err = max(int((o.to(torch.int64) - r.to(torch.int64)).abs().max()) for o, r in zip(outs, refs))
+        k_ms, p_ms = cuda_ms(kernel, reps), cuda_ms(plain, reps)
+        lib_ms = cuda_ms(library, reps) if library is not None else None
+        lib = f", library call {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"[3e] {label}: equal={same} max_abs_err={err} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
+              f"{show_bound(bnd)}")
+        check(same, f"probe kernel == plain version: {label}")
+        return {**case_row(label, k_ms, p_ms, bnd), "library_ms": lib_ms, "max_abs_err": err}
+
+    m, k, n = 128, 1024, 256
+    dots, correct = [], []
+    for dtype, size in ((torch.int8, 1), (torch.int16, 2), (torch.int32, 4)):
+        a, b = rnd((m, k), dtype), rnd((k, n), dtype)
+        nbytes = size * (m * k + k * n) + 4 * m * n
+        bnd = bound(nbytes, m * k * n) if dtype == torch.int8 else bound(nbytes, m * k * n, size)
+        int_mm = getattr(torch, "_int_mm", None) if dtype == torch.int8 else None
+        name = str(dtype).removeprefix("torch.")
+        dots.append(compare(f"probe_dot {name} [{m},{k}]x[{k},{n}] on the {CP.dot_unit(dtype)}",
+                            lambda: CP.probe_dot(a, b), lambda: CP.dot_plain(a, b), bnd,
+                            (lambda: int_mm(a, b)) if int_mm is not None else None))
+        # P5: operands from numpy's default_rng(0) against the int64 numpy product (raises on a difference)
+        out = CP.probe_dot_correct_s16(dev, dtype)
+        ra, rb = (torch.from_numpy(v).to(dev) for v in CP.dot_correct_operands(dtype))
+        check(torch.equal(out, CP.dot_plain(ra, rb)), f"probe_dot_correct {name}: kernel == plain version")
+        correct.append(compare(f"probe_dot_correct {name} (default_rng(0) operands; equal to the int64 numpy product)",
+                               lambda: CP.probe_dot(ra, rb), lambda: CP.dot_plain(ra, rb), bnd))
+
+    rolls = []
+    for dtype, size in ((torch.int8, 1), (torch.int16, 2), (torch.int32, 4)):
+        x = rnd((8, 256), dtype)
+        rolls.append(compare(f"probe_roll {str(dtype).removeprefix('torch.')} [8,256] by 5", lambda: CP.probe_roll(x, 5),
+                             lambda: CP.roll_plain(x, 5), bound(2 * size * x.numel()),
+                             lambda: torch.roll(x, 5, dims=1)))
+    x = rnd((8, 256), torch.int32)
+    bitcast = compare("probe_bitcast_i32_to_i8 [8,256]", lambda: CP.probe_bitcast_i32_to_i8(x),
+                      lambda: CP.bitcast_i32_to_i8_plain(x), bound(8 * x.numel()), lambda: x.view(torch.int8))
+    unpack = compare("probe_unpack_s16 [8,256]", lambda: CP.probe_unpack_s16(x), lambda: CP.unpack_s16_plain(x),
+                     bound(8 * x.numel()))
+
+    chains = []
+    steps = 3
+    for _, shapes in bench.DOT_SHAPES:
+        for m, k, n, _label in shapes:
+            a0, b = rnd((m, k), torch.int8), rnd((k, n), torch.int8)
+            fm = CP.chain_shape(m, k)[1]
+            nbytes = m * k + k * n + 4 * (m * n + fm * k)
+            plain = CP.chain_dot_plain(a0, b, steps)
+            for unit in ("tensor", "imad"):
+                res = CP.chain_dot(a0, b, steps, unit=unit)
+                torch.cuda.synchronize()
+                same = torch.equal(res.acc, plain[0]) and torch.equal(res.fb, plain[1])
+                check(same, f"chain_dot [{m},{k}]x[{k},{n}] on {unit} == plain version after {steps} steps")
+            reps = 1 if m * k * n > 1 << 32 else 5
+            k_ms = cuda_ms(lambda: CP.chain_dot(a0, b, steps, unit="tensor"), reps) / steps
+            i_ms = cuda_ms(lambda: CP.chain_dot(a0, b, steps, unit="imad"), reps) / steps
+            p_ms = cuda_ms(lambda: CP.chain_dot_plain(a0, b, steps), reps) / steps
+            bnd = bound(nbytes / steps, m * k * n)
+            print(f"[3e] chain_dot [{m},{k}]x[{k},{n}] {steps} steps: both units equal to the plain version, "
+                  f"max_abs_err=0; per dot: mma.sync {k_ms:.4f} ms, int32 {i_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"{show_bound(bnd)}")
+            chains.append({**case_row(f"[{m},{k}]x[{k},{n}] per dot", k_ms, p_ms, bnd), "int32_unit_ms": i_ms,
+                           "library_ms": None, "max_abs_err": 0})
+    roll_adds = []
+    reps_chain = 4
+    for rows_, cols in bench.ROLL_SHAPES:
+        x = rnd((rows_, cols), torch.int32)
+        bnd = bound(8 * x.numel(), int32_ops=reps_chain * 16 * x.numel())
+        roll_adds.append(compare(f"chain_roll_add [{rows_},{cols}] {reps_chain * 16} steps",
+                                 lambda: CP.chain_roll_add(x, reps_chain), lambda: CP.chain_roll_add_plain(x, reps_chain),
+                                 bnd, reps=5))
+    print(f"[3e] done {elapsed()}")
+
+    def entry(cases, main=0):
+        row = {k: v for k, v in cases[main].items() if k != "case"}
+        return {**row, "max_abs_err": max(c["max_abs_err"] for c in cases), "case": cases[main]["case"],
+                "cases": cases}
+
+    return {
+        "probe_dot": entry(dots), "probe_dot_correct_s16": entry(correct, main=1), "probe_roll": entry(rolls),
+        "probe_bitcast_i32_to_i8": entry([bitcast]), "probe_unpack_s16": entry([unpack]),
+        "chain_dot": entry(chains, main=len(chains) - 1), "chain_roll_add": entry(roll_adds),
+    }
+
+
+def run_probe_scripts(dev) -> dict:
+    """The probes' own path: the two probe scripts, as a user runs them."""
+    ok = _load_script("probe_hopper").main(dev)
+    check(ok, "every capability probe passed")
+    rates = _load_script("bench_hopper_prims").main(dev)
+    print(f"[10] done {elapsed()}")
+    return rates
+
+
+def _profile_idle(fn) -> dict:
+    """Device busy time and idle share over one fn() call (torch.profiler):
+    the sum of the kernels' and copies' durations against the span from the
+    first one's start to the last one's end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(spans), "the profiler traced device activity")
+    busy_us = sum(end - start for start, end in spans)
+    span_us = max(end for _, end in spans) - min(start for start, _ in spans)
+    return {"device_busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3, "idle_share": 1.0 - busy_us / span_us,
+            "device_activities": len(spans)}
+
+
+def run_circuits(p, dev, label: str, multibit: bool) -> dict:
+    """Boolean circuits at full width: the 32-bit ripple-carry adder through
+    the netlist evaluator and its compiled form, a batch of Kogge-Stone
+    additions and a batch of carry-save multiplications."""
+    from rs_tfhe_tpu_torch import bit_utils
+    from rs_tfhe_tpu_torch.models import circuits, netlist
+
+    kind = "multi-bit" if multibit else "standard"
+    sk, ck, g, _ = _keygen(p, dev, SEED + 80, multibit=multibit)
+    alpha = p.tlwe_lv0.alpha
+    rng = np.random.default_rng(SEED + 81)
+    x, y = (int(v) for v in rng.integers(0, 1 << 32, 2))
+    ckt, _, _, sums = netlist.ripple_carry_adder(32)
+    plan = netlist.plan(ckt)
+    boot = [(end - start) for start, end, op, _ in plan.groups if op not in ("not", "copy")]
+    inputs = torch.cat([bit_utils.encrypt_uint(g, sk.lv0, x, 32, alpha), bit_utils.encrypt_uint(g, sk.lv0, y, 32, alpha)])
+    check(inputs.is_cuda, f"{label}: encrypt_uint made its ciphertexts on the card")
+
+    t0 = time.perf_counter()
+    wires = netlist.evaluate(ckt, inputs, ck)
+    got = bit_utils.decrypt_uint(wires[sums], sk.lv0)
+    eval_s = time.perf_counter() - t0
+    check(got == (x + y) % (1 << 32), f"{label}: evaluate(ripple_carry_adder(32)) decrypts to (x + y) mod 2^32")
+    run = netlist.compile_circuit(ckt, plan)
+    t0 = time.perf_counter()
+    wires2 = run(inputs, ck)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check(torch.equal(wires2, wires), f"{label}: compile_circuit's run equals evaluate bit for bit")
+    check(bit_utils.decrypt_uint(wires2[sums], sk.lv0) == (x + y) % (1 << 32),
+          f"{label}: the compiled adder decrypts to (x + y) mod 2^32")
+    print(f"[{label}] {_name(p)} {kind} key, ripple_carry_adder(32): {len(ckt.gates)} gates in {len(plan.groups)} "
+          f"plan groups ({len(boot)} bootstrapped, {sum(boot)} gates, largest {max(boot)}); {x} + {y} correct; "
+          f"evaluate {eval_s:.3f} s, compiled run {run_s:.3f} s (enqueued in {enqueue_s:.3f} s), "
+          f"{sum(boot) / run_s:.1f} gates/s through the plan {elapsed()}")
+    out = {"adder32_groups": len(plan.groups), "adder32_bootstrapped_groups": len(boot),
+           "adder32_bootstrapped_gates": sum(boot), "adder32_evaluate_s": eval_s, "adder32_compiled_s": run_s,
+           "adder32_compiled_enqueue_s": enqueue_s, "adder32_gates_per_s": sum(boot) / run_s}
+    if multibit:  # the shorter of the two compiled runs carries the profile
+        idle = _profile_idle(lambda: run(inputs, ck))
+        print(f"[{label}] one compiled adder run under torch.profiler: {json.dumps(idle)}")
+        out["adder32_compiled_profile"] = idle
+
+    def enc_batch(vals, width):
+        return torch.stack([bit_utils.encrypt_uint(g, sk.lv0, int(v), width, alpha) for v in vals])
+
+    ks_batch = 16 if multibit else 4
+    xs, ys = rng.integers(0, 1 << 32, ks_batch), rng.integers(0, 1 << 32, ks_batch)
+    a, b = enc_batch(xs, 32), enc_batch(ys, 32)
+    t0 = time.perf_counter()
+    total = circuits.add_kogge_stone(a, b, ck)
+    torch.cuda.synchronize()
+    ks_s = time.perf_counter() - t0
+    got = [bit_utils.decrypt_uint(row, sk.lv0) for row in total]
+    check(got == [int(v) for v in (xs + ys) % (1 << 32)], f"{label}: every Kogge-Stone sum of the batch is right")
+    mul_batch = 2
+    xs8, ys8 = rng.integers(0, 256, mul_batch), rng.integers(0, 256, mul_batch)
+    a8, b8 = enc_batch(xs8, 8), enc_batch(ys8, 8)
+    t0 = time.perf_counter()
+    prod = circuits.mul_csa(a8, b8, ck)
+    torch.cuda.synchronize()
+    mul_s = time.perf_counter() - t0
+    got = [bit_utils.decrypt_uint(row, sk.lv0) for row in prod]
+    check(got == [int(v) for v in (xs8 * ys8) % 256], f"{label}: every carry-save product of the batch is right")
+    print(f"[{label}] add_kogge_stone on {ks_batch} pairs of 32 bits: all correct, {ks_s:.3f} s "
+          f"({ks_s / ks_batch * 1e3:.1f} ms per addition); mul_csa on {mul_batch} pairs of 8 bits: all correct, "
+          f"{mul_s:.3f} s {elapsed()}")
+    out.update({"kogge_stone_add32_batch": ks_batch, "kogge_stone_add32_s": ks_s,
+                "mul_csa8_batch": mul_batch, "mul_csa8_s": mul_s})
+    return out
+
+
+def run_multi_value(p, dev, label: str) -> dict:
+    """Two LUTs from one rotation on B = 2048 messages, against the
+    dedicated bootstrap of each LUT."""
+    from rs_tfhe_tpu_torch import lut
+    from rs_tfhe_tpu_torch.bootstrap import bootstrap_with_testvec
+    from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_message, lwe_encrypt_message
+
+    modulus, batch = 8, 2048
+    fs = (lambda v: (v + 1) % modulus, lambda v: (3 * v) % modulus)
+    sk, ck, g, _ = _keygen(p, dev, SEED + 90, multibit=True)
+    msgs = np.random.default_rng(SEED + 91).integers(0, modulus, batch)
+    ct = lwe_encrypt_message(g, sk.lv0, msgs, modulus, p.tlwe_lv0.alpha)
+    gen = lut.Generator(modulus, p)
+    polys = [gen.generate_lookup_table(f).poly.to(dev) for f in fs]
+    mv = lut.factor_test_vectors(polys)
+    check(mv.tv0.is_cuda, f"{label}: the factored accumulator lies on the card")
+    out, mv_ms = timed(lambda: lut.multi_value_bootstrap(ct, mv, ck))
+    check(tuple(out.shape) == (batch, len(fs), p.n0 + 1), f"{label}: output shape [B, K, n0+1]")
+    dedicated_ms = 0.0
+    for k, f in enumerate(fs):
+        got = lwe_decrypt_message(out[:, k], sk.lv0, modulus)
+        ded, ms = timed(lambda k=k: bootstrap_with_testvec(ct, polys[k], ck))
+        dedicated_ms += ms
+        want = lwe_decrypt_message(ded, sk.lv0, modulus)
+        check(bool((want == f(msgs)).all()), f"{label}: the dedicated bootstrap of LUT {k} is right")
+        check(bool((got == want).all()), f"{label}: multi-value output {k} decrypts as the dedicated bootstrap")
+    print(f"[{label}] {_name(p)} multi_value_bootstrap B={batch}, {len(fs)} LUTs (norms {[round(x, 2) for x in mv.norms]}): "
+          f"every output decrypts as its dedicated bootstrap; {mv_ms:.1f} ms (one rotation with the standard key) "
+          f"against {dedicated_ms:.1f} ms for the {len(fs)} dedicated bootstraps (multi-bit route) {elapsed()}")
+    return {"multi_value_ms_b2048": mv_ms, "dedicated_ms_b2048": dedicated_ms, "n_luts": len(fs)}
+
+
+#: kernels-line name -> (source, file:line of the TPU kernel it replaces, others it also replaces)
+SOURCES = {
+    "blind_rotate": ("rs_tfhe_tpu_torch/csrc/blind_rotate.cu", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:929",
+                     ["rs_tfhe_tpu/ops/pallas_blind_rotate.py:828", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:725"]),
+    "blind_rotate_mb": ("rs_tfhe_tpu_torch/csrc/blind_rotate_mb.cu", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:668", []),
+    "external_product": ("rs_tfhe_tpu_torch/csrc/external_product.cu", "rs_tfhe_tpu/ops/pallas_step.py:91", []),
+    "probe_dot": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/probe_mosaic.py:33", []),
+    "probe_roll": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/probe_mosaic.py:50", []),
+    "probe_bitcast_i32_to_i8": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/probe_mosaic.py:63", []),
+    "probe_unpack_s16": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/probe_mosaic.py:76", []),
+    "probe_dot_correct_s16": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/probe_mosaic.py:96", []),
+    "chain_dot": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/bench_kernel_prims.py:46", []),
+    "chain_roll_add": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/bench_kernel_prims.py:120", []),
+}
+
+
 def main() -> int:
     smi = phase_environment()
     import rs_tfhe_tpu_torch  # noqa: F401  (fails outside a checkout)
     from rs_tfhe_tpu_torch import params as P
-    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_step
+    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_probes, cuda_step
 
     modules = {"blind_rotate": cuda_blind_rotate, "blind_rotate_mb": cuda_blind_rotate_mb,
                "external_product": cuda_step}
+    probe_names = [k for k in SOURCES if k not in modules]
 
     path_tiles = {k: set() for k in modules}
 
@@ -661,12 +1052,15 @@ def main() -> int:
         for m in modules.values():
             m.launches = 0
             m.launched_tiles.clear()
+        cuda_probes.launches.clear()
         out = fn(*args)
         counts = {k: m.launches for k, m in modules.items()}
+        counts.update({k: cuda_probes.launches[k] for k in probe_names})
         tiles = {k: tile_list(m.launched_tiles) for k, m in modules.items()}
         for k, m in modules.items():
             path_tiles[k].update(m.launched_tiles)
-        print(f"[{path}] kernel launches on this path: {counts}; (N, tile) launched: {tiles}")
+        print(f"[{path}] kernel launches on this path: { {k: v for k, v in counts.items() if v} }; "
+              f"(N, tile) launched: {tiles}")
         return out, counts
 
     dev = torch.device("cuda", 0)
@@ -678,6 +1072,7 @@ def main() -> int:
         "external_product": phase_step_kernel_vs_plain(dev),
     }
     crossover = phase_crossover(dev)
+    compare.update(phase_probes_vs_plain(dev))
     phase_fixture(dev)
 
     def gate_path():
@@ -699,38 +1094,47 @@ def main() -> int:
     check(paths["pbs_radix"]["blind_rotate"] > 0, "the PBS path launched the blind-rotation kernel")
     results["pallas"], paths["pallas"] = drive("9", run_pallas_route, P.SECURITY_128_BIT_FAST, 4096, dev, "9")
     check(paths["pallas"]["external_product"] > 0, "the per-step route launched the step kernel")
-    print(f"[5-9] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+    results["probes"], paths["probes"] = drive("10", run_probe_scripts, dev)
+    for name in probe_names:
+        check(paths["probes"][name] > 0, f"the probe scripts launched {name}")
+    fast = P.SECURITY_128_BIT_FAST
+    results["circuits_std"], paths["circuits_std"] = drive("11", run_circuits, fast, dev, "11", False)
+    check(paths["circuits_std"]["blind_rotate"] > 0, "circuits with a standard key launched the blind-rotation kernel")
+    results["circuits_mb"], paths["circuits_mb"] = drive("11", run_circuits, fast, dev, "11", True)
+    check(paths["circuits_mb"]["blind_rotate_mb"] > 0, "circuits with a multi-bit key launched the multi-bit kernel")
+    results["multi_value"], paths["multi_value"] = drive("12", run_multi_value, P.SECURITY_128_BIT_RADIX, dev, "12")
+    check(paths["multi_value"]["blind_rotate"] > 0, "multi-value bootstrapping launched the blind-rotation kernel")
+    check(paths["multi_value"]["blind_rotate_mb"] > 0, "the dedicated bootstraps launched the multi-bit kernel")
+    print(f"[5-12] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"total {elapsed()}")
     for name in modules:
         compared = {tuple(t) for t in compare[name]["tiles_compared"]}
         missing = path_tiles[name] - compared
-        print(f"[5-9] {name}: (N, tile) on the paths {tile_list(path_tiles[name])}, "
+        print(f"[5-12] {name}: (N, tile) on the paths {tile_list(path_tiles[name])}, "
               f"held against the plain version in phase 3: {tile_list(compared)}")
         check(not missing, f"every {name} instantiation the paths launched was held against the plain "
                            f"version (missing: {tile_list(missing)})")
 
-    sources = {
-        "blind_rotate": ("rs_tfhe_tpu_torch/csrc/blind_rotate.cu", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:929",
-                         ["rs_tfhe_tpu/ops/pallas_blind_rotate.py:828",
-                          "rs_tfhe_tpu/ops/pallas_blind_rotate.py:725"]),
-        "blind_rotate_mb": ("rs_tfhe_tpu_torch/csrc/blind_rotate_mb.cu",
-                            "rs_tfhe_tpu/ops/pallas_blind_rotate.py:668", []),
-        "external_product": ("rs_tfhe_tpu_torch/csrc/external_product.cu", "rs_tfhe_tpu/ops/pallas_step.py:91", []),
-    }
     kernels = []
-    for name, (source, replaces, also) in sources.items():
+    for name, (source, replaces, also) in SOURCES.items():
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(c[name] for c in paths.values()),
-            "launches_by_path": {k: c[name] for k, c in paths.items()},
-            "tiles_on_path": tile_list(path_tiles[name]),
+            "launches_by_path": {k: c[name] for k, c in paths.items() if c[name]},
             **compare[name],
         }
+        if name in modules:
+            entry["tiles_on_path"] = tile_list(path_tiles[name])
         if also:
             entry["also_replaces"] = also
+        missing = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                   "bound_ms", "bound_by", "library_ms"} - entry.keys()
+        check(not missing, f"kernel {name} has every key of the kernels line (missing: {sorted(missing)})")
         kernels.append(entry)
     print(smi)
-    print(json.dumps({"kernels": kernels, "main_path": results, "crossover_ms": crossover, "card": smi}))
+    print(json.dumps({"kernels": kernels, "main_path": results, "crossover_ms": crossover, "card": smi,
+                      "peaks": {"bytes_per_s": PEAK_BYTES, "s8_macs_per_s": PEAK_S8_MACS,
+                                "int32_macs_per_s": PEAK_INT32_MACS}}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

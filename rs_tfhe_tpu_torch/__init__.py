@@ -4,9 +4,9 @@ hand-written CUDA kernels for NVIDIA Hopper.
 A port of `rs_tfhe_tpu` (the JAX package, which stays the reference): the
 same modules at the same relative paths, the same parameter sets, and the
 same exact arithmetic mod 2^32, carried as two's-complement int32 tensors.
-The blind rotation runs in a hand-written kernel (csrc/blind_rotate.cu) on a
-CUDA tensor and in a plain PyTorch version on a CPU tensor; everything else
-is plain PyTorch. This package never imports JAX.
+The blind rotations run in hand-written kernels (csrc/*.cu) on a CUDA tensor
+and in plain PyTorch versions on a CPU tensor; everything else is plain
+PyTorch. This package never imports JAX.
 """
 
 __version__ = "0.4.0"
@@ -33,6 +33,6 @@ from .params import (  # noqa: F401
     security_info,
 )
 
-from . import bootstrap, gates, tlwe, trgsw, trlwe  # noqa: F401,E402
-from .bootstrap import VanillaBootstrap, default_bootstrap  # noqa: F401,E402
+from . import bit_utils, bootstrap, gates, lut, models, tlwe, trgsw, trlwe, utils  # noqa: F401,E402
+from .bootstrap import LutBootstrap, VanillaBootstrap, default_bootstrap  # noqa: F401,E402
 from .key import CloudKey, SecretKey  # noqa: F401,E402

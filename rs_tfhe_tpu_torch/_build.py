@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("blind_rotate.cu", "blind_rotate_mb.cu", "external_product.cu")
+    for name in ("blind_rotate.cu", "blind_rotate_mb.cu", "external_product.cu", "probes.cu")
 )
 _OUT_ROOT = _PKG / "_kernels_build"
 _FLAGS = (
@@ -114,6 +114,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("tfhe_blind_rotate", "tfhe_blind_rotate_mb", "tfhe_external_product"):
         getattr(lib, f"{name}_max_tile").argtypes = [i]
         getattr(lib, f"{name}_max_tile").restype = i
+    ll = ctypes.c_longlong
+    lib.tfhe_probe_dot_s8.argtypes = [p, p, p, p, i, i, i, p]
+    lib.tfhe_probe_dot_imad.argtypes = [p, p, p, i, i, i, i, p]
+    lib.tfhe_probe_roll.argtypes = [p, p, i, i, i, i, p]
+    lib.tfhe_probe_bitcast_i32_to_i8.argtypes = [p, p, ll, p]
+    lib.tfhe_probe_unpack_s16.argtypes = [p, p, p, ll, p]
+    lib.tfhe_probe_chain_dot.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, ctypes.POINTER(i), p,
+    ]
+    lib.tfhe_probe_roll_add.argtypes = [p, p, i, i, i, p]
+    for name in ("dot_s8", "dot_imad", "roll", "bitcast_i32_to_i8", "unpack_s16", "chain_dot", "roll_add"):
+        getattr(lib, f"tfhe_probe_{name}").restype = i
     lib.tfhe_cuda_error_string.argtypes = [i]
     lib.tfhe_cuda_error_string.restype = ctypes.c_char_p
     return lib

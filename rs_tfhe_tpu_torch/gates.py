@@ -15,7 +15,7 @@ from . import bootstrap as bs
 from .key import CloudKey
 from .ops.keyswitch import identity_key_switch
 from .tlwe import lwe_add_bias as _biased
-from .torus import f64_to_torus, i32, neg_torus
+from .torus import f64_to_torus, i32, neg_torus, resolve_device
 
 _BIAS_1_8 = i32(int(f64_to_torus(0.125)))
 _BIAS_M1_8 = i32(int(f64_to_torus(-0.125)))
@@ -154,9 +154,14 @@ def constant(value, batch: int, params, device=None) -> torch.Tensor:
     """Trivial (noiseless) ciphertext of a constant (reference gates.rs:212-218).
 
     Keeps the reference's exact torus values: mu for true, 1 - mu for false
-    (a 1-ulp quirk of gates.rs:214, kept for parity).
+    (a 1-ulp quirk of gates.rs:214, kept for parity). On `device` (None:
+    the card, torus.resolve_device); circuits pass their ciphertexts' device.
     """
-    value = torch.as_tensor(value, dtype=torch.bool, device=device).expand(batch)
-    ct = torch.zeros((batch, params.n0 + 1), dtype=torch.int32, device=value.device)
-    ct[:, -1] = torch.where(value, _BIAS_1_8, i32(1 - _BIAS_1_8)).to(torch.int32)
+    device = resolve_device(device)
+    ct = torch.zeros((batch, params.n0 + 1), dtype=torch.int32, device=device)
+    if isinstance(value, bool):  # filled on the device, no host-to-device copy
+        ct[:, -1] = _BIAS_1_8 if value else i32(1 - _BIAS_1_8)
+    else:
+        value = torch.as_tensor(value, dtype=torch.bool, device=device).expand(batch)
+        ct[:, -1] = torch.where(value, _BIAS_1_8, i32(1 - _BIAS_1_8)).to(torch.int32)
     return ct

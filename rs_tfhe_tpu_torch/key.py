@@ -36,6 +36,7 @@ from .torus import (
     f64_to_torus,
     i32,
     recombine_planar,
+    resolve_device,
     split_u32_limbs_planar,
     to_torch,
     wrap_i32,
@@ -99,8 +100,9 @@ class CloudKey(nn.Module):
 
 
 def gen_testvec(params: TfheParams, device=None) -> torch.Tensor:
-    """Constant test vector: a = 0, b[i] = 1/8 (reference key.rs:91-100)."""
-    tv = torch.zeros((2, params.n1), dtype=torch.int32, device=device)
+    """Constant test vector: a = 0, b[i] = 1/8 (reference key.rs:91-100), on
+    `device` (None: the card, torus.resolve_device)."""
+    tv = torch.zeros((2, params.n1), dtype=torch.int32, device=resolve_device(device))
     tv[1] = i32(int(f64_to_torus(0.125)))
     return tv
 
@@ -189,7 +191,9 @@ def gen_bootstrapping_key_mb(generator: torch.Generator, sk: SecretKey) -> torch
 # ---------------------------------------------------------------------------
 
 def secret_key_from_numpy(arrays, params: TfheParams, device=None) -> SecretKey:
-    """`arrays["lv0"]`, `arrays["lv1"]`: the JAX SecretKey's uint32 vectors."""
+    """`arrays["lv0"]`, `arrays["lv1"]`: the JAX SecretKey's uint32 vectors,
+    onto `device` (None: the card, torus.resolve_device)."""
+    device = resolve_device(device)
     return SecretKey(
         to_torch(arrays["lv0"], device), to_torch(arrays["lv1"], device), params
     )
@@ -204,8 +208,10 @@ def cloud_key_from_numpy(arrays, params: TfheParams, device=None) -> CloudKey:
     The limb planes are recombined to the rows' torus words, the lane padding
     is stripped, and the rows are re-split into the port's layout. A
     multi-bit key's `bsk_mb` uint32 [n0/2, 4, 2L, 2, N] is taken as it is
-    when `arrays` has it (and is not None).
+    when `arrays` has it (and is not None). The key is assembled on the
+    host and moved to `device` (None: the card, torus.resolve_device).
     """
+    device = resolve_device(device)
     g = params.trgsw_lv1
     k_rows = params.n1 * g.iks_t * params.ks_base
     kl = np.array(arrays["ksk_limbs"])
@@ -214,16 +220,16 @@ def cloud_key_from_numpy(arrays, params: TfheParams, device=None) -> CloudKey:
     p = kl.shape[1] // 4
     words = recombine_planar(torch.from_numpy(kl).reshape(k_rows, 4, p))
     rows = words[:, : params.n0 + 1]
-    bsk = to_torch(arrays["bsk"])
+    bsk = to_torch(arrays["bsk"], "cpu")
     expect = (params.n0, 2 * g.l, 2, params.n1)
     if tuple(bsk.shape) != expect:
         raise ValueError(f"bsk: expected shape {expect}, got {tuple(bsk.shape)}")
     bsk_mb = arrays["bsk_mb"] if "bsk_mb" in arrays else None
     if bsk_mb is not None:
-        bsk_mb = to_torch(bsk_mb)
+        bsk_mb = to_torch(bsk_mb, "cpu")
         expect_mb = (params.n0 // 2, 4, 2 * g.l, 2, params.n1)
         if tuple(bsk_mb.shape) != expect_mb:
             raise ValueError(f"bsk_mb: expected shape {expect_mb}, got {tuple(bsk_mb.shape)}")
     return CloudKey(
-        to_torch(arrays["testvec"]), bsk, ksk_limbs_from_rows(rows, params), params, bsk_mb
+        to_torch(arrays["testvec"], "cpu"), bsk, ksk_limbs_from_rows(rows, params), params, bsk_mb
     ).to(device)

@@ -45,7 +45,7 @@ class Generator:
         rotated = np.roll(values, -offset)  # rotated[i] = values[(i+offset) % size]
         with np.errstate(over="ignore"):
             rotated[size - offset :] = np.uint32(0) - rotated[size - offset :]
-        return LookupTable(poly=to_torch(np.stack([np.zeros(size, np.uint32), rotated])))
+        return LookupTable(poly=to_torch(np.stack([np.zeros(size, np.uint32), rotated]), "cpu"))
 
     def _fill(self, torus_of_message) -> np.ndarray:
         size = self.lookup_table_size

@@ -2,13 +2,13 @@
 
 Reference: rs-tfhe trlwe.rs:106-136. The extracted mask is
 p[i] = a[(k - i) mod* N] with negacyclic sign: a gather with a static index
-pattern, built once on the host. Exact negation is used where the reference
-uses MAX - x (see torus.neg_torus).
+pattern, computed on the tensor's device (no host-to-device copy, so a chain
+of bootstraps never waits for the host). Exact negation is used where the
+reference uses MAX - x (see torus.neg_torus).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..torus import neg_torus
@@ -19,9 +19,8 @@ def sample_extract(trlwe: torch.Tensor, k: int = 0) -> torch.Tensor:
     a = trlwe[..., 0, :]
     b = trlwe[..., 1, :]
     n = a.shape[-1]
-    idx = (k - np.arange(n)) % (2 * n)
-    wrap = torch.as_tensor(idx >= n, device=trlwe.device)
-    sel = torch.as_tensor(np.where(idx >= n, idx - n, idx), device=trlwe.device)
-    vals = a[..., sel]
+    idx = torch.remainder(k - torch.arange(n, device=trlwe.device), 2 * n)
+    wrap = idx >= n
+    vals = a[..., torch.where(wrap, idx - n, idx)]
     p = torch.where(wrap, neg_torus(vals), vals)
     return torch.cat([p, b[..., k : k + 1]], dim=-1)

@@ -48,10 +48,9 @@ def digit_select_sum(
     lead, n_in = a.shape[:-1], a.shape[-1]
     w = table_limbs.shape[-1] // 4
     a_bar = a + i32(1 << (TORUS_BITS - (1 + basebit * t)))
-    shifts = torch.tensor(
-        [TORUS_BITS - (j + 1) * basebit for j in range(t)], dtype=torch.int32,
-        device=a.device,
-    )
+    # made on the device: a host-to-device copy here would make every
+    # bootstrap of a chain wait for the host
+    shifts = TORUS_BITS - basebit * torch.arange(1, t + 1, dtype=torch.int32, device=a.device)
     # logical uint32 shift: `& (base - 1)` drops the sign copies, since
     # basebit <= 32 - shift_j
     digits = (a_bar.unsqueeze(-1) >> shifts) & (base - 1)  # [..., n_in, t]

@@ -18,6 +18,7 @@ from .torus import (
     gaussian_torus,
     i32,
     neg_torus,
+    resolve_device,
     to_numpy,
     uniform_torus,
     wrap_i32,
@@ -91,8 +92,9 @@ def lwe_decrypt_message(ct: torch.Tensor, s: torch.Tensor, message_modulus: int)
 
 def lwe_trivial_message(msg, message_modulus: int, n: int, device=None) -> torch.Tensor:
     """Noiseless maskless ciphertexts under the msg/(2*modulus) encoding
-    (lwe_encrypt_message with zero mask and zero noise)."""
-    mu = _message_mu(msg, message_modulus, device)
+    (lwe_encrypt_message with zero mask and zero noise), on `device` (None:
+    the card, torus.resolve_device)."""
+    mu = _message_mu(msg, message_modulus, resolve_device(device))
     ct = torch.zeros((*mu.shape, n + 1), dtype=TORUS_DTYPE, device=mu.device)
     ct[..., -1] = mu
     return ct
@@ -100,8 +102,9 @@ def lwe_trivial_message(msg, message_modulus: int, n: int, device=None) -> torch
 
 def lwe_trivial_bool(msg, n: int, device=None) -> torch.Tensor:
     """Noiseless maskless ciphertexts of boolean plaintexts: body = +/-1/8,
-    mask = 0 (decrypt under any key)."""
-    msg = torch.as_tensor(msg, dtype=torch.bool, device=device)
+    mask = 0 (decrypt under any key), on `device` (None: the card,
+    torus.resolve_device)."""
+    msg = torch.as_tensor(msg, dtype=torch.bool, device=resolve_device(device))
     ct = torch.zeros((*msg.shape, n + 1), dtype=TORUS_DTYPE, device=msg.device)
     ct[..., -1] = torch.where(msg, _MU_TRUE, -_MU_TRUE).to(TORUS_DTYPE)
     return ct

@@ -55,12 +55,26 @@ def wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point makes its tensors on: the one asked for,
+    else the card. Never the CPU unasked: without a CUDA device and without
+    an explicit `device` this raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no device given and no CUDA device available: pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def to_torch(a, device=None) -> torch.Tensor:
-    """uint32 (or int32) numpy array -> int32 tensor with the same bits."""
+    """uint32 (or int32) numpy array -> int32 tensor with the same bits, on
+    `device` (None: the card, see `resolve_device`)."""
     a = np.ascontiguousarray(np.asarray(a))
     if a.dtype not in (np.uint32, np.int32):
         raise TypeError(f"expected a uint32/int32 torus array, got {a.dtype}")
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return torch.from_numpy(a.view(np.int32).copy()).to(resolve_device(device))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -7,7 +7,13 @@ reproduce bit for bit:
                                         rotation's output, a NAND at B=1
                                         through the multi-bit route, and LUT
                                         programmable bootstraps with and
-                                        without the multi-bit route.
+                                        without the multi-bit route;
+  tests/vectors/torch_port_tiny_circuits.npz
+                                        a key, encrypted integers and the
+                                        outputs of the circuit path: the
+                                        netlist evaluator on a 4-bit
+                                        ripple-carry adder, add_kogge_stone,
+                                        mul_csa and multi_value_bootstrap.
 
 The files let a machine without JAX (the one with the GPU) hold the port
 against the reference: `chip_smoke.py` loads the keys and ciphertexts into
@@ -30,10 +36,12 @@ jax.config.update("jax_platforms", "cpu")  # TEST_TINY is bit-exact on every bac
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from rs_tfhe_tpu import gates  # noqa: E402
+from rs_tfhe_tpu import bit_utils, gates  # noqa: E402
 from rs_tfhe_tpu.bootstrap import bootstrap_with_testvec  # noqa: E402
 from rs_tfhe_tpu.key import CloudKey, SecretKey  # noqa: E402
 from rs_tfhe_tpu.lut.generator import Generator  # noqa: E402
+from rs_tfhe_tpu.lut.multi_value import factor_test_vectors, multi_value_bootstrap  # noqa: E402
+from rs_tfhe_tpu.models import circuits, netlist  # noqa: E402
 from rs_tfhe_tpu.ops.blind_rotate import blind_rotate, blind_rotate_mb  # noqa: E402
 from rs_tfhe_tpu.ops.extract import sample_extract  # noqa: E402
 from rs_tfhe_tpu.ops.keyswitch import identity_key_switch  # noqa: E402
@@ -43,6 +51,12 @@ from rs_tfhe_tpu.tlwe import lwe_encrypt_bool, lwe_encrypt_message  # noqa: E402
 VECTORS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests", "vectors")
 OUT = os.path.join(VECTORS, "torch_port_tiny.npz")
 OUT_MB = os.path.join(VECTORS, "torch_port_tiny_mb.npz")
+OUT_CIRCUITS = os.path.join(VECTORS, "torch_port_tiny_circuits.npz")
+#: bit width, operand pairs and LUT family of the circuit fixture
+CIRCUIT_WIDTH = 4
+CIRCUIT_PAIRS = ((11, 6), (5, 13))
+MV_MODULUS = 4
+MV_FUNCTIONS = (lambda x: (x + 1) % MV_MODULUS, lambda x: (3 * x) % MV_MODULUS)
 #: message modulus of the LUT bootstraps in the multi-bit fixture
 MB_MODULUS = 4
 
@@ -107,8 +121,41 @@ def make_vectors_mb() -> dict:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+def make_vectors_circuits() -> dict:
+    """The circuit fixture's arrays as numpy, from fixed seeds: a standard
+    key; the pairs of CIRCUIT_PAIRS encrypted bit by bit ([pair, W, n0+1]);
+    every wire of ripple_carry_adder(W) on the first pair (python planner);
+    add_kogge_stone and mul_csa on the batch of pairs; multi_value_bootstrap
+    of the messages 0..MV_MODULUS-1 with the MV_FUNCTIONS family."""
+    p = TEST_TINY
+    sk = SecretKey.generate(jax.random.key(4024), p)
+    ck = CloudKey.generate(jax.random.key(4025), sk)
+    keys = jax.random.split(jax.random.key(4026), 2 * len(CIRCUIT_PAIRS) + 1)
+
+    def enc(i, val):
+        return bit_utils.encrypt_uint(keys[i], sk.lv0, val, CIRCUIT_WIDTH, p.tlwe_lv0.alpha)
+
+    xs = jnp.stack([enc(2 * i, x) for i, (x, _) in enumerate(CIRCUIT_PAIRS)])
+    ys = jnp.stack([enc(2 * i + 1, y) for i, (_, y) in enumerate(CIRCUIT_PAIRS)])
+    ckt, _, _, _ = netlist.ripple_carry_adder(CIRCUIT_WIDTH)
+    msgs = np.arange(MV_MODULUS)
+    ct_m = lwe_encrypt_message(keys[-1], sk.lv0, jnp.asarray(msgs), MV_MODULUS, p.tlwe_lv0.alpha)
+    gen = Generator(MV_MODULUS, p)
+    luts = jnp.stack([gen.generate_lookup_table(f).poly for f in MV_FUNCTIONS])
+    out = {
+        "sk_lv0": sk.lv0, "sk_lv1": sk.lv1,
+        "testvec": ck.testvec, "bsk": ck.bsk, "ksk_limbs": ck.ksk_limbs,
+        "pairs": np.asarray(CIRCUIT_PAIRS), "ct_x": xs, "ct_y": ys, "msgs": msgs, "ct_m": ct_m, "luts": luts,
+        "adder_wires": netlist.evaluate(ckt, jnp.concatenate([xs[0], ys[0]]), ck, netlist.plan_python(ckt)),
+        "add_kogge_stone": circuits.add_kogge_stone(xs, ys, ck),
+        "mul_csa": circuits.mul_csa(xs, ys, ck),
+        "multi_value": multi_value_bootstrap(ct_m, factor_test_vectors(list(luts)), ck),
+    }
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def main():
-    for path, make in ((OUT, make_vectors), (OUT_MB, make_vectors_mb)):
+    for path, make in ((OUT, make_vectors), (OUT_MB, make_vectors_mb), (OUT_CIRCUITS, make_vectors_circuits)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.normpath(path)} ({os.path.getsize(path)} bytes)")
 

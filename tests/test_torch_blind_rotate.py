@@ -63,8 +63,8 @@ def _case(p, batch, per_ct_tv, rounded, seed):
     port = PBR.blind_rotate_plain(
         torch.from_numpy(np.array(b_til)),
         torch.from_numpy(np.asarray(a_til).T.copy()),
-        to_torch(np.asarray(tv)),
-        to_torch(np.asarray(bsk)),
+        to_torch(np.asarray(tv), "cpu"),
+        to_torch(np.asarray(bsk), "cpu"),
         PP.params_from(p),
     )
     return dict(b_til=b_til, a_til=a_til, tv=tv, bsk=bsk, ct=ct), to_numpy(port)
@@ -128,8 +128,8 @@ def test_blind_rotate_matches_xla_scan_tiny(per_ct_tv):
     ref = JBR.blind_rotate(j["ct"], j["tv"], j["bsk"], p)
     before = CBR.launches
     port = PBR.blind_rotate(
-        to_torch(np.asarray(j["ct"])), to_torch(np.asarray(j["tv"])),
-        to_torch(np.asarray(j["bsk"])), PP.params_from(p),
+        to_torch(np.asarray(j["ct"]), "cpu"), to_torch(np.asarray(j["tv"]), "cpu"),
+        to_torch(np.asarray(j["bsk"]), "cpu"), PP.params_from(p),
     )
     np.testing.assert_array_equal(to_numpy(port), np.asarray(ref))
     assert CBR.launches == before  # the CPU path never counts as a launch
@@ -138,7 +138,7 @@ def test_blind_rotate_matches_xla_scan_tiny(per_ct_tv):
 def test_rotation_exponents_match():
     p = JP.SECURITY_128_BIT_FAST
     ct = np.random.default_rng(19).integers(0, 1 << 32, (5, p.n0 + 1), dtype=np.uint32)
-    b_til, a_til = PBR.rotation_exponents(to_torch(ct), PP.params_from(p))
+    b_til, a_til = PBR.rotation_exponents(to_torch(ct, "cpu"), PP.params_from(p))
     ref_b = (2 * p.n1 - JBR.modswitch(jnp.asarray(ct)[:, p.n0], p)) % (2 * p.n1)
     np.testing.assert_array_equal(b_til.numpy(), np.asarray(ref_b))
     np.testing.assert_array_equal(a_til.numpy(), np.asarray(JBR.modswitch(jnp.asarray(ct)[:, : p.n0], p)))

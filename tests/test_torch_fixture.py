@@ -1,6 +1,6 @@
-"""PyTorch port: the committed JAX fixtures (tests/vectors/torch_port_tiny.npz
-and tests/vectors/torch_port_tiny_mb.npz) that hold the port against the
-reference on machines without JAX.
+"""PyTorch port: the committed JAX fixtures (tests/vectors/torch_port_tiny.npz,
+torch_port_tiny_mb.npz and torch_port_tiny_circuits.npz) that hold the port
+against the reference on machines without JAX.
 
 Each fixture is regenerated with JAX and compared with its file, so it cannot
 drift; the port reproduces every stored output word for word from the stored
@@ -18,7 +18,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from rs_tfhe_tpu_torch import bootstrap, gates, key  # noqa: E402
+from rs_tfhe_tpu_torch import bit_utils, bootstrap, gates, key, lut  # noqa: E402
+from rs_tfhe_tpu_torch.models import circuits, netlist  # noqa: E402
 from rs_tfhe_tpu_torch.ops.blind_rotate import (  # noqa: E402
     blind_rotate,
     blind_rotate_mb_plain,
@@ -33,6 +34,7 @@ from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VEC = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny.npz")
 VEC_MB = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_mb.npz")
+VEC_CIRCUITS = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_circuits.npz")
 
 
 def _load_generator():
@@ -61,14 +63,55 @@ def test_mb_fixture_matches_jax_regeneration():
         np.testing.assert_array_equal(stored[name], arr, err_msg=name)
 
 
+def test_circuit_fixture_matches_jax_regeneration():
+    stored = np.load(VEC_CIRCUITS)
+    fresh = _load_generator().make_vectors_circuits()
+    assert sorted(stored.files) == sorted(fresh)
+    for name, arr in fresh.items():
+        assert stored[name].dtype == arr.dtype, name
+        np.testing.assert_array_equal(stored[name], arr, err_msg=name)
+
+
+def test_port_reproduces_circuit_fixture():
+    """The netlist evaluator (plain and compiled) on the 4-bit adder,
+    add_kogge_stone, mul_csa and multi_value_bootstrap, from the stored JAX
+    key and ciphertexts; each decrypts to the integers it should."""
+    v = np.load(VEC_CIRCUITS)
+    sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY, "cpu")
+    ck = key.cloud_key_from_numpy(v, TEST_TINY, "cpu")
+    xs, ys, m, luts = (to_torch(v[n], "cpu") for n in ("ct_x", "ct_y", "ct_m", "luts"))
+    width = xs.shape[1]
+    ckt, _, _, sums = netlist.ripple_carry_adder(width)
+    adder_in = torch.cat([xs[0], ys[0]])
+    outputs = {
+        "adder_wires": netlist.evaluate(ckt, adder_in, ck),
+        "add_kogge_stone": circuits.add_kogge_stone(xs, ys, ck),
+        "mul_csa": circuits.mul_csa(xs, ys, ck),
+        "multi_value": lut.multi_value_bootstrap(m, lut.factor_test_vectors(list(luts)), ck),
+    }
+    for name, out in outputs.items():
+        np.testing.assert_array_equal(to_numpy(out), v[name], err_msg=name)
+    np.testing.assert_array_equal(to_numpy(netlist.compile_circuit(ckt)(adder_in, ck)), v["adder_wires"])
+    gen = _load_generator()
+    mask = (1 << width) - 1
+    (x0, y0) = v["pairs"][0]
+    assert bit_utils.decrypt_uint(outputs["adder_wires"][sums], sk.lv0) == (x0 + y0) & mask
+    for i, (x, y) in enumerate(v["pairs"]):
+        assert bit_utils.decrypt_uint(outputs["add_kogge_stone"][i], sk.lv0) == (x + y) & mask
+        assert bit_utils.decrypt_uint(outputs["mul_csa"][i], sk.lv0) == (x * y) & mask
+    for k, f in enumerate(gen.MV_FUNCTIONS):
+        got = lwe_decrypt_message(outputs["multi_value"][:, k], sk.lv0, gen.MV_MODULUS)
+        np.testing.assert_array_equal(got, f(v["msgs"]))
+
+
 def test_port_reproduces_mb_fixture():
     """The multi-bit rotation, a NAND at B=1 and LUT bootstraps with and
     without the multi-bit route, from the stored JAX multi-bit key."""
     v = np.load(VEC_MB)
-    sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY)
-    ck = key.cloud_key_from_numpy(v, TEST_TINY)
-    a, b, m = (to_torch(v[n]) for n in ("ct_a", "ct_b", "ct_m"))
-    lut, lut_per_ct = to_torch(v["lut"]), to_torch(v["lut_per_ct"])
+    sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY, "cpu")
+    ck = key.cloud_key_from_numpy(v, TEST_TINY, "cpu")
+    a, b, m = (to_torch(v[n], "cpu") for n in ("ct_a", "ct_b", "ct_m"))
+    lut, lut_per_ct = to_torch(v["lut"], "cpu"), to_torch(v["lut_per_ct"], "cpu")
     b_til, a_til = rotation_exponents(a, TEST_TINY)
     outputs = {
         "blind_rotate_mb": blind_rotate_mb_plain(b_til, a_til, ck.testvec, ck.bsk_mb, TEST_TINY),
@@ -87,9 +130,9 @@ def test_port_reproduces_mb_fixture():
 
 def test_port_reproduces_fixture():
     v = np.load(VEC)
-    sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY)
-    ck = key.cloud_key_from_numpy(v, TEST_TINY)
-    a, b, c = (to_torch(v[n]) for n in ("ct_a", "ct_b", "ct_c"))
+    sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY, "cpu")
+    ck = key.cloud_key_from_numpy(v, TEST_TINY, "cpu")
+    a, b, c = (to_torch(v[n], "cpu") for n in ("ct_a", "ct_b", "ct_c"))
     acc = blind_rotate(a, ck.testvec, ck.bsk, TEST_TINY)
     lv1 = sample_extract(acc, 0)
     outputs = {
@@ -126,9 +169,9 @@ def test_port_reproduces_golden_tiny():
     ck = key.cloud_key_from_numpy(
         {"testvec": np.asarray(jck.testvec), "bsk": np.asarray(jck.bsk),
          "ksk_limbs": np.asarray(jck.ksk_limbs)},
-        TEST_TINY,
+        TEST_TINY, "cpu",
     )
-    a, b = to_torch(gold["ct_a"]), to_torch(np.asarray(jb))
+    a, b = to_torch(gold["ct_a"], "cpu"), to_torch(np.asarray(jb), "cpu")
     acc = blind_rotate(gates._nand_lin(a, b), ck.testvec, ck.bsk, TEST_TINY)
     lv1 = sample_extract(acc, 0)
     outputs = {
@@ -143,14 +186,21 @@ def test_port_reproduces_golden_tiny():
 
 
 def test_port_runs_with_jax_blocked():
-    """`import rs_tfhe_tpu_torch` and one TEST_TINY NAND with `jax` blocked
-    from import (the GPU machine has no JAX)."""
+    """`import rs_tfhe_tpu_torch`, every module of the circuit path, the
+    probe wrappers, the two probe scripts and chip_smoke.py, and one
+    TEST_TINY NAND, with `jax` blocked from import (the GPU machine has no
+    JAX)."""
     code = """
-import sys
+import runpy, sys
 sys.modules["jax"] = None
 import torch
 import rs_tfhe_tpu_torch as pt
-from rs_tfhe_tpu_torch import gates, key, tlwe
+from rs_tfhe_tpu_torch import bit_utils, gates, key, lut, models, tlwe
+from rs_tfhe_tpu_torch.lut import multi_value
+from rs_tfhe_tpu_torch.models import circuits, netlist
+from rs_tfhe_tpu_torch.ops import cuda_probes
+for script in ("scripts/probe_hopper.py", "scripts/bench_hopper_prims.py", "chip_smoke.py"):
+    runpy.run_path(script, run_name="not_main")
 p = pt.TEST_TINY
 g = torch.Generator().manual_seed(0)
 sk = key.SecretKey.generate(p, g)

@@ -58,8 +58,8 @@ def shared():
     }
     return dict(
         jsk=sk, jck=ck, bits=bits, jct=cts,
-        psk=PK.secret_key_from_numpy(arrays, PP), pck=PK.cloud_key_from_numpy(arrays, PP),
-        pct=[to_torch(np.asarray(c)) for c in cts],
+        psk=PK.secret_key_from_numpy(arrays, PP, "cpu"), pck=PK.cloud_key_from_numpy(arrays, PP, "cpu"),
+        pct=[to_torch(np.asarray(c), "cpu") for c in cts],
     )
 
 
@@ -85,7 +85,7 @@ def test_cloud_key_from_numpy_recombines_ksk(shared):
 
 def test_identity_key_switch_matches(shared):
     lv1 = np.random.default_rng(36).integers(0, 1 << 32, (5, P.n1 + 1), dtype=np.uint32)
-    port = PKS.identity_key_switch(to_torch(lv1), shared["pck"].ksk_limbs, PP)
+    port = PKS.identity_key_switch(to_torch(lv1, "cpu"), shared["pck"].ksk_limbs, PP)
     ref = JKS.identity_key_switch(jnp.asarray(lv1), shared["jck"].ksk_limbs, P)
     np.testing.assert_array_equal(to_numpy(port), np.asarray(ref))
 
@@ -96,7 +96,7 @@ def test_linear_form_matches_at_wrap_edges(name):
     edges = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0xE0000000], dtype=np.uint32)
     a = np.repeat(edges, len(edges))[:, None] + np.zeros((1, P.n0 + 1), np.uint32)
     b = np.tile(edges, len(edges))[:, None] + np.arange(P.n0 + 1, dtype=np.uint32)[None, :]
-    port = PGa._LINEAR_FORMS[name](to_torch(a), to_torch(b))
+    port = PGa._LINEAR_FORMS[name](to_torch(a, "cpu"), to_torch(b, "cpu"))
     ref = JGa._LINEAR_FORMS[name](jnp.asarray(a), jnp.asarray(b))
     np.testing.assert_array_equal(to_numpy(port), np.asarray(ref))
 
@@ -130,11 +130,11 @@ def test_mux_matches(shared):
 
 def test_not_copy_constant_match():
     x = np.random.default_rng(37).integers(0, 1 << 32, (4, P.n0 + 1), dtype=np.uint32)
-    np.testing.assert_array_equal(to_numpy(PGa.not_(to_torch(x))), np.asarray(JGa.not_(jnp.asarray(x))))
-    np.testing.assert_array_equal(to_numpy(PGa.copy(to_torch(x))), x)
+    np.testing.assert_array_equal(to_numpy(PGa.not_(to_torch(x, "cpu"))), np.asarray(JGa.not_(jnp.asarray(x))))
+    np.testing.assert_array_equal(to_numpy(PGa.copy(to_torch(x, "cpu"))), x)
     for value in (True, False, [True, False, False, True]):
         np.testing.assert_array_equal(
-            to_numpy(PGa.constant(value, 4, PP)), np.asarray(JGa.constant(value, 4, P))
+            to_numpy(PGa.constant(value, 4, PP, "cpu")), np.asarray(JGa.constant(value, 4, P))
         )
 
 

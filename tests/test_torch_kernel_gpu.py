@@ -1,8 +1,9 @@
 """PyTorch port: the hand-written kernels on the card, held bit for bit
 against their plain PyTorch versions: the blind rotation
 (csrc/blind_rotate.cu), the multi-bit blind rotation
-(csrc/blind_rotate_mb.cu) and the external-product step
-(csrc/external_product.cu).
+(csrc/blind_rotate_mb.cu), the external-product step
+(csrc/external_product.cu) and the probe and primitive-rate kernels
+(csrc/probes.cu).
 
 Every test here needs a CUDA device (marker `gpu`) and skips without one:
 the kernels have no CPU mode. This file imports neither JAX nor the JAX
@@ -21,6 +22,7 @@ from rs_tfhe_tpu_torch import params as P  # noqa: E402
 from rs_tfhe_tpu_torch.ops import blind_rotate as BR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate_mb as CMB  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_probes as CP  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_step as CS  # noqa: E402
 from rs_tfhe_tpu_torch.ops.poly import polymul_small_by_torus  # noqa: E402
 
@@ -193,3 +195,105 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         CS.external_product_kernel(d.to(torch.int64), t, p)
     with pytest.raises(ValueError, match="contiguous"):
         CS.external_product_kernel(d.transpose(0, 1).contiguous().transpose(0, 1), t, p)
+
+
+# ---------------------------------------------------------------------------
+# The probe and primitive-rate kernels (csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+_INT_RANGE = {torch.int8: (-128, 128), torch.int16: (-(1 << 15), 1 << 15), torch.int32: (-(1 << 31), 1 << 31)}
+
+
+def _rand(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = _INT_RANGE[dtype]
+    return torch.randint(lo, hi, shape, generator=g, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["s8", "s16", "s32"])
+@pytest.mark.parametrize("shape", [(128, 1024, 256), (80, 48, 72)], ids=["probe_shape", "ragged"])
+def test_probe_dot_matches_plain(dev, dtype, shape):
+    """Full-range, non-symmetric operands: a wrong mma lane map would give a
+    permuted product, and ones would hide it."""
+    m, k, n = shape
+    a, b = _rand(dev, (m, k), dtype, 60), _rand(dev, (k, n), dtype, 61)
+    before = CP.launches["probe_dot"]
+    out = CP.probe_dot(a, b)
+    torch.cuda.synchronize()
+    assert CP.launches["probe_dot"] == before + 1
+    assert torch.equal(out, CP.dot_plain(a, b))
+    assert torch.equal(out.cpu(), CP.dot_plain(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["s8", "s16", "s32"])
+def test_probe_dot_wraps_mod_2_32(dev, dtype):
+    before = CP.launches["probe_dot_correct_s16"]
+    CP.probe_dot_correct_s16(dev, dtype)
+    assert CP.launches["probe_dot_correct_s16"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["int8", "int16", "int32"])
+@pytest.mark.parametrize("shift", [5, 0, 255, -3, 300])
+def test_probe_roll_matches_plain(dev, dtype, shift):
+    x = _rand(dev, (8, 256), dtype, 62)
+    out = CP.probe_roll(x, shift)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.roll(x, shift, dims=1))
+
+
+def test_probe_bitcast_and_unpack_match_plain(dev):
+    x = _rand(dev, (8, 256), torch.int32, 63)
+    out = CP.probe_bitcast_i32_to_i8(x)
+    lo, hi = CP.probe_unpack_s16(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, CP.bitcast_i32_to_i8_plain(x))
+    assert torch.equal(out, x.view(torch.int8))
+    plo, phi = CP.unpack_s16_plain(x)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+
+
+@pytest.mark.parametrize("unit", ["tensor", "imad"])
+@pytest.mark.parametrize(
+    "shape", [(128, 128, 128), (128, 1024, 1024), (256, 1024, 512), (1024, 1024, 128), (128, 256, 1024)],
+    ids=lambda s: "x".join(map(str, s)),
+)
+def test_chain_dot_matches_plain(dev, shape, unit):
+    """Both feedback folds (N >= K and N dividing K), the small and the big
+    (8-row column sums) form, on random operands."""
+    m, k, n = shape
+    a0, b = _rand(dev, (m, k), torch.int8, 64), _rand(dev, (k, n), torch.int8, 65)
+    res = CP.chain_dot(a0, b, 5, unit=unit)
+    torch.cuda.synchronize()
+    acc, fb = CP.chain_dot_plain(a0, b, 5)
+    assert torch.equal(res.acc, acc)
+    assert torch.equal(res.fb, fb)
+    cycles, sms, busiest = res.tile_loop()
+    assert cycles > 0 and 0 < sms <= torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = (m // 64) * (n // 64)
+    assert 5 * tiles / sms <= busiest <= 5 * tiles
+
+
+@pytest.mark.parametrize("shape", [(128, 1024), (128, 128), (8, 1024), (256, 2048), (3, 17)])
+def test_chain_roll_add_matches_plain(dev, shape):
+    """Random input: with ones the chain doubles each step and is 0 mod 2^32
+    after 32 of them."""
+    x = _rand(dev, shape, torch.int32, 66)
+    out = CP.chain_roll_add(x, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, CP.chain_roll_add_plain(x, 3))
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
+    a, b = _rand(dev, (16, 24), torch.int8, 67), _rand(dev, (24, 16), torch.int8, 68)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        CP.probe_dot(a, b)
+    with pytest.raises(TypeError):
+        CP.probe_dot(a, b.to(torch.int16))
+    with pytest.raises(ValueError, match="on cpu"):
+        CP.probe_dot(a, b.cpu())
+    with pytest.raises(ValueError, match="feedback"):
+        CP.chain_dot(_rand(dev, (16, 48), torch.int8, 69), _rand(dev, (48, 32), torch.int8, 70), 1)
+    with pytest.raises(TypeError):
+        CP.probe_bitcast_i32_to_i8(a)
+    with pytest.raises(ValueError, match="contiguous"):
+        CP.probe_roll(_rand(dev, (8, 16), torch.int32, 71).t())

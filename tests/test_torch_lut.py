@@ -125,7 +125,7 @@ def test_message_encryption_round_trip(modulus):
     np.testing.assert_array_equal(PT.lwe_decrypt_message(ct, s, modulus), expect)
     jdec = JT.lwe_decrypt_message(jnp.asarray(to_numpy(ct)), jnp.asarray(to_numpy(s)), modulus)
     np.testing.assert_array_equal(jdec, expect)
-    trivial = PT.lwe_trivial_message(msgs, modulus, PTINY.n0)
+    trivial = PT.lwe_trivial_message(msgs, modulus, PTINY.n0, "cpu")
     np.testing.assert_array_equal(to_numpy(trivial), np.asarray(JT.lwe_trivial_message(msgs, modulus, PTINY.n0)))
     np.testing.assert_array_equal(PT.lwe_decrypt_message(trivial, s, modulus), expect)
 
@@ -134,7 +134,7 @@ def test_jax_message_ciphertexts_decrypt_in_the_port():
     sk = JSecretKey.generate(jax.random.key(82), TINY)
     msgs = jnp.arange(8)
     ct = JT.lwe_encrypt_message(jax.random.key(83), sk.lv0, msgs, 8, TINY.tlwe_lv0.alpha)
-    got = PT.lwe_decrypt_message(to_torch(np.asarray(ct)), to_torch(np.asarray(sk.lv0)), 8)
+    got = PT.lwe_decrypt_message(to_torch(np.asarray(ct), "cpu"), to_torch(np.asarray(sk.lv0), "cpu"), 8)
     np.testing.assert_array_equal(got, np.asarray(msgs))
 
 
@@ -164,9 +164,9 @@ def keys():
     }
     msgs = np.random.default_rng(92).integers(0, 4, 8)
     jct = JT.lwe_encrypt_message(jax.random.key(93), sk.lv0, jnp.asarray(msgs), 4, TINY.tlwe_lv0.alpha)
-    return dict(jsk=sk, jck=ck, psk=PK.secret_key_from_numpy(arrays, PTINY),
-                pck=PK.cloud_key_from_numpy(arrays, PTINY), msgs=msgs, jct=jct,
-                pct=to_torch(np.asarray(jct)))
+    return dict(jsk=sk, jck=ck, psk=PK.secret_key_from_numpy(arrays, PTINY, "cpu"),
+                pck=PK.cloud_key_from_numpy(arrays, PTINY, "cpu"), msgs=msgs, jct=jct,
+                pct=to_torch(np.asarray(jct), "cpu"))
 
 
 @pytest.mark.parametrize("allow_mb", [None, True, False], ids=["policy", "mb", "standard"])
@@ -175,7 +175,7 @@ def test_bootstrap_with_testvec_equals_jax(keys, allow_mb):
     standard route: equal to JAX; the multi-bit route at B=8, where JAX's
     cap (4) and the port's differ, decrypts correctly."""
     lut = JGenerator(4, TINY).generate_lookup_table(lambda x: (x + 1) % 4).poly
-    plut = to_torch(np.asarray(lut))
+    plut = to_torch(np.asarray(lut), "cpu")
     jck, pck, pct, jct = keys["jck"], keys["pck"], keys["pct"], keys["jct"]
     ref = np.asarray(JB.bootstrap_with_testvec(jct[:2], lut, jck, allow_mb=allow_mb))
     np.testing.assert_array_equal(to_numpy(PB.bootstrap_with_testvec(pct[:2], plut, pck, allow_mb=allow_mb)), ref)
@@ -190,7 +190,7 @@ def test_bootstrap_with_per_ciphertext_luts_equals_jax(keys):
     fs = [lambda x: (3 * x) % 4, lambda x: (x * x) % 4]
     lut = jnp.stack([gen.generate_lookup_table(f).poly for f in fs])
     ref = np.asarray(JB.bootstrap_with_testvec(keys["jct"][:2], lut, keys["jck"], allow_mb=True))
-    out = PB.bootstrap_with_testvec(keys["pct"][:2], to_torch(np.asarray(lut)), keys["pck"], allow_mb=True)
+    out = PB.bootstrap_with_testvec(keys["pct"][:2], to_torch(np.asarray(lut), "cpu"), keys["pck"], allow_mb=True)
     np.testing.assert_array_equal(to_numpy(out), ref)
     expect = [f(m) for f, m in zip(fs, keys["msgs"][:2])]
     np.testing.assert_array_equal(PT.lwe_decrypt_message(out, keys["psk"].lv0, 4), expect)

@@ -96,8 +96,8 @@ def test_plain_mb_matches_jax_xla_and_k4(batch, per_ct_tv, rounded):
         b_til, JBR._mb_k_rows(a_til[:, 0::2], a_til[:, 1::2], p, mb_rows_per_pattern(p, drop)),
         tv, prepare_bsk_mb_vecs(bsk_mb, drop_limbs=drop), p, interpret=True, drop_limbs=drop,
     )
-    pb, pa = PBR.rotation_exponents(to_torch(np.asarray(ct)), params_from(p))
-    port = PBR.blind_rotate_mb_plain(pb, pa, to_torch(np.asarray(tv)), to_torch(np.asarray(bsk_mb)), params_from(p))
+    pb, pa = PBR.rotation_exponents(to_torch(np.asarray(ct), "cpu"), params_from(p))
+    port = PBR.blind_rotate_mb_plain(pb, pa, to_torch(np.asarray(tv), "cpu"), to_torch(np.asarray(bsk_mb), "cpu"), params_from(p))
     np.testing.assert_array_equal(to_numpy(port), xla)
     np.testing.assert_array_equal(to_numpy(port), np.asarray(k4))
 
@@ -109,10 +109,10 @@ def test_blind_rotate_routes_by_batch_and_step_impl(impl):
     "auto" and refuses a key without `bsk_mb`."""
     rng = np.random.default_rng(50)
     l = PTINY.trgsw_lv1.l
-    bsk = to_torch(rng.integers(0, 1 << 32, (PTINY.n0, 2 * l, 2, PTINY.n1), dtype=np.uint32))
-    bsk_mb = to_torch(rng.integers(0, 1 << 32, (PTINY.n0 // 2, 4, 2 * l, 2, PTINY.n1), dtype=np.uint32))
-    tv = to_torch(rng.integers(0, 1 << 32, (2, PTINY.n1), dtype=np.uint32))
-    ct = to_torch(rng.integers(0, 1 << 32, (9, PTINY.n0 + 1), dtype=np.uint32))
+    bsk = to_torch(rng.integers(0, 1 << 32, (PTINY.n0, 2 * l, 2, PTINY.n1), dtype=np.uint32), "cpu")
+    bsk_mb = to_torch(rng.integers(0, 1 << 32, (PTINY.n0 // 2, 4, 2 * l, 2, PTINY.n1), dtype=np.uint32), "cpu")
+    tv = to_torch(rng.integers(0, 1 << 32, (2, PTINY.n1), dtype=np.uint32), "cpu")
+    ct = to_torch(rng.integers(0, 1 << 32, (9, PTINY.n0 + 1), dtype=np.uint32), "cpu")
     b_til, a_til = PBR.rotation_exponents(ct, PTINY)
     mb = PBR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, PTINY)
     std = PBR.blind_rotate_plain(b_til, a_til, tv, bsk, PTINY)
@@ -132,7 +132,7 @@ def test_blind_rotate_routes_by_batch_and_step_impl(impl):
 def test_unported_step_impl_raises(impl, value):
     impl(value)
     with pytest.raises(ValueError, match="not ported"):
-        PBR.blind_rotate(torch.zeros((1, PTINY.n0 + 1), dtype=torch.int32), PK.gen_testvec(PTINY),
+        PBR.blind_rotate(torch.zeros((1, PTINY.n0 + 1), dtype=torch.int32), PK.gen_testvec(PTINY, "cpu"),
                          torch.zeros((PTINY.n0, 2 * PTINY.trgsw_lv1.l, 2, PTINY.n1), dtype=torch.int32), PTINY)
 
 
@@ -171,7 +171,7 @@ def jax_mb():
         "lv0": np.asarray(sk.lv0), "lv1": np.asarray(sk.lv1), "testvec": np.asarray(ck.testvec),
         "bsk": np.asarray(ck.bsk), "ksk_limbs": np.asarray(ck.ksk_limbs), "bsk_mb": np.asarray(ck.bsk_mb),
     }
-    return sk, ck, PK.secret_key_from_numpy(arrays, PTINY), PK.cloud_key_from_numpy(arrays, PTINY)
+    return sk, ck, PK.secret_key_from_numpy(arrays, PTINY, "cpu"), PK.cloud_key_from_numpy(arrays, PTINY, "cpu")
 
 
 def test_cloud_key_from_numpy_carries_bsk_mb(jax_mb):
@@ -180,9 +180,9 @@ def test_cloud_key_from_numpy_carries_bsk_mb(jax_mb):
     bad = {"testvec": np.asarray(jck.testvec), "bsk": np.asarray(jck.bsk),
            "ksk_limbs": np.asarray(jck.ksk_limbs), "bsk_mb": np.asarray(jck.bsk_mb)[:-1]}
     with pytest.raises(ValueError, match="bsk_mb"):
-        PK.cloud_key_from_numpy(bad, PTINY)
+        PK.cloud_key_from_numpy(bad, PTINY, "cpu")
     bad["bsk_mb"] = None
-    assert PK.cloud_key_from_numpy(bad, PTINY).bsk_mb is None
+    assert PK.cloud_key_from_numpy(bad, PTINY, "cpu").bsk_mb is None
 
 
 @pytest.mark.parametrize("gate", ["nand", "xor"])
@@ -195,7 +195,7 @@ def test_mb_gates_match_jax_with_carried_key(jax_mb, gate):
     keys = jax.random.split(jax.random.key(63), 2)
     ja = JT.lwe_encrypt_bool(keys[0], jsk.lv0, jnp.asarray(A), TINY.tlwe_lv0.alpha)
     jb = JT.lwe_encrypt_bool(keys[1], jsk.lv0, jnp.asarray(B), TINY.tlwe_lv0.alpha)
-    pa, pb = to_torch(np.asarray(ja)), to_torch(np.asarray(jb))
+    pa, pb = to_torch(np.asarray(ja), "cpu"), to_torch(np.asarray(jb), "cpu")
     ref = np.asarray(getattr(JGa, gate)(ja[:2], jb[:2], jck))
     np.testing.assert_array_equal(to_numpy(getattr(PGa, gate)(pa[:2], pb[:2], pck)), ref)
     truth = {"nand": ~(A & B), "xor": A ^ B}[gate]
@@ -208,7 +208,7 @@ def test_mb_mux_matches_jax_with_carried_key(jax_mb):
     bits = np.random.default_rng(64).integers(0, 2, (3, 2)).astype(bool)
     keys = jax.random.split(jax.random.key(65), 3)
     jc = [JT.lwe_encrypt_bool(k, jsk.lv0, jnp.asarray(m), TINY.tlwe_lv0.alpha) for k, m in zip(keys, bits)]
-    out = PGa.mux(*(to_torch(np.asarray(c)) for c in jc), pck)
+    out = PGa.mux(*(to_torch(np.asarray(c), "cpu") for c in jc), pck)
     np.testing.assert_array_equal(to_numpy(out), np.asarray(JGa.mux(*jc, jck)))
     np.testing.assert_array_equal(PT.lwe_decrypt_bool(out, psk.lv0).numpy(), np.where(bits[0], bits[1], bits[2]))
 

@@ -56,7 +56,7 @@ def test_torus_conversions_and_negation():
     d = rng.normal(size=64) * 3
     np.testing.assert_array_equal(PTo.f64_to_torus(d), JTo.f64_to_torus(d))
     np.testing.assert_array_equal(PTo.torus_to_f64(x), JTo.torus_to_f64(x))
-    t = PTo.to_torch(x)
+    t = PTo.to_torch(x, "cpu")
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(PTo.to_numpy(t), x)
     np.testing.assert_array_equal(
@@ -70,7 +70,7 @@ def test_torus_conversions_and_negation():
 def test_planar_limbs_match_reference():
     rng = np.random.default_rng(2)
     x = np.concatenate([_EDGES, _u32(rng, 3 * 64 - len(_EDGES))]).reshape(3, 64)
-    port = PTo.split_u32_limbs_planar(PTo.to_torch(x))
+    port = PTo.split_u32_limbs_planar(PTo.to_torch(x, "cpu"))
     ref = np.asarray(JTo.split_u32_limbs_planar(jnp.asarray(x)))
     np.testing.assert_array_equal(port.numpy(), ref)
     np.testing.assert_array_equal(PTo.to_numpy(PTo.recombine_planar(port)), x)
@@ -123,7 +123,7 @@ def test_lwe_linear_ops_match_reference(op):
     x = np.concatenate([_EDGES, _u32(rng, 2)]).reshape(8, 1) + np.zeros((1, 5), np.uint32)
     y = _u32(rng, (8, 5))
     y[:, 0] = 0xFFFFFFFF
-    px, py = PTo.to_torch(x), PTo.to_torch(y)
+    px, py = PTo.to_torch(x, "cpu"), PTo.to_torch(y, "cpu")
     jx, jy = jnp.asarray(x), jnp.asarray(y)
     bits = np.array([True, False] * 4)
     port, ref = {
@@ -137,7 +137,7 @@ def test_lwe_linear_ops_match_reference(op):
             lambda: PT.lwe_add_bias(px, 0xE0000000), lambda: JT.lwe_add_bias(jx, 0xE0000000)
         ),
         "trivial_bool": (
-            lambda: PT.lwe_trivial_bool(bits, 4), lambda: JT.lwe_trivial_bool(bits, 4)
+            lambda: PT.lwe_trivial_bool(bits, 4, "cpu"), lambda: JT.lwe_trivial_bool(bits, 4)
         ),
     }[op]
     np.testing.assert_array_equal(PTo.to_numpy(port()), np.asarray(ref()))
@@ -149,9 +149,9 @@ def test_lwe_decrypt_matches_reference_on_reference_ciphertexts():
     s = jax.random.bernoulli(key, 0.5, (p.n0,)).astype(jnp.uint32)
     m = jnp.asarray(np.random.default_rng(4).integers(0, 2, 64).astype(bool))
     ct = JT.lwe_encrypt_bool(jax.random.key(10), s, m, p.tlwe_lv0.alpha)
-    port = PT.lwe_decrypt_bool(PTo.to_torch(np.asarray(ct)), PTo.to_torch(np.asarray(s)))
+    port = PT.lwe_decrypt_bool(PTo.to_torch(np.asarray(ct), "cpu"), PTo.to_torch(np.asarray(s), "cpu"))
     np.testing.assert_array_equal(port.numpy(), np.asarray(m))
     np.testing.assert_array_equal(
-        PTo.to_numpy(PT.lwe_phase(PTo.to_torch(np.asarray(ct)), PTo.to_torch(np.asarray(s)))),
+        PTo.to_numpy(PT.lwe_phase(PTo.to_torch(np.asarray(ct), "cpu"), PTo.to_torch(np.asarray(s), "cpu"))),
         np.asarray(JT.lwe_phase(ct, s)),
     )

@@ -43,7 +43,7 @@ def _eq(port, ref):
 
 def test_negacyclic_extend_matches():
     t = _u32(np.random.default_rng(0), (3, 2, 64))
-    _eq(PPo.negacyclic_extend(to_torch(t)), JPo.negacyclic_extend(jnp.asarray(t)))
+    _eq(PPo.negacyclic_extend(to_torch(t, "cpu")), JPo.negacyclic_extend(jnp.asarray(t)))
 
 
 def test_monomial_rotate_every_exponent():
@@ -52,10 +52,10 @@ def test_monomial_rotate_every_exponent():
     n = 64
     t = _u32(np.random.default_rng(1), (2 * n, 2, n))
     k = np.arange(2 * n, dtype=np.int32)
-    port = PPo.monomial_rotate(to_torch(t), torch.from_numpy(k)[:, None])
+    port = PPo.monomial_rotate(to_torch(t, "cpu"), torch.from_numpy(k)[:, None])
     ref = JPo.monomial_rotate(jnp.asarray(t), jnp.asarray(k)[:, None])
     _eq(port, ref)
-    _eq(PPo.monomial_rotate(to_torch(t[0]), 3 * n + 5), JPo.monomial_rotate(jnp.asarray(t[0]), 3 * n + 5))
+    _eq(PPo.monomial_rotate(to_torch(t[0], "cpu"), 3 * n + 5), JPo.monomial_rotate(jnp.asarray(t[0]), 3 * n + 5))
 
 
 def test_polymul_torus_by_binary_matches():
@@ -63,7 +63,7 @@ def test_polymul_torus_by_binary_matches():
     a = _u32(rng, (5, 64))
     s = rng.integers(0, 2, 64).astype(np.uint32)
     _eq(
-        PPo.polymul_torus_by_binary(to_torch(a), to_torch(s)),
+        PPo.polymul_torus_by_binary(to_torch(a, "cpu"), to_torch(s, "cpu")),
         JPo.polymul_torus_by_binary(jnp.asarray(a), jnp.asarray(s)),
     )
 
@@ -72,7 +72,7 @@ def test_polymul_small_by_torus_matches_schoolbook():
     rng = np.random.default_rng(3)
     d = rng.integers(-128, 128, (2, 4, 64)).astype(np.int32)
     t = _u32(rng, (4, 2, 64))
-    port = to_numpy(PPo.polymul_small_by_torus(torch.from_numpy(d), to_torch(t), 128))
+    port = to_numpy(PPo.polymul_small_by_torus(torch.from_numpy(d), to_torch(t, "cpu"), 128))
     for b in range(2):
         for o in range(2):
             ref = np.zeros(64, np.uint32)
@@ -92,11 +92,11 @@ def test_float64_bound_is_enforced():
     rng = np.random.default_rng(10)
     d = rng.integers(-p.trgsw_lv1.half_bg, p.trgsw_lv1.half_bg, (1, j, n)).astype(np.int32)
     t = _u32(rng, (j, 2, n))
-    port = PPo.polymul_small_by_torus(torch.from_numpy(d), to_torch(t), p.trgsw_lv1.half_bg)
+    port = PPo.polymul_small_by_torus(torch.from_numpy(d), to_torch(t, "cpu"), p.trgsw_lv1.half_bg)
     ref = JPo.polymul_small_by_torus_multi(jnp.asarray(d), JPo.build_step_matrix(jnp.asarray(t)), p.digit_limbs, 2)
     _eq(port, ref)
     with pytest.raises(ValueError, match="2\\^53"):
-        PPo.polymul_small_by_torus(torch.from_numpy(d), to_torch(t), 1 << 30)
+        PPo.polymul_small_by_torus(torch.from_numpy(d), to_torch(t, "cpu"), 1 << 30)
 
 
 @pytest.mark.parametrize(
@@ -105,7 +105,7 @@ def test_float64_bound_is_enforced():
 def test_gadget_decompose_matches(name):
     p = getattr(JP, name)
     x = _u32(np.random.default_rng(4), (3, 2, 64))
-    port = PD.gadget_decompose(to_torch(x), params_from(p))
+    port = PD.gadget_decompose(to_torch(x, "cpu"), params_from(p))
     np.testing.assert_array_equal(port.numpy(), np.asarray(JD.gadget_decompose(jnp.asarray(x), p)))
 
 
@@ -113,7 +113,7 @@ def test_gadget_decompose_matches(name):
 def test_modswitch_matches(name):
     p = getattr(JP, name)
     x = _u32(np.random.default_rng(5), (4, 33))
-    port = PBR.modswitch(to_torch(x), params_from(p))
+    port = PBR.modswitch(to_torch(x, "cpu"), params_from(p))
     ref = JBR.modswitch(jnp.asarray(x), p)
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
     assert int(port.min()) >= 0 and int(port.max()) < 2 * p.n1
@@ -122,7 +122,7 @@ def test_modswitch_matches(name):
 @pytest.mark.parametrize("k", [0, 5, 63])
 def test_sample_extract_matches(k):
     acc = _u32(np.random.default_rng(6), (4, 2, 64))
-    _eq(PE.sample_extract(to_torch(acc), k), JE.sample_extract(jnp.asarray(acc), k))
+    _eq(PE.sample_extract(to_torch(acc, "cpu"), k), JE.sample_extract(jnp.asarray(acc), k))
 
 
 def _shared_trlwe_setup(rng):
@@ -135,7 +135,7 @@ def test_trlwe_phase_matches():
     rng = np.random.default_rng(7)
     s1, mu = _shared_trlwe_setup(rng)
     ct = JR.trlwe_encrypt_torus(jax.random.key(1), jnp.asarray(s1), jnp.asarray(mu), 1e-12)
-    _eq(PR.trlwe_phase(to_torch(np.asarray(ct)), to_torch(s1)), JR.trlwe_phase(ct, jnp.asarray(s1)))
+    _eq(PR.trlwe_phase(to_torch(np.asarray(ct), "cpu"), to_torch(s1, "cpu")), JR.trlwe_phase(ct, jnp.asarray(s1)))
 
 
 @pytest.mark.parametrize("grid", [0, 8])
@@ -145,8 +145,8 @@ def test_trlwe_encrypt_decrypts(grid):
     rng = np.random.default_rng(8)
     s1, mu = _shared_trlwe_setup(rng)
     g = torch.Generator().manual_seed(8)
-    ct = PR.trlwe_encrypt_torus(g, to_torch(s1), to_torch(mu), 1e-9, mask_grid_bits=grid)
-    err = (PR.trlwe_phase(ct, to_torch(s1)) - to_torch(mu)).abs()
+    ct = PR.trlwe_encrypt_torus(g, to_torch(s1, "cpu"), to_torch(mu, "cpu"), 1e-9, mask_grid_bits=grid)
+    err = (PR.trlwe_phase(ct, to_torch(s1, "cpu")) - to_torch(mu, "cpu")).abs()
     assert int(err.max()) < 64 + (1 << grid)
     if grid:
         assert int((ct & ((1 << grid) - 1)).abs().max()) == 0
@@ -161,17 +161,17 @@ def test_external_product_and_cmux_match():
     c = JG.trgsw_encrypt_torus(jax.random.key(2), jnp.asarray(s1), jnp.asarray(1, jnp.uint32), p.bsk_alpha, p)
     c0, c1 = _u32(rng, (4, 2, p.n1)), _u32(rng, (4, 2, p.n1))
     _eq(
-        PG.external_product(to_torch(np.asarray(c)), to_torch(c1), pp),
+        PG.external_product(to_torch(np.asarray(c), "cpu"), to_torch(c1, "cpu"), pp),
         JG.external_product(c, jnp.asarray(c1), p),
     )
     _eq(
-        PG.cmux(to_torch(c0), to_torch(c1), to_torch(np.asarray(c)), pp),
+        PG.cmux(to_torch(c0, "cpu"), to_torch(c1, "cpu"), to_torch(np.asarray(c), "cpu"), pp),
         JG.cmux(jnp.asarray(c0), jnp.asarray(c1), c, p),
     )
     g = torch.Generator().manual_seed(9)
-    mu = [to_torch(_u32(rng, (p.n1,)) & np.uint32(0xF0000000)) for _ in range(2)]
-    e0, e1 = (PR.trlwe_encrypt_torus(g, to_torch(s1), m, p.bsk_alpha) for m in mu)
+    mu = [to_torch(_u32(rng, (p.n1,)) & np.uint32(0xF0000000), "cpu") for _ in range(2)]
+    e0, e1 = (PR.trlwe_encrypt_torus(g, to_torch(s1, "cpu"), m, p.bsk_alpha) for m in mu)
     for bit in (0, 1):
-        sel = PG.trgsw_encrypt_torus(g, to_torch(s1), torch.tensor(bit, dtype=torch.int32), p.bsk_alpha, pp)
-        phase = PR.trlwe_phase(PG.cmux(e0, e1, sel, pp), to_torch(s1))
+        sel = PG.trgsw_encrypt_torus(g, to_torch(s1, "cpu"), torch.tensor(bit, dtype=torch.int32), p.bsk_alpha, pp)
+        phase = PR.trlwe_phase(PG.cmux(e0, e1, sel, pp), to_torch(s1, "cpu"))
         assert int((phase - mu[bit]).abs().max()) < 1 << 20

@@ -70,7 +70,7 @@ def test_plain_product_matches_k5_fused_external_product():
     d = rng.integers(-32, 32, (f, j, n)).astype(np.int32)
     xl = jnp.transpose(split_u32_limbs(negacyclic_extend(jnp.asarray(t))), (1, 3, 0, 2))
     k5 = fused_external_product(jnp.asarray(d).astype(jnp.int8).reshape(f, j * n), xl, 2, interpret=True)
-    port = polymul_small_by_torus(torch.from_numpy(d), to_torch(t), 32)
+    port = polymul_small_by_torus(torch.from_numpy(d), to_torch(t, "cpu"), 32)
     np.testing.assert_array_equal(to_numpy(port), np.asarray(k5))
     ref = polymul_small_by_torus_multi(jnp.asarray(d), build_step_matrix(jnp.asarray(t)), 1, 2)
     np.testing.assert_array_equal(to_numpy(port), np.asarray(ref))
@@ -88,7 +88,7 @@ def test_plain_product_exact_for_wide_digits(name):
     d = rng.integers(-g.half_bg, g.half_bg, (2, 2 * g.l, jp.n1)).astype(np.int32)
     d[0, :, ::2] = -g.half_bg
     d[0, :, 1::2] = g.half_bg - 1
-    port = polymul_small_by_torus(torch.from_numpy(d), to_torch(t), g.half_bg)
+    port = polymul_small_by_torus(torch.from_numpy(d), to_torch(t, "cpu"), g.half_bg)
     ref = polymul_small_by_torus_multi(jnp.asarray(d), build_step_matrix(jnp.asarray(t)), jp.digit_limbs, 2)
     np.testing.assert_array_equal(to_numpy(port), np.asarray(ref))
 
@@ -103,8 +103,8 @@ def test_plain_rotation_matches_xla_scan_at_bgbit_22():
     ct = rng.integers(0, 1 << 32, (4, p.n0 + 1), dtype=np.uint32)
     tv = rng.integers(0, 1 << 32, (2, p.n1), dtype=np.uint32)
     ref = np.asarray(JBR.blind_rotate(jnp.asarray(ct), jnp.asarray(tv), jnp.asarray(bsk), p))
-    b_til, a_til = PBR.rotation_exponents(to_torch(ct), pp)
-    np.testing.assert_array_equal(to_numpy(PBR.blind_rotate_plain(b_til, a_til, to_torch(tv), to_torch(bsk), pp)), ref)
+    b_til, a_til = PBR.rotation_exponents(to_torch(ct, "cpu"), pp)
+    np.testing.assert_array_equal(to_numpy(PBR.blind_rotate_plain(b_til, a_til, to_torch(tv, "cpu"), to_torch(bsk, "cpu"), pp)), ref)
 
 
 def test_bootstrap_matches_jax_at_bgbit_22():
@@ -116,9 +116,9 @@ def test_bootstrap_matches_jax_at_bgbit_22():
     bits = np.array([True, False, False, True])
     ct = JT.lwe_encrypt_bool(jax.random.key(105), sk.lv0, jnp.asarray(bits), p.tlwe_lv0.alpha)
     arrays = {"testvec": np.asarray(ck.testvec), "bsk": np.asarray(ck.bsk), "ksk_limbs": np.asarray(ck.ksk_limbs)}
-    out = PB.bootstrap(to_torch(np.asarray(ct)), PK.cloud_key_from_numpy(arrays, pp))
+    out = PB.bootstrap(to_torch(np.asarray(ct), "cpu"), PK.cloud_key_from_numpy(arrays, pp, "cpu"))
     np.testing.assert_array_equal(to_numpy(out), np.asarray(JB.bootstrap(ct, ck)))
-    np.testing.assert_array_equal(PT.lwe_decrypt_bool(out, to_torch(np.asarray(sk.lv0))).numpy(), bits)
+    np.testing.assert_array_equal(PT.lwe_decrypt_bool(out, to_torch(np.asarray(sk.lv0), "cpu")).numpy(), bits)
 
 
 @pytest.mark.parametrize("per_ct_tv", [False, True], ids=["shared_tv", "per_ct_tv"])
@@ -127,9 +127,9 @@ def test_pallas_route_equals_default(impl, per_ct_tv):
     gives the default route's result, and counts no kernel launch here."""
     p = params_from(JP.TEST_TINY)
     rng = np.random.default_rng(106 + per_ct_tv)
-    bsk = to_torch(rng.integers(0, 1 << 32, (p.n0, 2 * p.trgsw_lv1.l, 2, p.n1), dtype=np.uint32))
-    ct = to_torch(rng.integers(0, 1 << 32, (5, p.n0 + 1), dtype=np.uint32))
-    tv = to_torch(rng.integers(0, 1 << 32, (5, 2, p.n1) if per_ct_tv else (2, p.n1), dtype=np.uint32))
+    bsk = to_torch(rng.integers(0, 1 << 32, (p.n0, 2 * p.trgsw_lv1.l, 2, p.n1), dtype=np.uint32), "cpu")
+    ct = to_torch(rng.integers(0, 1 << 32, (5, p.n0 + 1), dtype=np.uint32), "cpu")
+    tv = to_torch(rng.integers(0, 1 << 32, (5, 2, p.n1) if per_ct_tv else (2, p.n1), dtype=np.uint32), "cpu")
     default = PBR.blind_rotate(ct, tv, bsk, p)
     impl("pallas")
     before = CS.launches
@@ -161,7 +161,7 @@ def test_external_product_dispatch_and_wrapper():
     rng = np.random.default_rng(109)
     l, n = p.trgsw_lv1.l, p.n1
     d = torch.from_numpy(rng.integers(-32, 32, (3, 2 * l, n)).astype(np.int32))
-    t = to_torch(rng.integers(0, 1 << 32, (2 * l, 2, n), dtype=np.uint32))
+    t = to_torch(rng.integers(0, 1 << 32, (2 * l, 2, n), dtype=np.uint32), "cpu")
     assert torch.equal(CS.external_product(d, t, p), polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
     with pytest.raises(ValueError, match="CUDA"):
         CS.external_product_kernel(d, t, p)

@@ -10,21 +10,28 @@ the last line):
   2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a), one
      nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, bit for bit,
-     with both times (CUDA events), and the (N, tile) instantiation each case
-     launched:
+     with both times (CUDA events), and the instance each case launched
+     (ring size, tile, cluster and unit for the rotation; ring size, unit,
+     rows a block and column split for the step):
        3a the blind rotation at SECURITY_128_BIT_FAST (B = 1, 8, 8 with
-          per-ciphertext test vectors, 4096; a grid-sampled key),
+          per-ciphertext test vectors, 16, 128, 256, 4096; a grid-sampled
+          key, three key limbs on the tensor cores, 16 or 32 ciphertexts a
+          cluster; B = 64 with a key off the grid, four limbs),
           SECURITY_128_BIT (B = 4, 512), SECURITY_UINT4 (B = 8, 22-bit
-          digits) and SECURITY_128_BIT_RADIX (B = 528, N = 2048);
+          digits) and SECURITY_128_BIT_RADIX (B = 528 and the smallest batch
+          that takes the instance of B = 2048; N = 2048), then every other
+          (tile, cluster) instance the wrapper picks for a batch up to 128 at
+          FAST (the batches circuits launch), compared without timing;
        3b the multi-bit rotation at FAST (B = 1, 2, 8, shared and
           per-ciphertext test vectors, 1024, a grid-sampled multi-bit key),
           strict B = 4 and 512, SECURITY_128_BIT_RADIX B = 1 and 264 and
           SECURITY_128_BIT_NIBBLE B = 1;
-       3c the external-product step at FAST B = 2048, strict B = 512 and
-          UINT4 B = 8;
+       3c the external-product step at FAST B = 2048 and 8, strict B = 512
+          and 8, RADIX B = 64 and UINT4 B = 8 (s8 limb products on the tensor
+          cores for single-limb digits, the CUDA cores for UINT4);
        3d both rotation kernels per rotation at a few batches of FAST,
-          strict and RADIX: the multi-bit kernel is the faster, which is why
-          a multi-bit key takes it at every batch;
+          strict and RADIX: which is the faster where (a multi-bit key takes
+          the multi-bit kernel at every batch whatever the table says);
        3e the seven probe and primitive-rate kernels (csrc/probes.cu) on
           random inputs: the integer dots (s8 on the tensor cores, s16 and
           s32 on the CUDA cores), roll, bitcast, unpack, and the chained dot
@@ -70,10 +77,11 @@ the last line):
      dedicated bootstrap_with_testvec gives.
 Each path of phases 5-12 is driven with the kernels' launch counts set to 0
 just before it and read just after; every kernel of a path must have
-launched, and every (N, tile) instantiation a path launched must be one
-that phase 3 held against the plain version. The line before the last is a JSON object of the kernels
-(launches, max error against the plain version, times); the last line is
-the contract JSON with the device.
+launched, and every instance a path launched (the whole key: ring size,
+tile, cluster, unit) must be one that phase 3 held against the plain
+version. The line before the last is a JSON object of the kernels (launches,
+max error against the plain version, times); the last line is the contract
+JSON with the device.
 """
 
 from __future__ import annotations
@@ -137,9 +145,20 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+#: Times of the kernels before their redesign for clusters and the tensor cores
+#: (ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md). Not measured by this run:
+#: they are printed in the log beside the new times and never enter the
+#: kernels line, which holds only what this run measured.
+EARLIER_MS = {
+    "blind_rotate": {"128_BIT_FAST B=1": 101.6, "128_BIT_FAST B=128": 102.4, "128_BIT_FAST B=256": 200.5,
+                     "128_BIT_FAST B=4096": 1551.4, "128_BIT B=512": 325.3, "128_BIT_RADIX B=2048": 5455.5},
+    "external_product": {"128_BIT_FAST B=2048": 1.122, "128_BIT B=512": 0.464, "UINT4 B=8": 0.081},
+}
+
+
 def launched_tile(module, fn):
-    """(fn(), the (N, tile) instantiation of `module`'s kernel it launched):
-    fn must launch that kernel exactly once."""
+    """(fn(), the instance of `module`'s kernel it launched, as the wrapper
+    keys it): fn must launch that kernel exactly once."""
     before = module.launched_tiles.copy()
     out = fn()
     (key,) = (module.launched_tiles - before).keys()
@@ -191,10 +210,19 @@ def rotation_bound(p, batch: int, tv_words: int, multibit: bool) -> dict:
     return {"macs": macs, **bound(nbytes, macs, limbs)}
 
 
-def case_row(case: str, ms: float, plain_ms: float, bnd: dict) -> dict:
+def case_row(case: str, ms: float, plain_ms: float, bnd: dict, instance=None) -> dict:
     """One compared case as it goes into the kernels line."""
-    return {"case": case, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-            "bound_by": bnd["bound_by"], "bound": bnd}
+    row = {"case": case, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+           "bound_by": bnd["bound_by"], "bound": bnd}
+    if instance is not None:
+        row["instance"] = list(instance)
+    return row
+
+
+def show_earlier(kernel: str, case: str) -> str:
+    """The log's note of a case's time before the redesign, where PERF.md has one."""
+    ms = EARLIER_MS[kernel].get(case)
+    return "" if ms is None else f" (before the redesign {ms} ms, PERF.md)"
 
 
 def show_bound(b: dict) -> str:
@@ -259,24 +287,63 @@ def phase_kernel_vs_plain(dev) -> dict:
     strict_bsk = rnd((p_strict.n0, 2 * p_strict.trgsw_lv1.l, 2, p_strict.n1))
     uint4_bsk = rnd((p_uint4.n0, 2 * p_uint4.trgsw_lv1.l, 2, p_uint4.n1))
     radix_bsk = rnd((p_radix.n0, 2 * p_radix.trgsw_lv1.l, 2, p_radix.n1))
+    fast = P.SECURITY_128_BIT_FAST
+
+    def instance_of(p, batch, bsk):
+        """The instance the wrapper picks: tile and cluster from the batch and the clusters the
+        card holds, the unit from the parameter set, the key's limbs from the key."""
+        has_mma = p.n1 in cuda_blind_rotate.MMA_RING_SIZES and cuda_blind_rotate.takes_tensor_cores(p)
+        limbs = cuda_blind_rotate.key_limbs(bsk, p) if has_mma else 0
+        tile, cluster, limbs = cuda_blind_rotate.planned_instance(dev.index or 0, batch, p, limbs)
+        return (p.n1, tile, cluster, f"mma_s8x{limbs}" if limbs else "imad")
+
+    for log_n in (6, 10, 11, 12):
+        print(f"[3a] clusters the card holds at one block an SM, N=2^{log_n}: "
+              f"{cuda_blind_rotate.cluster_slots(dev.index or 0, log_n)}")
+    for p, limbs in ((fast, 3), (fast, 4), (p_strict, 4), (p_radix, 4)):
+        print(f"[3a] clusters of the tensor-core instance the card holds, {_name(p)}, {limbs} key limbs, by tile: "
+              f"{cuda_blind_rotate.mma_slots(dev.index or 0, p, limbs)}")
+    radix_full = instance_of(p_radix, 2048, radix_bsk)  # the allow_mb=False PBS of phase 8, multi-value of phase 12
+    radix_batch = next(b for b in range(1, 2049) if instance_of(p_radix, b, radix_bsk) == radix_full)
     cases = [
-        (P.SECURITY_128_BIT_FAST, fast_bsk, 1, False),
-        (P.SECURITY_128_BIT_FAST, fast_bsk, 8, False),
-        (P.SECURITY_128_BIT_FAST, fast_bsk, 8, True),
-        (P.SECURITY_128_BIT_FAST, fast_bsk, 4096, False),
-        (p_strict, strict_bsk, 4, False),
-        (p_strict, strict_bsk, 512, False),
-        (p_uint4, uint4_bsk, 8, False),
-        (p_radix, radix_bsk, 528, False),  # N = 2048, tile 4: the allow_mb=False PBS of phase 8
+        (fast, fast_bsk, 1, False, True),
+        (fast, fast_bsk, 8, False, True),
+        (fast, fast_bsk, 8, True, True),
+        (fast, fast_bsk, 16, False, True),
+        (fast, fast_bsk, 128, False, True),
+        (fast, fast_bsk, 256, False, True),
+        (fast, fast_bsk, 4096, False, True),
+        (fast, rnd(tuple(fast_bsk.shape)), 64, True, True),  # a key off the 2^8 grid keeps all four limbs
+        (p_strict, strict_bsk, 4, False, True),
+        (p_strict, strict_bsk, 512, False, True),
+        (p_uint4, uint4_bsk, 8, False, True),
+        (p_radix, radix_bsk, 528, False, True),  # N = 2048
+        (p_radix, radix_bsk, radix_batch, False, True),
     ]
+    # every other instance a circuit's batches (1..128 rows) can take: the largest batch of each
+    held = {instance_of(p, batch, bsk) for p, bsk, batch, _, _ in cases}
+    by_instance = {}
+    for batch in range(1, 129):
+        by_instance[instance_of(fast, batch, fast_bsk)] = batch
+    cases += [(fast, fast_bsk, batch, False, False) for inst, batch in sorted(by_instance.items()) if inst not in held]
     max_err, rows, tiles = 0, {}, set()
-    for p, bsk, batch, per_ct in cases:
+    for p, bsk, batch, per_ct, timed_case in cases:
         n = p.n1
         tv = rnd((batch, 2, n) if per_ct else (2, n))
         bnd = rotation_bound(p, batch, tv.numel(), multibit=False)
         b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
         out, tile = launched_tile(cuda_blind_rotate, lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p))
+        check(tile == instance_of(p, batch, bsk), f"the wrapper launched the planned instance at B={batch}")
         tiles.add(tile)
+        name = _name(p)
+        where = f"(N={tile[0]}, tile {tile[1]}, cluster {tile[2]}, unit {tile[3]})"
+        if not timed_case:
+            ref = blind_rotate_plain(b_til, a_til, tv, bsk, p)
+            torch.cuda.synchronize()
+            print(f"[3a] blind_rotate {name} B={batch} {where}: equal={torch.equal(out, ref)} "
+                  f"max_abs_err={max_abs_err(out, ref)}")
+            check(torch.equal(out, ref), f"kernel == plain at {name} B={batch}")
+            continue
         if n >= 2048:  # the plain version is costly here: one timed call each
             k_ms = timed(lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p))[1]
             ref, p_ms = timed(lambda: blind_rotate_plain(b_til, a_til, tv, bsk, p))
@@ -284,19 +351,18 @@ def phase_kernel_vs_plain(dev) -> dict:
             ref = blind_rotate_plain(b_til, a_til, tv, bsk, p)
             reps = 1 if batch >= 512 else 3
             k_ms = cuda_ms(lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p), reps)
-            p_ms = cuda_ms(lambda: blind_rotate_plain(b_til, a_til, tv, bsk, p), reps)
+            p_ms = cuda_ms(lambda: blind_rotate_plain(b_til, a_til, tv, bsk, p), 1 if batch >= 128 else reps)
         torch.cuda.synchronize()
         err = max_abs_err(out, ref)
         max_err = max(max_err, err)
-        name = _name(p)
+        case = f"{name} B={batch}" + (" per-ct testvec" if per_ct else "")
         print(
-            f"[3a] blind_rotate {name} B={batch} testvec={'per-ct' if per_ct else 'shared'} "
-            f"(N={tile[0]}, tile {tile[1]}): equal={torch.equal(out, ref)} max_abs_err={err} "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, {show_bound(bnd)}"
+            f"[3a] blind_rotate {name} B={batch} testvec={'per-ct' if per_ct else 'shared'} {where}: "
+            f"equal={torch.equal(out, ref)} max_abs_err={err} "
+            f"kernel {k_ms:.3f} ms{show_earlier('blind_rotate', case)}, plain {p_ms:.3f} ms, {show_bound(bnd)}"
         )
         check(torch.equal(out, ref), f"kernel == plain at {name} B={batch}")
-        rows[(name, batch, per_ct)] = case_row(f"{name} B={batch}" + (" per-ct testvec" if per_ct else ""),
-                                               k_ms, p_ms, bnd)
+        rows[(name, batch, per_ct)] = case_row(case, k_ms, p_ms, bnd, tile)
     print(f"[3a] done {elapsed()}")
     return {"max_abs_err": max_err, **rows[("128_BIT_FAST", 4096, False)], "library_ms": None,
             "cases": list(rows.values()), "tiles_compared": tile_list(tiles)}
@@ -370,11 +436,16 @@ def phase_step_kernel_vs_plain(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     rnd = _rnd(g, dev)
     max_err, rows, tiles = 0, {}, set()
-    for p, batch in ((P.SECURITY_128_BIT_FAST, 2048), (P.SECURITY_128_BIT, 512), (P.SECURITY_UINT4, 8)):
+    plan = ((P.SECURITY_128_BIT_FAST, 2048), (P.SECURITY_128_BIT_FAST, 8), (P.SECURITY_128_BIT, 512),
+            (P.SECURITY_128_BIT, 8), (P.SECURITY_128_BIT_RADIX, 64), (P.SECURITY_UINT4, 8))
+    for p, batch in plan:
         gp, n = p.trgsw_lv1, p.n1
         digits = rnd((batch, 2 * gp.l, n), -gp.half_bg, gp.half_bg)
         trgsw = rnd((2 * gp.l, 2, n))
+        digits[0, :, ::3], digits[-1, :, 1::2] = -gp.half_bg, gp.half_bg - 1  # the digit range's ends
+        trgsw[0, 0, ::2], trgsw[-1, 1, ::3] = -(1 << 31), -1  # 0x80000000 and 0xFFFFFFFF
         out, tile = launched_tile(cuda_step, lambda: external_product_kernel(digits, trgsw, p))
+        check((tile[1] == "mma_s8") == cuda_step.takes_tensor_cores(p), "single-limb digits take the tensor cores")
         tiles.add(tile)
         ref = polymul_small_by_torus(digits, trgsw, gp.half_bg)
         torch.cuda.synchronize()
@@ -391,20 +462,24 @@ def phase_step_kernel_vs_plain(dev) -> dict:
         limbs = 4 * -(-gp.bgbit // 8)
         bnd = {"macs": macs, **bound(4 * (digits.numel() + trgsw.numel() + out.numel()), macs, limbs)}
         name = _name(p)
-        print(f"[3c] external_product {name} B={batch} (N={tile[0]}, tile {tile[1]}): "
-              f"equal={torch.equal(out, ref)} max_abs_err={err} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+        print(f"[3c] external_product {name} B={batch} (N={tile[0]}, unit {tile[1]}, {tile[2]} rows a block, "
+              f"columns split {tile[3]} ways): "
+              f"equal={torch.equal(out, ref)} max_abs_err={err} "
+              f"kernel {k_ms:.3f} ms{show_earlier('external_product', f'{name} B={batch}')}, plain {p_ms:.3f} ms, "
               f"float64 torch.matmul {lib_ms:.3f} ms, {show_bound(bnd)}")
         check(torch.equal(out, ref), f"step kernel == plain at {name} B={batch}")
-        rows[name] = {**case_row(f"{name} B={batch}", k_ms, p_ms, bnd), "library_ms": lib_ms}
+        rows[(name, batch)] = {**case_row(f"{name} B={batch}", k_ms, p_ms, bnd, tile),
+                               "library_ms": lib_ms}
     print(f"[3c] done {elapsed()}")
-    return {"max_abs_err": max_err, **rows["128_BIT_FAST"], "cases": list(rows.values()),
+    return {"max_abs_err": max_err, **rows[("128_BIT_FAST", 2048)], "cases": list(rows.values()),
             "tiles_compared": tile_list(tiles)}
 
 
 def phase_crossover(dev) -> dict:
-    """Both rotation kernels per rotation at a few batches: the multi-bit
-    kernel is the faster, which is why a multi-bit key takes it at every
-    batch (ops.blind_rotate)."""
+    """Both rotation kernels per rotation at a few batches: which is the
+    faster where. A multi-bit key takes the multi-bit kernel at every batch
+    (ops.blind_rotate) whatever this table says; it is printed to show where
+    the whole-rotation kernel, on clusters and the tensor cores, overtakes it."""
     from rs_tfhe_tpu_torch import params as P
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate import blind_rotate_kernel
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate_mb import blind_rotate_mb_kernel
@@ -434,7 +509,8 @@ def phase_crossover(dev) -> dict:
             table[f"{name} B={batch}"] = {"blind_rotate_ms": std, "blind_rotate_mb_ms": mb,
                                           "blind_rotate_bound_ms": bnds[0]["bound_ms"],
                                           "blind_rotate_mb_bound_ms": bnds[1]["bound_ms"]}
-            print(f"[3d] {name} B={batch}: blind_rotate {std:.2f} ms ({show_bound(bnds[0])}), blind_rotate_mb "
+            print(f"[3d] {name} B={batch}: blind_rotate {std:.2f} ms{show_earlier('blind_rotate', f'{name} B={batch}')} "
+                  f"({show_bound(bnds[0])}), blind_rotate_mb "
                   f"{mb:.2f} ms ({show_bound(bnds[1])}; {'multi-bit' if mb < std else 'standard'} faster)")
     print(f"[3d] crossover table: {json.dumps(table)}")
     print(f"[3d] done {elapsed()}")
@@ -1060,7 +1136,7 @@ def main() -> int:
         for k, m in modules.items():
             path_tiles[k].update(m.launched_tiles)
         print(f"[{path}] kernel launches on this path: { {k: v for k, v in counts.items() if v} }; "
-              f"(N, tile) launched: {tiles}")
+              f"instances launched: {tiles}")
         return out, counts
 
     dev = torch.device("cuda", 0)
@@ -1110,7 +1186,7 @@ def main() -> int:
     for name in modules:
         compared = {tuple(t) for t in compare[name]["tiles_compared"]}
         missing = path_tiles[name] - compared
-        print(f"[5-12] {name}: (N, tile) on the paths {tile_list(path_tiles[name])}, "
+        print(f"[5-12] {name}: instances on the paths {tile_list(path_tiles[name])}, "
               f"held against the plain version in phase 3: {tile_list(compared)}")
         check(not missing, f"every {name} instantiation the paths launched was held against the plain "
                            f"version (missing: {tile_list(missing)})")

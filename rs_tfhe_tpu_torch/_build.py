@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels at first use.
 
 The sources under `csrc/` are compiled with `nvcc` for Hopper (`sm_90a`), one
-`nvcc` process per source, all started together, and linked into one shared
+`nvcc` process per unit (a source, and for `blind_rotate.cu` one unit per ring
+size), all started together, and linked into one shared
 library with a plain C interface, loaded with `ctypes`. Nothing is built when
 the package is imported: `load()` builds on its first call. The library goes
-to `_kernels_build/<hash>/`, keyed by a hash of the sources and the compiler
-flags, so an edited source rebuilds; the directory is listed in `.gitignore`.
+to `_kernels_build/<hash>/`, keyed by a hash of the sources, the headers (`csrc/*.cuh`)
+and the compiler flags, so an edited source or header rebuilds; the directory is listed in `.gitignore`.
 A missing `nvcc` or a failed compile raises — there is no fallback.
 """
 
@@ -24,10 +25,19 @@ _SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("blind_rotate.cu", "blind_rotate_mb.cu", "external_product.cu", "probes.cu")
 )
+#: (source, extra flags, object name) per nvcc process. blind_rotate.cu has
+#: most instances: one unit per ring size 2^6..2^12, the first with the C
+#: interface.
+_UNITS = tuple(
+    (_SOURCES[0], (f"-DTFHE_LOG_N={log_n}",) + (("-DTFHE_MAIN",) if log_n == 6 else ()), f"blind_rotate_{log_n}")
+    for log_n in range(6, 13)
+) + tuple((src, (), src.stem) for src in _SOURCES[1:])
+_HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 _OUT_ROOT = _PKG / "_kernels_build"
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-I", str(_PKG / "csrc"),
 )
 _LIB_NAME = "librs_tfhe_kernels.so"
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -55,9 +65,10 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for src in _SOURCES:
+    for src in (*_SOURCES, *_HEADERS):
         h.update(src.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
+    h.update(" ".join(f for f in _FLAGS if f != str(_PKG / "csrc")).encode())
+    h.update(repr([(flags, name) for _, flags, name in _UNITS]).encode())
     return _OUT_ROOT / h.hexdigest()[:16] / _LIB_NAME
 
 
@@ -89,10 +100,11 @@ def build() -> Path:
     log = path.parent / "build.log"
     log.write_text("")
     tag = f"{os.getpid()}.tmp"
-    objs = [path.with_name(f"{src.stem}.{tag}.o") for src in _SOURCES]
+    objs = [path.with_name(f"{name}.{tag}.o") for _, _, name in _UNITS]
     tmp = path.with_name(f"{_LIB_NAME}.{tag}")
     try:
-        _run([[nvcc, *_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_SOURCES, objs)], log)
+        _run([[nvcc, *_FLAGS, *flags, "-c", "-o", str(o), str(src)]
+              for (src, flags, _), o in zip(_UNITS, objs)], log)
         _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], log)
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     finally:
@@ -103,13 +115,19 @@ def build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tfhe_blind_rotate.argtypes = [
+    lib.tfhe_blind_rotate_mb.argtypes = [
         p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, p,
     ]
-    lib.tfhe_blind_rotate.restype = i
-    lib.tfhe_blind_rotate_mb.argtypes = lib.tfhe_blind_rotate.argtypes
     lib.tfhe_blind_rotate_mb.restype = i
-    lib.tfhe_external_product.argtypes = [p, p, p, i, i, i, i, p]
+    lib.tfhe_blind_rotate.argtypes = [
+        p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, i, i, p,
+    ]
+    lib.tfhe_blind_rotate.restype = i
+    lib.tfhe_blind_rotate_max_active_clusters.argtypes = [i, i, i, i, i]
+    lib.tfhe_blind_rotate_max_active_clusters.restype = i
+    lib.tfhe_blind_rotate_max_cluster.argtypes = [i]
+    lib.tfhe_blind_rotate_max_cluster.restype = i
+    lib.tfhe_external_product.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.tfhe_external_product.restype = i
     for name in ("tfhe_blind_rotate", "tfhe_blind_rotate_mb", "tfhe_external_product"):
         getattr(lib, f"{name}_max_tile").argtypes = [i]

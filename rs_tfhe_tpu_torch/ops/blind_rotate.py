@@ -19,10 +19,11 @@ blind_rotate.py:169-189:
 
   - a multi-bit key ("auto" or "fused_small_mb"): the multi-bit kernel
     (ops/cuda_blind_rotate_mb.py) on CUDA, `blind_rotate_mb_plain` on the
-    CPU, at every batch. On an NVIDIA H100 the multi-bit kernel was the
-    faster of the two rotation kernels at every batch timed (PERF.md,
-    crossover table), so the port has no batch cap where the JAX package
-    has `mb_route_batch_cap`;
+    CPU, at every batch: the port has no batch cap where the JAX package
+    has `mb_route_batch_cap`. (The multi-bit kernel was the faster of the
+    two on an NVIDIA H100 until the whole-rotation kernel was redesigned
+    for clusters and the tensor cores; PERF.md's crossover table has both,
+    and the route is decided anew with the multi-bit kernel's own redesign);
   - "pallas": the per-step route, one external-product kernel launch per
     step (ops/cuda_step.py) on CUDA, the plain product on the CPU;
   - otherwise the whole-rotation kernel (ops/cuda_blind_rotate.py) on CUDA,

@@ -187,7 +187,7 @@ def test_port_reproduces_golden_tiny():
 
 def test_port_runs_with_jax_blocked():
     """`import rs_tfhe_tpu_torch`, every module of the circuit path, the
-    probe wrappers, the two probe scripts and chip_smoke.py, and one
+    probe wrappers, the probe and bench scripts and chip_smoke.py, and one
     TEST_TINY NAND, with `jax` blocked from import (the GPU machine has no
     JAX)."""
     code = """
@@ -199,7 +199,8 @@ from rs_tfhe_tpu_torch import bit_utils, gates, key, lut, models, tlwe
 from rs_tfhe_tpu_torch.lut import multi_value
 from rs_tfhe_tpu_torch.models import circuits, netlist
 from rs_tfhe_tpu_torch.ops import cuda_probes
-for script in ("scripts/probe_hopper.py", "scripts/bench_hopper_prims.py", "chip_smoke.py"):
+for script in ("scripts/probe_hopper.py", "scripts/bench_hopper_prims.py", "scripts/bench_hopper_rotation.py",
+               "chip_smoke.py"):
     runpy.run_path(script, run_name="not_main")
 p = pt.TEST_TINY
 g = torch.Generator().manual_seed(0)

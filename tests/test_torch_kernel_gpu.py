@@ -12,6 +12,8 @@ package, so it also runs on a machine without them:
     python -m pytest tests/test_torch_kernel_gpu.py --noconftest -o addopts="" -q
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -58,6 +60,164 @@ def test_kernel_matches_plain_every_tile(dev, tile, per_ct_tv):
     assert torch.equal(out, BR.blind_rotate_plain(*args, P.TEST_TINY))
 
 
+_CLUSTER_INSTANCES = [(t, c) for c in (2, 4, 8) for t in range(1, 9)]
+
+
+@pytest.mark.parametrize("per_ct_tv", [False, True], ids=["shared_tv", "per_ct_tv"])
+@pytest.mark.parametrize("tile,cluster", _CLUSTER_INSTANCES, ids=lambda v: str(v))
+def test_cluster_kernel_matches_plain_every_instance(dev, tile, cluster, per_ct_tv):
+    """TEST_TINY (N=64: clusters of 2, 4 and 8), every tile, a ragged batch:
+    rows past the batch, and a second wave of clusters at the small tiles."""
+    batch = 2 * tile + 3
+    args = _inputs(dev, P.TEST_TINY, batch, per_ct_tv, seed=100 + 10 * cluster + tile)
+    before = CBR.launched_tiles.copy()
+    out = CBR.blind_rotate_kernel(*args, P.TEST_TINY, tile=tile, cluster=cluster)
+    torch.cuda.synchronize()
+    assert CBR.launched_tiles - before == {(P.TEST_TINY.n1, tile, cluster, "imad"): 1}
+    assert torch.equal(out, BR.blind_rotate_plain(*args, P.TEST_TINY))
+
+
+@pytest.mark.parametrize(
+    "name,batch,tile,cluster",
+    [("SECURITY_128_BIT_FAST", 3, 1, 16), ("SECURITY_128_BIT_FAST", 5, 3, 16), ("SECURITY_128_BIT_FAST", 9, 8, 16),
+     ("SECURITY_128_BIT", 7, 5, 8), ("SECURITY_128_BIT_FAST", 11, 7, 4), ("SECURITY_128_BIT_FAST", 6, 4, 2),
+     ("SECURITY_UINT4", 4, 2, 16), ("SECURITY_128_BIT_RADIX", 5, 4, 16), ("SECURITY_128_BIT_RADIX", 3, 2, 8),
+     ("SECURITY_128_BIT_NIBBLE", 2, 2, 16)],
+)
+def test_cluster_kernel_matches_plain_full_width(dev, name, batch, tile, cluster):
+    """Clusters of 16 exist only from N=1024 up: the real ring sizes, with
+    per-ciphertext test vectors and a batch the tile does not divide."""
+    p = getattr(P, name)
+    args = _inputs(dev, p, batch, True, seed=batch + cluster)
+    out = CBR.blind_rotate_kernel(*args, p, tile=tile, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(out, BR.blind_rotate_plain(*args, p))
+
+
+def _short(p, n0):
+    """The set with a short LWE dimension: the same ring, gadget and kernel
+    instances, a rotation of n0 steps."""
+    return dataclasses.replace(p, tlwe_lv0=dataclasses.replace(p.tlwe_lv0, n=n0))
+
+
+@pytest.mark.parametrize(
+    "name,batch", [("SECURITY_128_BIT_FAST", 1), ("SECURITY_128_BIT_FAST", 20), ("SECURITY_128_BIT_FAST", 70),
+                   ("SECURITY_UINT4", 70), ("TEST_TINY", 300)]
+)
+def test_kernel_launches_the_planned_instance(dev, name, batch):
+    """With no tile given the wrapper launches what `planned_instance` picks
+    from the clusters this card holds: the CUDA cores at small batches and
+    for wide digits, the tensor cores from a few dozen single-limb
+    ciphertexts up."""
+    p = getattr(P, name)
+    p = _short(p, 6) if p.n1 == 1024 else p
+    log_n = p.n1.bit_length() - 1
+    slots = CBR.cluster_slots(dev.index or 0, log_n)
+    assert slots[1] == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert all(slots[c] * c <= slots[1] for c in slots)
+    args = _inputs(dev, p, batch, False, seed=batch)
+    has_mma = p.n1 in CBR.MMA_RING_SIZES and CBR.takes_tensor_cores(p)
+    limbs = CBR.key_limbs(args[3], p) if has_mma else 0
+    assert limbs == (4 if has_mma else 0)  # a random key is not on the 2^8 grid
+    tile, cluster, limbs = CBR.planned_instance(dev.index or 0, batch, p, limbs)
+    tensor_cores = limbs > 0
+    assert tensor_cores == (name == "SECURITY_128_BIT_FAST" and batch == 70)
+    before = CBR.launched_tiles.copy()
+    out = CBR.blind_rotate_kernel(*args, p)
+    torch.cuda.synchronize()
+    unit = "mma_s8x4" if tensor_cores else "imad"
+    assert CBR.launched_tiles - before == {(p.n1, tile, cluster, unit): 1}
+    assert torch.equal(out, BR.blind_rotate_plain(*args, p))
+
+
+@pytest.mark.parametrize("per_ct_tv", [False, True], ids=["shared_tv", "per_ct_tv"])
+@pytest.mark.parametrize("on_grid", [False, True], ids=["four_limbs", "three_limbs"])
+@pytest.mark.parametrize(
+    "name,batch", [("SECURITY_128_BIT_FAST", 5), ("SECURITY_128_BIT_FAST", 37), ("SECURITY_128_BIT", 16),
+                   ("SECURITY_80_BIT", 300), ("SECURITY_128_BIT_FAST", 500), ("SECURITY_128_BIT_RADIX", 150)]
+)
+def test_tensor_core_kernel_matches_plain(dev, name, batch, on_grid, per_ct_tv):
+    """The s8 limb product inside the rotation (N = 1024 on a cluster of 8, N
+    = 2048 on a cluster of 16): full-range key words, rows past the batch,
+    more clusters than the card holds at once. Only SECURITY_128_BIT_FAST rounds its key to the 2^8 grid:
+    a key on it takes 3 limbs there (and, L being 2, may take 32 ciphertexts a
+    cluster: every tile the set has is held), every other case 4."""
+    p = _short(getattr(P, name), 5)
+    b_til, a_til, tv, bsk = _inputs(dev, p, batch, per_ct_tv, seed=batch)
+    bsk = bsk & ~0xFF if on_grid else bsk
+    limbs = 3 if on_grid and p.bsk_round_bits == 8 else 4
+    assert CBR.key_limbs(bsk, p) == limbs
+    tiles = CBR.mma_tiles(p, limbs)
+    assert tiles == ((16, 32) if limbs == 3 else (16,))
+    cluster = 2 * p.n1 // CBR.MMA_COLS
+    ref = BR.blind_rotate_plain(b_til, a_til, tv, bsk, p)
+    for tile in tiles:
+        before = CBR.launched_tiles.copy()
+        out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=tile, tensor_cores=True)
+        torch.cuda.synchronize()
+        assert CBR.launched_tiles - before == {(p.n1, tile, cluster, f"mma_s8x{limbs}"): 1}
+        assert torch.equal(out, ref)
+    before = CBR.launched_tiles.copy()
+    out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tensor_cores=True)
+    ((_, picked, _, _),) = (CBR.launched_tiles - before).keys()
+    assert picked in tiles and torch.equal(out, ref)
+    if limbs == 4:
+        with pytest.raises(ValueError, match="has tiles"):
+            CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=32, tensor_cores=True)
+
+
+def test_tensor_core_kernel_full_rotation_and_key_check(dev):
+    """A whole SECURITY_128_BIT_FAST rotation on the tensor cores equals the
+    CUDA cores'; a key edited in place off the grid is seen (a dropped limb
+    would lose its low byte)."""
+    p = P.SECURITY_128_BIT_FAST
+    b_til, a_til, tv, bsk = _inputs(dev, p, 20, False, seed=5)
+    bsk &= ~0xFF
+    assert CBR.key_limbs(bsk, p) == 3
+    out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tensor_cores=True)
+    assert torch.equal(out, CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tensor_cores=False))
+    bsk[0, 0, 0, 0] |= 1
+    assert CBR.key_limbs(bsk, p) == 4
+    out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tensor_cores=True)
+    assert torch.equal(out, CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tensor_cores=False))
+
+
+def test_tensor_core_clusters_are_counted_with_their_shared_memory(dev):
+    """The occupancy query of the tensor-core instance is made on the shape
+    that is launched: its shared memory grows with the gadget length, so 32
+    rows a cluster fit at L = 2 and not at L = 3, and N = 2048 with L = 3
+    (nearly all of a block's shared memory) still holds a cluster of 16."""
+    index = dev.index or 0
+    fast, strict, radix = P.SECURITY_128_BIT_FAST, P.SECURITY_128_BIT, P.SECURITY_128_BIT_RADIX
+    held = CBR.mma_slots(index, fast, 3)
+    assert set(held) == {16, 32} and all(n >= 1 for n in held.values())
+    assert held[32] == CBR.max_active_clusters(index, 10, 32, 8, 3, fast.trgsw_lv1.l)
+    assert CBR.max_active_clusters(index, 10, 32, 8, 3, strict.trgsw_lv1.l) == 0  # L = 3: 232 KB
+    assert set(CBR.mma_slots(index, strict, 4)) == {16}
+    assert CBR.mma_slots(index, radix, 4)[16] >= 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert all(n * 8 <= sms for n in held.values()) and CBR.mma_slots(index, radix, 4)[16] * 16 <= sms
+    with pytest.raises(RuntimeError, match="no instance"):  # no tile of 48
+        CBR.max_active_clusters(index, 10, 48, 8, 3, 2)
+
+
+def test_key_made_in_inference_mode_is_checked_every_call(dev):
+    """A key tensor made under torch.inference_mode() has no version counter:
+    the wrapper reads its limbs at every call instead of failing or trusting
+    an earlier answer."""
+    p = _short(P.SECURITY_128_BIT_FAST, 5)
+    b_til, a_til, tv, bsk = _inputs(dev, p, 40, False, seed=9)
+    with torch.inference_mode():
+        key = bsk & ~0xFF
+        assert CBR.key_limbs(key, p) == 3
+        key[0, 0, 0, 0] |= 1
+        assert CBR.key_limbs(key, p) == 4
+    before = CBR.launched_tiles.copy()
+    out = CBR.blind_rotate_kernel(b_til, a_til, tv, key, p, tensor_cores=True)
+    assert CBR.launched_tiles - before == {(p.n1, 16, 8, "mma_s8x4"): 1}
+    assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, key, p))
+
+
 @pytest.mark.parametrize(
     "name,batch", [("SECURITY_128_BIT_FAST", 8), ("SECURITY_128_BIT", 4), ("SECURITY_128_BIT_RADIX", 2)]
 )
@@ -79,6 +239,13 @@ def test_max_tile_per_ring_size(dev, kernel, at_1024):
     assert [max_tile(log_n) for log_n in range(6, 13)] == [at_1024] * 5 + [at_1024 // 2, at_1024 // 4]
 
 
+def test_max_cluster_per_ring_size(dev):
+    """Cluster instances exist at the parameter sets' ring sizes: 64 (up to
+    8 blocks: a digit slice is at least one 8-word window) and 1024 up."""
+    max_cluster = _build.load().tfhe_blind_rotate_max_cluster
+    assert [max_cluster(log_n) for log_n in range(6, 13)] == [8, 1, 1, 1, 16, 16, 16]
+
+
 def test_dispatch_launches_kernel_and_counts(dev):
     p = P.TEST_TINY
     b_til, a_til, tv, bsk = _inputs(dev, p, 3, False, seed=7)
@@ -86,7 +253,9 @@ def test_dispatch_launches_kernel_and_counts(dev):
     before, tiles = CBR.launches, CBR.launched_tiles.copy()
     out = BR.blind_rotate(ct, tv, bsk, p)
     assert CBR.launches == before + 1
-    assert CBR.launched_tiles - tiles == {(p.n1, 1): 1}
+    planned = CBR.rotation_instance(3, 8, CBR.cluster_slots(dev.index or 0, p.n1.bit_length() - 1))  # N=64: CUDA cores
+    assert planned[1] > 1  # three ciphertexts do not fill the card with single blocks
+    assert CBR.launched_tiles - tiles == {(p.n1, *planned, "imad"): 1}
     b_til, a_til = BR.rotation_exponents(ct, p)
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
 
@@ -102,6 +271,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         CBR.blind_rotate_kernel(b_til, a_til.t().contiguous().t(), tv, bsk, p)
     with pytest.raises(ValueError, match="on cpu"):
         CBR.blind_rotate_kernel(b_til, a_til, tv.cpu(), bsk, p)
+    with pytest.raises(ValueError, match="no tensor-core instance"):  # N=64; N=4096 has none either
+        CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tensor_cores=True)
+    with pytest.raises(ValueError, match="needs its tile"):
+        CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, cluster=2)
+    with pytest.raises(RuntimeError, match="no instance"):  # N=64 has no cluster of 16
+        CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=1, cluster=16)
+    with pytest.raises(RuntimeError, match="launch failed"):  # single blocks: powers of two
+        CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=3)
 
 
 def _mb_inputs(dev, p, batch, per_ct_tv, seed):
@@ -140,22 +317,61 @@ def _step_inputs(dev, p, rows, seed):
     return d, t
 
 
+def _extremes(p, d, t):
+    """Put the ends of the digit range and the words 0x80000000, 0xFFFFFFFF
+    and 0 into the operands (in place)."""
+    hb = p.trgsw_lv1.half_bg
+    d[0, :, ::3], d[-1, :, 1::2] = -hb, hb - 1
+    t[0, 0, ::2], t[-1, 1, ::3], t[0, 1, 5] = -(1 << 31), -1, 0
+    return d, t
+
+
+@pytest.mark.parametrize("split", [1, 8])
 @pytest.mark.parametrize("tile", [1, 2, 4, 8])
-def test_step_kernel_matches_plain_every_tile(dev, tile):
-    d, t = _step_inputs(dev, P.TEST_TINY, 11, seed=40 + tile)
-    out = CS.external_product_kernel(d, t, P.TEST_TINY, tile=tile)
+def test_step_kernel_matches_plain_every_tile(dev, tile, split):
+    """The CUDA-core instance, asked for by its tile: every tile, with and
+    without the column split, a ragged row count."""
+    d, t = _extremes(P.TEST_TINY, *_step_inputs(dev, P.TEST_TINY, 11, seed=40 + tile))
+    before = CS.launched_tiles.copy()
+    out = CS.external_product_kernel(d, t, P.TEST_TINY, tile=tile, split=split)
     torch.cuda.synchronize()
+    assert CS.launched_tiles - before == {(P.TEST_TINY.n1, "imad", tile, split): 1}
     assert torch.equal(out, polymul_small_by_torus(d, t, P.TEST_TINY.trgsw_lv1.half_bg))
 
 
 @pytest.mark.parametrize(
-    "name,rows", [("SECURITY_128_BIT_FAST", 256), ("SECURITY_128_BIT", 64), ("SECURITY_UINT4", 8)]
+    "name,rows",
+    [("TEST_TINY", 11), ("TEST_TINY", 300), ("SECURITY_128_BIT_FAST", 8), ("SECURITY_128_BIT_FAST", 130),
+     ("SECURITY_128_BIT_FAST", 256), ("SECURITY_128_BIT", 64), ("SECURITY_80_BIT", 17),
+     ("SECURITY_128_BIT_RADIX", 64), ("SECURITY_128_BIT_NIBBLE", 16)],
 )
-def test_step_kernel_matches_plain_full_width(dev, name, rows):
+def test_step_kernel_on_tensor_cores_matches_plain(dev, name, rows):
+    """Single-limb digits go to the s8 limb product: full-range words, the
+    digit range's ends, rows past the last block's 128 and few rows."""
     p = getattr(P, name)
-    d, t = _step_inputs(dev, p, rows, seed=rows)
+    d, t = _extremes(p, *_step_inputs(dev, p, rows, seed=rows))
+    before = CS.launched_tiles.copy()
     out = CS.external_product_kernel(d, t, p)
     torch.cuda.synchronize()
+    assert CS.launched_tiles - before == {(p.n1, "mma_s8", CS.MMA_ROWS, 2 * p.n1 // CS.MMA_COLS): 1}
+    assert torch.equal(out, polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
+    if p.n1 <= 64:
+        assert torch.equal(out, CS.limb_product_plain(d, t))
+
+
+@pytest.mark.parametrize("name,rows", [("SECURITY_UINT4", 8), ("SECURITY_UINT4", 300), ("SECURITY_UINT1", 2048)])
+def test_step_kernel_wide_digits_stay_on_cuda_cores(dev, name, rows):
+    """Digits wider than 8 bits keep whole-word multiply-adds, with the
+    columns split over the grid while the rows alone do not fill the card."""
+    p = getattr(P, name)
+    d, t = _extremes(p, *_step_inputs(dev, p, rows, seed=rows))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    instance = CS.step_instance(p, rows, _build.load().tfhe_external_product_max_tile(10), sms)
+    assert instance[1] == "imad" and (instance[3] == 8) == (-(-rows // 8) < sms)
+    before = CS.launched_tiles.copy()
+    out = CS.external_product_kernel(d, t, p)
+    torch.cuda.synchronize()
+    assert CS.launched_tiles - before == {instance: 1}
     assert torch.equal(out, polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
 
 
@@ -195,6 +411,25 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         CS.external_product_kernel(d.to(torch.int64), t, p)
     with pytest.raises(ValueError, match="contiguous"):
         CS.external_product_kernel(d.transpose(0, 1).contiguous().transpose(0, 1), t, p)
+    with pytest.raises(RuntimeError, match="launch failed"):  # the column split is 1 or 8
+        CS.external_product_kernel(d, t, p, tile=1, split=4)
+
+
+def test_step_kernel_digit_contract(dev):
+    """The tensor-core instance keeps a digit's low byte: digits in the
+    gadget's range are exact, a digit outside s8 is outside the wrapper's
+    contract, and `check_digit_range` is the refusal for a caller that
+    cannot vouch for its digits."""
+    p = P.SECURITY_128_BIT_FAST  # bgbit 8: the digit range is all of s8
+    d, t = _extremes(p, *_step_inputs(dev, p, 9, seed=54))
+    CS.check_digit_range(d, p)
+    assert torch.equal(CS.external_product_kernel(d, t, p), polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
+    d[3, 1, 7] = p.trgsw_lv1.half_bg  # 128 does not fit s8
+    with pytest.raises(ValueError, match="outside"):
+        CS.check_digit_range(d, p)
+    d[3, 1, 7] = -p.trgsw_lv1.half_bg - 1
+    with pytest.raises(ValueError, match="outside"):
+        CS.check_digit_range(d, p)
 
 
 # ---------------------------------------------------------------------------

@@ -18,20 +18,26 @@ the last line):
           key, three key limbs on the tensor cores, 16 or 32 ciphertexts a
           cluster; B = 64 with a key off the grid, four limbs),
           SECURITY_128_BIT (B = 4, 512), SECURITY_UINT4 (B = 8, 22-bit
-          digits) and SECURITY_128_BIT_RADIX (B = 528 and the smallest batch
-          that takes the instance of B = 2048; N = 2048), then every other
+          digits), SECURITY_128_BIT_RADIX (B = 528 and the smallest batch
+          that takes the instance of B = 2048; N = 2048) and
+          SECURITY_128_BIT_NIBBLE B = 1 (N = 4096), then every other
           (tile, cluster) instance the wrapper picks for a batch up to 128 at
           FAST (the batches circuits launch), compared without timing;
-       3b the multi-bit rotation at FAST (B = 1, 2, 8, shared and
-          per-ciphertext test vectors, 1024, a grid-sampled multi-bit key),
-          strict B = 4 and 512, SECURITY_128_BIT_RADIX B = 1 and 264 and
-          SECURITY_128_BIT_NIBBLE B = 1;
+       3b the multi-bit rotation at the batches `auto` sends it (at most
+          `mb_route_batch_cap`: 2 at FAST, 4 at L = 3), each on the cluster
+          instance: FAST B = 1 and 2 (shared and per-ciphertext test vectors,
+          a grid-sampled multi-bit key), strict B = 1 and 4,
+          SECURITY_128_BIT_RADIX B = 1 and 2, SECURITY_128_BIT_NIBBLE B = 1
+          (random keys with 0x80000000 and 0xFFFFFFFF words); and FAST
+          B = 1024 on the single-block instance, which step_impl=
+          "fused_small_mb" gives large batches;
        3c the external-product step at FAST B = 2048 and 8, strict B = 512
           and 8, RADIX B = 64 and UINT4 B = 8 (s8 limb products on the tensor
           cores for single-limb digits, the CUDA cores for UINT4);
-       3d both rotation kernels per rotation at a few batches of FAST,
-          strict and RADIX: which is the faster where (a multi-bit key takes
-          the multi-bit kernel at every batch whatever the table says);
+       3d the crossover at B = 1, 2, 4 and 8 of FAST, strict and RADIX: the
+          multi-bit kernel's cluster and single-block instances and the
+          whole-rotation kernel, beside the rotation `auto` gives a
+          multi-bit key there (the JAX package's cap decides it);
        3e the seven probe and primitive-rate kernels (csrc/probes.cu) on
           random inputs: the integer dots (s8 on the tensor cores, s16 and
           s32 on the CUDA cores), roll, bitcast, unpack, and the chained dot
@@ -42,24 +48,27 @@ the last line):
      (for 32-bit multiply-adds the better of the CUDA cores and of s8 limb
      products on the tensor cores);
   4. the card against the JAX package through the committed fixtures
-     tests/vectors/torch_port_tiny.npz, torch_port_tiny_mb.npz and
-     torch_port_tiny_circuits.npz (TEST_TINY, bit for bit);
+     tests/vectors/torch_port_tiny.npz, torch_port_tiny_mb.npz (with a NAND
+     at B = 5 above the multi-bit route's cap, which must take the
+     whole-rotation kernel) and torch_port_tiny_circuits.npz (TEST_TINY, bit
+     for bit);
   5. the gate path at full width, SECURITY_128_BIT_FAST: keygen on the card,
      4096 encrypted bit pairs through batch_gate("nand"), decrypted 100%
      correct, gates/s, and B = 1 latency as the slope between chains of 5
      and 25 dependent gates (minimum over repeats);
   6. the same at SECURITY_128_BIT with B = 512;
   7. multi-bit gates: keygen with multibit=True on the card at FAST and
-     strict, NAND and XOR batches (B = 4096 FAST, 512 strict), gates/s and
-     the B = 1 latency slope through the auto route, every gate decrypted
-     correctly;
+     strict, NAND and XOR batches (B = 4096 FAST, 512 strict: the
+     whole-rotation kernel), gates/s and the B = 1 latency slope (the
+     multi-bit kernel's cluster instance) through the auto route, every gate
+     decrypted correctly, each part's kernel checked;
   8. programmable bootstrapping at SECURITY_128_BIT_RADIX with a multi-bit
      key: B = 2048 messages mod 8 through LutBootstrap().bootstrap_func with
-     (3v) mod 8, 100% correct, PBS/s, and one bootstrap split by stage
-     (CUDA events) and by kernel (torch.profiler); the same batch with
-     allow_mb=False (the whole-rotation kernel); B = 256 with a
-     per-ciphertext LUT through bootstrap_with_testvec; B = 1 and 2 through
-     the multi-bit route, time per PBS;
+     (3v) mod 8 (the whole-rotation kernel), 100% correct, PBS/s, and one
+     bootstrap split by stage (CUDA events) and by kernel (torch.profiler);
+     the same batch with allow_mb=False; B = 256 with a per-ciphertext LUT
+     through bootstrap_with_testvec; B = 1 and 2 through the multi-bit
+     kernel, time per PBS;
   9. step_impl="pallas": a FAST NAND batch at B = 4096 through the
      per-step route equals the default route's output bit for bit;
  10. the probes' own path: scripts/probe_hopper.py (PASS/FAIL per
@@ -71,7 +80,8 @@ the last line):
      (x + y) mod 2^32, wall time and gates/s through the plan, and the
      device's idle share over one compiled run (torch.profiler);
      add_kogge_stone on a batch of 32-bit pairs and mul_csa on a batch of
-     8-bit pairs, decrypted and checked;
+     8-bit pairs, decrypted and checked; with a multi-bit key both rotation
+     kernels run (plan groups of at most 2 gates the multi-bit one);
  12. multi-value bootstrapping at SECURITY_128_BIT_RADIX: two LUTs from one
      rotation on B = 2048 messages, each output decrypting to what the
      dedicated bootstrap_with_testvec gives.
@@ -146,14 +156,35 @@ def timed(fn):
 
 
 #: Times of the kernels before their redesign for clusters and the tensor cores
-#: (ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md). Not measured by this run:
+#: (ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md; the multi-bit kernel's
+#: single-block instance for it). Not measured by this run:
 #: they are printed in the log beside the new times and never enter the
 #: kernels line, which holds only what this run measured.
 EARLIER_MS = {
     "blind_rotate": {"128_BIT_FAST B=1": 101.6, "128_BIT_FAST B=128": 102.4, "128_BIT_FAST B=256": 200.5,
                      "128_BIT_FAST B=4096": 1551.4, "128_BIT B=512": 325.3, "128_BIT_RADIX B=2048": 5455.5},
     "external_product": {"128_BIT_FAST B=2048": 1.122, "128_BIT B=512": 0.464, "UINT4 B=8": 0.081},
+    "blind_rotate_mb": {"128_BIT_FAST B=1": 32.6, "128_BIT B=1": 50.25, "128_BIT_RADIX B=1": 191.7,
+                        "128_BIT_FAST B=1024": 207.8},
 }
+
+
+def rotation_launches() -> tuple:
+    """Launches so far of the two rotation kernels, and the multi-bit
+    kernel's by instance."""
+    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb
+
+    return cuda_blind_rotate.launches, cuda_blind_rotate_mb.launches, cuda_blind_rotate_mb.launched_tiles.copy()
+
+
+def check_route(before: tuple, whole: bool, multibit: bool, what: str) -> None:
+    """Since `before` (rotation_launches()), the whole-rotation kernel ran iff
+    `whole` and the multi-bit kernel iff `multibit`, the latter only as its
+    cluster instance (the one `auto` gives the batches up to the cap)."""
+    now = rotation_launches()
+    check((now[0] > before[0]) == whole and (now[1] > before[1]) == multibit,
+          f"{what} (launches: whole-rotation {now[0] - before[0]}, multi-bit {now[1] - before[1]})")
+    check(all(t[2] > 1 for t in (now[2] - before[2])), f"{what}: the multi-bit kernel ran as a cluster")
 
 
 def launched_tile(module, fn):
@@ -287,6 +318,8 @@ def phase_kernel_vs_plain(dev) -> dict:
     strict_bsk = rnd((p_strict.n0, 2 * p_strict.trgsw_lv1.l, 2, p_strict.n1))
     uint4_bsk = rnd((p_uint4.n0, 2 * p_uint4.trgsw_lv1.l, 2, p_uint4.n1))
     radix_bsk = rnd((p_radix.n0, 2 * p_radix.trgsw_lv1.l, 2, p_radix.n1))
+    p_nibble = P.SECURITY_128_BIT_NIBBLE
+    nibble_bsk = rnd((p_nibble.n0, 2 * p_nibble.trgsw_lv1.l, 2, p_nibble.n1))
     fast = P.SECURITY_128_BIT_FAST
 
     def instance_of(p, batch, bsk):
@@ -319,6 +352,7 @@ def phase_kernel_vs_plain(dev) -> dict:
         (p_uint4, uint4_bsk, 8, False, True),
         (p_radix, radix_bsk, 528, False, True),  # N = 2048
         (p_radix, radix_bsk, radix_batch, False, True),
+        (p_nibble, nibble_bsk, 1, False, True),  # N = 4096
     ]
     # every other instance a circuit's batches (1..128 rows) can take: the largest batch of each
     held = {instance_of(p, batch, bsk) for p, bsk, batch, _, _ in cases}
@@ -382,18 +416,21 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
     check(int((fast_mb & 0xFF).abs().max()) == 0, "FAST multi-bit key is on the 2^8 grid")
 
     def random_key(p):
-        return rnd((p.n0 // 2, 4, 2 * p.trgsw_lv1.l, 2, p.n1))
+        """Full-range words, with 0x80000000 and 0xFFFFFFFF in every pattern."""
+        key = rnd((p.n0 // 2, 4, 2 * p.trgsw_lv1.l, 2, p.n1))
+        key[:, :, 0, 0, ::7], key[:, :, -1, 1, 3::11] = -(1 << 31), -1
+        return key
 
-    strict_mb, radix_mb = random_key(P.SECURITY_128_BIT), random_key(P.SECURITY_128_BIT_RADIX)
+    strict, radix, nibble = P.SECURITY_128_BIT, P.SECURITY_128_BIT_RADIX, P.SECURITY_128_BIT_NIBBLE
+    strict_mb, radix_mb = random_key(strict), random_key(radix)
+    # the batches `auto` sends (at most mb_route_batch_cap), and one batch that
+    # step_impl="fused_small_mb" gives the single-block instance
     cases = [
         (fast, fast_mb, 1, False), (fast, fast_mb, 2, False), (fast, fast_mb, 2, True),
-        (fast, fast_mb, 8, False), (fast, fast_mb, 8, True),
-        (fast, fast_mb, 1024, False),  # tile 4: the B=4096 gates of phase 7
-        (P.SECURITY_128_BIT, strict_mb, 4, False),
-        (P.SECURITY_128_BIT, strict_mb, 512, False),  # tile 2: the B=512 gates of phase 7
-        (P.SECURITY_128_BIT_RADIX, radix_mb, 1, False),
-        (P.SECURITY_128_BIT_RADIX, radix_mb, 264, False),  # N = 2048, tile 2: the B=2048 PBS of phase 8
-        (P.SECURITY_128_BIT_NIBBLE, random_key(P.SECURITY_128_BIT_NIBBLE), 1, False),
+        (strict, strict_mb, 1, False), (strict, strict_mb, 4, False),
+        (radix, radix_mb, 1, False), (radix, radix_mb, 2, False),
+        (nibble, random_key(nibble), 1, False),
+        (fast, fast_mb, 1024, False),
     ]
     max_err, rows, tiles = 0, {}, set()
     for p, key, batch, per_ct in cases:
@@ -402,6 +439,9 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         bnd = rotation_bound(p, batch, tv.numel(), multibit=True)
         b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
         out, tile = launched_tile(cuda_blind_rotate_mb, lambda: blind_rotate_mb_kernel(b_til, a_til, tv, key, p))
+        check(tile == (n, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p)),
+              f"the multi-bit wrapper launched the planned instance at B={batch}")
+        check((tile[2] > 1) == (batch <= 4), "the batches auto sends take the cluster instance")
         tiles.add(tile)
         name = _name(p)
         if n >= 2048 or batch >= 512:  # the plain version is costly here: one timed call each
@@ -414,14 +454,14 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         torch.cuda.synchronize()
         err = max_abs_err(out, ref)
         max_err = max(max_err, err)
+        case = f"{name} B={batch}" + (" per-ct testvec" if per_ct else "")
         print(
             f"[3b] blind_rotate_mb {name} B={batch} testvec={'per-ct' if per_ct else 'shared'} "
-            f"(N={tile[0]}, tile {tile[1]}): equal={torch.equal(out, ref)} max_abs_err={err} "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, {show_bound(bnd)}"
+            f"(N={tile[0]}, tile {tile[1]}, cluster {tile[2]}): equal={torch.equal(out, ref)} max_abs_err={err} "
+            f"kernel {k_ms:.3f} ms{show_earlier('blind_rotate_mb', case)}, plain {p_ms:.3f} ms, {show_bound(bnd)}"
         )
         check(torch.equal(out, ref), f"multi-bit kernel == plain at {name} B={batch}")
-        rows[(name, batch, per_ct)] = case_row(f"{name} B={batch}" + (" per-ct testvec" if per_ct else ""),
-                                               k_ms, p_ms, bnd)
+        rows[(name, batch, per_ct)] = case_row(case, k_ms, p_ms, bnd, tile)
     print(f"[3b] done {elapsed()}")
     return {"max_abs_err": max_err, **rows[("128_BIT_FAST", 1, False)], "library_ms": None,
             "cases": list(rows.values()), "tiles_compared": tile_list(tiles)}
@@ -476,42 +516,38 @@ def phase_step_kernel_vs_plain(dev) -> dict:
 
 
 def phase_crossover(dev) -> dict:
-    """Both rotation kernels per rotation at a few batches: which is the
-    faster where. A multi-bit key takes the multi-bit kernel at every batch
-    (ops.blind_rotate) whatever this table says; it is printed to show where
-    the whole-rotation kernel, on clusters and the tensor cores, overtakes it."""
+    """Per rotation at B = 1, 2, 4 and 8 of FAST, strict and RADIX: the
+    multi-bit kernel's cluster instance (the plan's pick), its single-block
+    instance (tile 1) and the whole-rotation kernel (the plan's pick), beside
+    the route that `auto` takes with a multi-bit key: the multi-bit rotation
+    up to `mb_route_batch_cap` (the JAX package's cap), the standard one
+    above it."""
     from rs_tfhe_tpu_torch import params as P
+    from rs_tfhe_tpu_torch.ops.blind_rotate import mb_route_batch_cap
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate import blind_rotate_kernel
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate_mb import blind_rotate_mb_kernel
 
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
     rnd = _rnd(g, dev)
     table = {}
-    plan = (
-        (P.SECURITY_128_BIT_FAST, (1, 256, 4096)),
-        (P.SECURITY_128_BIT, (1, 512)),
-        (P.SECURITY_128_BIT_RADIX, (1, 256, 2048)),
-    )
-    for p, batches in plan:
+    for p in (P.SECURITY_128_BIT_FAST, P.SECURITY_128_BIT, P.SECURITY_128_BIT_RADIX):
         n, gp = p.n1, p.trgsw_lv1
         bsk, tv = rnd((p.n0, 2 * gp.l, 2, n)), rnd((2, n))
         bsk_mb = rnd((p.n0 // 2, 4, 2 * gp.l, 2, n))
-        name = _name(p)
-        for batch in batches:
+        name, cap = _name(p), mb_route_batch_cap(p)
+        for batch in (1, 2, 4, 8):
             b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
-            if batch >= 2048:  # seconds each: one timed call, no warm-up (both kernels ran above)
-                std = timed(lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p))[1]
-                mb = timed(lambda: blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p))[1]
-            else:
-                std = cuda_ms(lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p), 1)
-                mb = cuda_ms(lambda: blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p), 1)
-            bnds = [rotation_bound(p, batch, tv.numel(), multibit=m) for m in (False, True)]
-            table[f"{name} B={batch}"] = {"blind_rotate_ms": std, "blind_rotate_mb_ms": mb,
-                                          "blind_rotate_bound_ms": bnds[0]["bound_ms"],
-                                          "blind_rotate_mb_bound_ms": bnds[1]["bound_ms"]}
-            print(f"[3d] {name} B={batch}: blind_rotate {std:.2f} ms{show_earlier('blind_rotate', f'{name} B={batch}')} "
-                  f"({show_bound(bnds[0])}), blind_rotate_mb "
-                  f"{mb:.2f} ms ({show_bound(bnds[1])}; {'multi-bit' if mb < std else 'standard'} faster)")
+            cluster = cuda_ms(lambda: blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p), 1)
+            single = cuda_ms(lambda: blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p, tile=1, cluster=1), 1)
+            std = cuda_ms(lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p), 1)
+            route = "multi-bit" if batch <= cap else "standard"
+            bnds = [rotation_bound(p, batch, tv.numel(), multibit=m)["bound_ms"] for m in (False, True)]
+            table[f"{name} B={batch}"] = {"blind_rotate_mb_cluster_ms": cluster, "blind_rotate_mb_single_ms": single,
+                                          "blind_rotate_ms": std, "auto_route_mb_key": route,
+                                          "blind_rotate_bound_ms": bnds[0], "blind_rotate_mb_bound_ms": bnds[1]}
+            print(f"[3d] {name} B={batch}: multi-bit cluster {cluster:.2f} ms, single block {single:.2f} ms, "
+                  f"whole-rotation {std:.2f} ms (bounds {bnds[1]:.3g} / {bnds[0]:.3g} ms); "
+                  f"a multi-bit key takes the {route} rotation here (cap {cap})")
     print(f"[3d] crossover table: {json.dumps(table)}")
     print(f"[3d] done {elapsed()}")
     return table
@@ -522,6 +558,7 @@ def phase_fixture(dev) -> None:
     from rs_tfhe_tpu_torch.bootstrap import bootstrap_with_testvec
     from rs_tfhe_tpu_torch.lut import factor_test_vectors, multi_value_bootstrap
     from rs_tfhe_tpu_torch.models import circuits, netlist
+    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate
     from rs_tfhe_tpu_torch.ops.blind_rotate import blind_rotate, rotation_exponents
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate_mb import blind_rotate_mb_kernel
     from rs_tfhe_tpu_torch.ops.extract import sample_extract
@@ -551,12 +588,16 @@ def phase_fixture(dev) -> None:
 
     v = np.load(FIXTURE_MB)
     ck = key.cloud_key_from_numpy(v, TEST_TINY, dev)
-    a, b, m = (to_torch(v[n], dev) for n in ("ct_a", "ct_b", "ct_m"))
+    a, b, m, a5, b5 = (to_torch(v[n], dev) for n in ("ct_a", "ct_b", "ct_m", "ct_a5", "ct_b5"))
     lut, lut_per_ct = to_torch(v["lut"], dev), to_torch(v["lut_per_ct"], dev)
     b_til, a_til = rotation_exponents(a, TEST_TINY)
+    k1_before = cuda_blind_rotate.launches
+    nand_b5 = gates.nand(a5, b5, ck)  # above the multi-bit route's batch cap: the standard rotation, as in JAX
+    check(cuda_blind_rotate.launches == k1_before + 1, "a multi-bit key above the cap takes the whole-rotation kernel")
     compare({
         "blind_rotate_mb": blind_rotate_mb_kernel(b_til, a_til, ck.testvec, ck.bsk_mb, TEST_TINY),
         "nand_b1": gates.nand(a[:1], b[:1], ck),
+        "nand_b5": nand_b5,
         "pbs_mb": bootstrap_with_testvec(m, lut, ck, allow_mb=True),
         "pbs_std": bootstrap_with_testvec(m, lut, ck, allow_mb=False),
         "pbs_mb_per_ct": bootstrap_with_testvec(m, lut_per_ct, ck, allow_mb=True),
@@ -673,7 +714,9 @@ def run_main_path(p, batch: int, dev, label: str) -> dict:
 def run_mb_gates(p, batch: int, dev, label: str) -> dict:
     """A multi-bit key made on the card; NAND and XOR batches, gates/s over
     three chained NAND batches, and the B = 1 latency slope, all through the
-    auto route (the multi-bit rotation)."""
+    auto route: the batches above the cap take the whole-rotation kernel
+    (with the key's `bsk`), the B = 1 chains the multi-bit kernel's cluster
+    instance."""
     from rs_tfhe_tpu_torch import gates
     from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool, lwe_encrypt_bool
 
@@ -683,6 +726,7 @@ def run_mb_gates(p, batch: int, dev, label: str) -> dict:
     bits_a, bits_b = (rng.integers(0, 2, batch).astype(bool) for _ in range(2))
     a = lwe_encrypt_bool(g, sk.lv0, bits_a, p.tlwe_lv0.alpha)
     b = lwe_encrypt_bool(g, sk.lv0, bits_b, p.tlwe_lv0.alpha)
+    before = rotation_launches()
     for name, fn, truth in (("nand", gates.nand, ~(bits_a & bits_b)), ("xor", gates.xor, bits_a ^ bits_b)):
         correct = float((lwe_decrypt_bool(fn(a, b, ck), sk.lv0).cpu().numpy() == truth).mean())
         check(correct == 1.0, f"{label}: every multi-bit {name} of a B={batch} batch decrypts correctly")
@@ -695,7 +739,10 @@ def run_mb_gates(p, batch: int, dev, label: str) -> dict:
     per_iter = (time.perf_counter() - t0) / iters
     check(bool((lwe_decrypt_bool(cur, sk.lv0).cpu().numpy() == expect).all()),
           f"{label}: chained multi-bit NAND batches decrypt correctly")
+    check_route(before, True, False, f"{label}: the B={batch} batches with a multi-bit key take the whole-rotation kernel")
+    before = rotation_launches()
     latency_ms, t5, t25 = _latency_ms(gates.nand, a[:1], b[:1], ck, sk, bool(bits_a[0]), bool(bits_b[0]))
+    check_route(before, False, True, f"{label}: the B=1 chains with a multi-bit key take the multi-bit kernel")
     print(f"[{label}] {_name(p)} multi-bit keygen (multibit=True, incl. secret key) {keygen_ms:.1f} ms; "
           f"B={batch} NAND/XOR 100% correct; {batch / per_iter:.1f} gates/s ({per_iter * 1e3:.1f} ms per "
           f"batch, {iters} chained); B=1 latency {latency_ms:.2f} ms "
@@ -705,8 +752,8 @@ def run_mb_gates(p, batch: int, dev, label: str) -> dict:
 
 def run_pbs(p, dev, label: str) -> dict:
     """Programmable bootstrapping with a multi-bit key: B = 2048 through
-    LutBootstrap, B = 256 with per-ciphertext LUTs, B = 1 and 2 through the
-    multi-bit route."""
+    LutBootstrap and B = 256 with per-ciphertext LUTs (above the cap: the
+    whole-rotation kernel), B = 1 and 2 through the multi-bit route."""
     from rs_tfhe_tpu_torch.bootstrap import LutBootstrap, bootstrap_with_testvec
     from rs_tfhe_tpu_torch.lut import Generator
     from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_message, lwe_encrypt_message
@@ -726,6 +773,7 @@ def run_pbs(p, dev, label: str) -> dict:
     def pbs(x):
         return strategy.bootstrap_func(x, f, modulus, ck)
 
+    before = rotation_launches()
     out = pbs(ct)
     correct = float((lwe_decrypt_message(out, sk.lv0, modulus) == f(msgs)).mean())
     check(correct == 1.0, f"{label}: every PBS of the B=2048 batch decrypts correctly")
@@ -734,8 +782,9 @@ def run_pbs(p, dev, label: str) -> dict:
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     check(bool((lwe_decrypt_message(out, sk.lv0, modulus) == f(msgs)).all()), f"{label}: second B=2048 PBS")
+    check_route(before, True, False, f"{label}: a B=2048 PBS with a multi-bit key takes the whole-rotation kernel")
     print(f"[{label}] keygen (multibit=True) {keygen_ms:.1f} ms; B=2048 (3v mod 8): correctness {correct:.6f}, "
-          f"{2048 / batch_s:.1f} PBS/s ({batch_s * 1e3:.1f} ms per batch, multi-bit route)")
+          f"{2048 / batch_s:.1f} PBS/s ({batch_s * 1e3:.1f} ms per batch, auto route: the whole-rotation kernel)")
     lut3 = Generator(modulus, p).generate_lookup_table(f).poly.to(dev)
     out, std_ms = timed(lambda: bootstrap_with_testvec(ct, lut3, ck, allow_mb=False))
     check(bool((lwe_decrypt_message(out, sk.lv0, modulus) == f(msgs)).all()),
@@ -751,12 +800,15 @@ def run_pbs(p, dev, label: str) -> dict:
     tables = [gen.generate_lookup_table(lambda v, k=k: (v + k) % modulus).poly for k in range(modulus)]
     which = rng.integers(0, modulus, 256)
     lut = torch.stack([tables[k] for k in which]).to(dev)
+    before = rotation_launches()
     out = bootstrap_with_testvec(ct[:256], lut, ck)
+    check_route(before, True, False, f"{label}: a B=256 PBS with a multi-bit key takes the whole-rotation kernel")
     ok = bool((lwe_decrypt_message(out, sk.lv0, modulus) == (msgs[:256] + which) % modulus).all())
     check(ok, f"{label}: every per-ciphertext-LUT PBS of the B=256 batch decrypts correctly")
     _, per_ct_ms = timed(lambda: bootstrap_with_testvec(ct[:256], lut, ck))
 
     small = {}
+    before = rotation_launches()
     for batch in (1, 2):
         x = ct[:batch]
         out = pbs(x)
@@ -767,6 +819,7 @@ def run_pbs(p, dev, label: str) -> dict:
             out = pbs(x)
         torch.cuda.synchronize()
         small[batch] = (time.perf_counter() - t0) / 3 * 1e3
+    check_route(before, False, True, f"{label}: B=1 and 2 PBS with a multi-bit key take the multi-bit kernel")
     print(f"[{label}] B=256 per-ciphertext LUTs: 100% correct, {per_ct_ms:.1f} ms; "
           f"B=1 {small[1]:.1f} ms per call, B=2 {small[2]:.1f} ms per call (multi-bit route) {elapsed()}")
     return {"pbs_per_s_b2048": 2048 / batch_s, "pbs_per_s_b2048_allow_mb_false": 2048e3 / std_ms,
@@ -1090,7 +1143,8 @@ def run_multi_value(p, dev, label: str) -> dict:
         check(bool((got == want).all()), f"{label}: multi-value output {k} decrypts as the dedicated bootstrap")
     print(f"[{label}] {_name(p)} multi_value_bootstrap B={batch}, {len(fs)} LUTs (norms {[round(x, 2) for x in mv.norms]}): "
           f"every output decrypts as its dedicated bootstrap; {mv_ms:.1f} ms (one rotation with the standard key) "
-          f"against {dedicated_ms:.1f} ms for the {len(fs)} dedicated bootstraps (multi-bit route) {elapsed()}")
+          f"against {dedicated_ms:.1f} ms for the {len(fs)} dedicated bootstraps (multi-bit key, above the cap: "
+          f"the whole-rotation kernel) {elapsed()}")
     return {"multi_value_ms_b2048": mv_ms, "dedicated_ms_b2048": dedicated_ms, "n_luts": len(fs)}
 
 
@@ -1165,6 +1219,7 @@ def main() -> int:
     check(paths["gates"]["blind_rotate"] > 0, "the gate path launched the blind-rotation kernel")
     results["mb_gates"], paths["mb_gates"] = drive("7", mb_path)
     check(paths["mb_gates"]["blind_rotate_mb"] > 0, "the multi-bit gate path launched the multi-bit kernel")
+    check(paths["mb_gates"]["blind_rotate"] > 0, "the multi-bit gate path launched the whole-rotation kernel")
     results["pbs_radix"], paths["pbs_radix"] = drive("8", run_pbs, P.SECURITY_128_BIT_RADIX, dev, "8")
     check(paths["pbs_radix"]["blind_rotate_mb"] > 0, "the PBS path launched the multi-bit kernel")
     check(paths["pbs_radix"]["blind_rotate"] > 0, "the PBS path launched the blind-rotation kernel")
@@ -1178,9 +1233,11 @@ def main() -> int:
     check(paths["circuits_std"]["blind_rotate"] > 0, "circuits with a standard key launched the blind-rotation kernel")
     results["circuits_mb"], paths["circuits_mb"] = drive("11", run_circuits, fast, dev, "11", True)
     check(paths["circuits_mb"]["blind_rotate_mb"] > 0, "circuits with a multi-bit key launched the multi-bit kernel")
+    check(paths["circuits_mb"]["blind_rotate"] > 0, "circuits with a multi-bit key launched the whole-rotation kernel")
     results["multi_value"], paths["multi_value"] = drive("12", run_multi_value, P.SECURITY_128_BIT_RADIX, dev, "12")
     check(paths["multi_value"]["blind_rotate"] > 0, "multi-value bootstrapping launched the blind-rotation kernel")
-    check(paths["multi_value"]["blind_rotate_mb"] > 0, "the dedicated bootstraps launched the multi-bit kernel")
+    check(paths["multi_value"]["blind_rotate_mb"] == 0,
+          "the dedicated B=2048 bootstraps with a multi-bit key took the whole-rotation kernel (above the cap)")
     print(f"[5-12] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"total {elapsed()}")
     for name in modules:

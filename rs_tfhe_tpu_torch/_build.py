@@ -1,9 +1,9 @@
 """Build and load the package's CUDA kernels at first use.
 
 The sources under `csrc/` are compiled with `nvcc` for Hopper (`sm_90a`), one
-`nvcc` process per unit (a source, and for `blind_rotate.cu` one unit per ring
-size), all started together, and linked into one shared
-library with a plain C interface, loaded with `ctypes`. Nothing is built when
+`nvcc` process per unit (a source, and for `blind_rotate.cu` and
+`blind_rotate_mb.cu` one unit per ring size), all started together, and
+linked into one shared library with a plain C interface, loaded with `ctypes`. Nothing is built when
 the package is imported: `load()` builds on its first call. The library goes
 to `_kernels_build/<hash>/`, keyed by a hash of the sources, the headers (`csrc/*.cuh`)
 and the compiler flags, so an edited source or header rebuilds; the directory is listed in `.gitignore`.
@@ -25,13 +25,14 @@ _SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("blind_rotate.cu", "blind_rotate_mb.cu", "external_product.cu", "probes.cu")
 )
-#: (source, extra flags, object name) per nvcc process. blind_rotate.cu has
-#: most instances: one unit per ring size 2^6..2^12, the first with the C
-#: interface.
+#: (source, extra flags, object name) per nvcc process. The two rotation
+#: kernels have most instances: one unit each per ring size 2^6..2^12, the
+#: first of each with its C interface.
 _UNITS = tuple(
-    (_SOURCES[0], (f"-DTFHE_LOG_N={log_n}",) + (("-DTFHE_MAIN",) if log_n == 6 else ()), f"blind_rotate_{log_n}")
+    (src, (f"-DTFHE_LOG_N={log_n}",) + (("-DTFHE_MAIN",) if log_n == 6 else ()), f"{src.stem}_{log_n}")
+    for src in _SOURCES[:2]
     for log_n in range(6, 13)
-) + tuple((src, (), src.stem) for src in _SOURCES[1:])
+) + tuple((src, (), src.stem) for src in _SOURCES[2:])
 _HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 _OUT_ROOT = _PKG / "_kernels_build"
 _FLAGS = (
@@ -116,9 +117,13 @@ def build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tfhe_blind_rotate_mb.argtypes = [
-        p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, p,
+        p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, i, p,
     ]
     lib.tfhe_blind_rotate_mb.restype = i
+    lib.tfhe_blind_rotate_mb_max_active_clusters.argtypes = [i, i, i]
+    lib.tfhe_blind_rotate_mb_max_active_clusters.restype = i
+    lib.tfhe_blind_rotate_mb_max_cluster_tile.argtypes = [i]
+    lib.tfhe_blind_rotate_mb_max_cluster_tile.restype = i
     lib.tfhe_blind_rotate.argtypes = [
         p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, i, i, p,
     ]

@@ -5,13 +5,14 @@ Environment override: RS_TFHE_STEP_IMPL (read once, at import, as
 
 `step_impl` selects the blind-rotation route. The values the port has:
   - "auto"           — on a CUDA tensor the whole-rotation kernel
-                       (csrc/blind_rotate.cu), or the multi-bit kernel
-                       (csrc/blind_rotate_mb.cu), at every batch, when the
-                       key has `bsk_mb`; on a CPU tensor the plain PyTorch
-                       versions of the same;
-  - "fused_small_mb" — the JAX package's name for forcing the multi-bit
-                       rotation: routes as "auto" does, but raises if the
-                       key has no `bsk_mb`;
+                       (csrc/blind_rotate.cu), or, when the key has `bsk_mb`
+                       and the batch is at most
+                       `ops.blind_rotate.mb_route_batch_cap` (2 at L=2, 4 at
+                       L>=3, as in the JAX package), the multi-bit kernel
+                       (csrc/blind_rotate_mb.cu); on a CPU tensor the plain
+                       PyTorch versions of the same;
+  - "fused_small_mb" — forces the multi-bit rotation at every batch, as in
+                       the JAX package; raises if the key has no `bsk_mb`;
   - "pallas"         — the per-step route: per CMUX step, rotate and
                        decompose in PyTorch, then one external-product kernel
                        launch (csrc/external_product.cu) on the card, the

@@ -48,7 +48,9 @@
 // read its copy for the last time in the step, waits before it pushes (the
 // wait hides behind the product), and a full arrive-and-wait after the push
 // makes the new accumulator visible. The last step's barrier also keeps every
-// block's memory alive until its peers' pushes have landed.
+// block's memory alive until its peers' pushes have landed. The slicing, the
+// window loop, the barrier and the push are csrc/cluster_rotation.cuh's,
+// shared with the multi-bit rotation's cluster instance.
 // Shared memory per block: (3T + 1) * N + 2N / CL + 32 (T + 1) words, 102 KB
 // at N = 1024, T = 8, CL = 8.
 //
@@ -92,13 +94,21 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_rotation.cuh"
 #include "negacyclic_mma.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+namespace cr = cluster_rotation;
 
-constexpr int kR = 8;  // output coefficients per thread
+using cr::cluster_arrive;
+using cr::cluster_wait;
+using cr::kExclusiveSmem;
+using cr::kLanes;
+using cr::kR;  // output coefficients per thread
+using cr::max_cluster;
+
 constexpr size_t kMaxSmem = 232448;  // bytes a block may use on sm_90
 
 constexpr size_t smem_bytes(int n, int tile) {
@@ -239,39 +249,16 @@ blind_rotate_kernel(const int32_t* __restrict__ b_til,     // [B]
 // The cluster instance
 // ---------------------------------------------------------------------------
 
-constexpr int kLanes = 32;      // digit-loop offsets: one per lane of a warp
-constexpr int kMaxCluster = 16; // blocks a cluster (above 8: non-portable size)
-
-// Largest cluster per ring size: a thread's digit slice N / CL is a multiple
-// of the 8-word window. Only the ring sizes of the package's parameter sets
-// (64, and 1024 up) have cluster instances: every (T, CL) pair is a kernel
-// to compile.
-constexpr int max_cluster(int n) {
-  return n != 64 && n < 1024 ? 1 : n / kR < kMaxCluster ? n / kR : kMaxCluster;
-}
-
 // The (T, CL) pairs the wrapper's plan can pick: any tile up to the largest
-// at any cluster up to the largest.
+// at any cluster up to the largest (cluster_rotation.cuh's max_cluster).
 constexpr bool cluster_instance(int n, int tile, int cl) {
   return tile <= max_tile(n) && cl <= max_cluster(n);
 }
-
-// Dynamic shared memory above half an SM's: a query with this much counts the
-// clusters the card holds at one block an SM.
-constexpr size_t kExclusiveSmem = 120 * 1024;
 
 constexpr size_t cluster_smem_bytes(int n, int tile, int cl) {
   return static_cast<size_t>(tile * 2 * n + tile * (n + kLanes) + 2 * n / cl + n + kLanes) *
              sizeof(uint32_t) +
          2 * tile * sizeof(int);
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 template <int LOG_N, int T, int CL>
@@ -283,16 +270,14 @@ blind_rotate_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
                             const uint32_t* __restrict__ bsk,      // [n0, 2L, 2, N]
                             uint32_t* __restrict__ out,            // [B, 2, N]
                             int batch, int n0, int l, int bgbit, uint32_t dec_offset) {
-  constexpr int N = 1 << LOG_N;
+  using SL = cr::Slicing<LOG_N, CL>;
+  constexpr int N = SL::N;
   constexpr int TWO_N_MASK = 2 * N - 1;
-  constexpr int THREADS = 2 * N / kR;
-  constexpr int W = 2 * N / CL;        // output columns of this block (one polynomial's)
-  constexpr int CG = W / kR;           // threads along the columns; CL digit slices each
-  constexpr int S = N / CL;            // digits of one slice per gadget row
-  constexpr int DIG = N + kLanes;      // digit plane, extended by kLanes negated digits
-  constexpr int EXT = W + N + kLanes;  // key window: E(k), k in [s0 - N - 31, s0 + W)
+  constexpr int THREADS = SL::THREADS;
+  constexpr int W = SL::W;
+  constexpr int DIG = SL::DIG;
+  constexpr int EXT = SL::EXT;
   constexpr int PF = (EXT + THREADS - 1) / THREADS;  // key words a thread prefetches
-  static_assert(S % kR == 0 && CG * CL == THREADS && W <= N, "cluster shape");
 
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* acc_s = smem;                // [T][2][N] the tile's accumulator (this block's copy)
@@ -301,13 +286,9 @@ blind_rotate_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
   int* a_s = reinterpret_cast<int*>(ext_s + EXT);  // [2][T] this and the next step's exponents
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
-  const int cgi = tid % CG;
-  const int ks = tid / CG;
-  const int delta = cgi % kLanes;  // one offset per column group: its CL slices tile [delta, N + delta)
-  const int o = rank * W / N;     // this block's output polynomial
-  const int s0 = rank * W % N;    // its first column there
+  const SL sl(static_cast<int>(cluster.block_rank()), tid);
+  const int o = sl.o;
   const int b0 = (blockIdx.x / CL) * T;
   const uint32_t digit_mask = (1u << bgbit) - 1u;
   const int32_t half_bg = 1 << (bgbit - 1);
@@ -334,7 +315,7 @@ blind_rotate_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
 #pragma unroll
     for (int q = 0; q < PF; ++q) {
       const int x = q * THREADS + tid;
-      const int kk = x + s0 + N - (kLanes - 1);  // k + 2N
+      const int kk = sl.window_k2n(x);
       uint32_t v = 0u;
       if (x < EXT) {
         v = row[kk & (N - 1)];
@@ -385,55 +366,21 @@ blind_rotate_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
       } else if (i + 1 < n0) {
         prefetch(i + 1, 0);
       }
-
-      // part[t][r] += sum_u d_t[m0 + u] * E(cb + r - m0 - u), m0 = ks * S + delta, with the
-      // window win[(r - u) mod 8] = e[r - u]
-      const uint32_t* e = ext_s + (N + kLanes - 1) + kR * cgi - (ks * S + delta);
-      const uint32_t* d = dig_s + ks * S + delta;
-      uint32_t win[kR];
-#pragma unroll
-      for (int r = 1; r < kR; ++r) win[r] = e[r];
-      for (int u0 = 0; u0 < S; u0 += kR) {
-#pragma unroll
-        for (int k = 0; k < kR; ++k) {
-          const int u = u0 + k;
-          win[(kR - k) % kR] = e[-u];
-#pragma unroll
-          for (int t = 0; t < T; ++t) {
-            const uint32_t dv = d[t * DIG + u];
-#pragma unroll
-            for (int r = 0; r < kR; ++r) part[t][r] += dv * win[(r - k + kR) % kR];
-          }
-        }
-      }
+      cr::window_product<T, SL::S, DIG, 0>(part, sl.window(ext_s), sl.digits(dig_s));
     }
 
-    // the CL digit slices of a column meet in this block's copy
     if (tid < T) a_s[((i + 1) & 1) * T + tid] = a_next;
-#pragma unroll
-    for (int t = 0; t < T; ++t)
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        atomicAdd(acc_s + (t * 2 + o) * N + s0 + kR * cgi + r, part[t][r]);
-        part[t][r] = 0u;
-      }
+    cr::add_partial_sums<T, N>(part, acc_s, o, sl.s0 + kR * sl.cgi);
     __syncthreads();
     cluster_wait();  // every peer has read its copy for the last time in this step
-    for (int x = tid; x < T * (W / 4); x += THREADS) {
-      const int t = x / (W / 4);
-      const int idx = ((t * 2 + o) * N + s0) / 4 + x % (W / 4);
-      const uint4 v = reinterpret_cast<const uint4*>(acc_s)[idx];
-#pragma unroll
-      for (int p = 0; p < CL; ++p)
-        if (p != rank) reinterpret_cast<uint4*>(cluster.map_shared_rank(acc_s, p))[idx] = v;
-    }
+    cr::push_slice<T, N, W, CL, THREADS>(cluster, acc_s, sl.rank, o, sl.s0, tid);
     cluster_arrive();
     cluster_wait();  // every slice has landed in every copy
   }
 
   for (int x = tid; x < T * W; x += THREADS) {
     const int t = x / W;
-    const int c = s0 + x % W;
+    const int c = sl.s0 + x % W;
     if (b0 + t < batch) out[(static_cast<size_t>(b0 + t) * 2 + o) * N + c] = acc_s[(t * 2 + o) * N + c];
   }
 }

@@ -15,19 +15,20 @@ blind_rotate.py:169-189:
   group g: k = [0, a~_{2g}, a~_{2g+1}, (a~_{2g} + a~_{2g+1}) mod 2N]
            acc = Dec(acc) (x) sum_v X^{k_v} * G_v     (replacement form)
 
-`blind_rotate` routes by `config.step_impl` and the device of its input:
+`blind_rotate` routes by `config.step_impl`, the batch and the device of
+its input, as rs_tfhe_tpu/ops/blind_rotate.py:242-249 does:
 
-  - a multi-bit key ("auto" or "fused_small_mb"): the multi-bit kernel
+  - a multi-bit key under "fused_small_mb" at any batch, or under "auto" up
+    to `mb_route_batch_cap(params)` ciphertexts: the multi-bit kernel
     (ops/cuda_blind_rotate_mb.py) on CUDA, `blind_rotate_mb_plain` on the
-    CPU, at every batch: the port has no batch cap where the JAX package
-    has `mb_route_batch_cap`. (The multi-bit kernel was the faster of the
-    two on an NVIDIA H100 until the whole-rotation kernel was redesigned
-    for clusters and the tensor cores; PERF.md's crossover table has both,
-    and the route is decided anew with the multi-bit kernel's own redesign);
+    CPU. The two rotations compute different ciphertexts, so the cap decides
+    which function a batch gets and is kept as the JAX package has it;
   - "pallas": the per-step route, one external-product kernel launch per
-    step (ops/cuda_step.py) on CUDA, the plain product on the CPU;
-  - otherwise the whole-rotation kernel (ops/cuda_blind_rotate.py) on CUDA,
-    `blind_rotate_plain` on the CPU.
+    step (ops/cuda_step.py) on CUDA, the plain product on the CPU; it
+    ignores a multi-bit key, as the JAX package does;
+  - otherwise, with or without a multi-bit key (which also carries the
+    standard `bsk`), the whole-rotation kernel (ops/cuda_blind_rotate.py) on
+    CUDA, `blind_rotate_plain` on the CPU.
 
 Nothing falls back from a kernel to a plain version.
 """
@@ -51,6 +52,21 @@ def modswitch(x: torch.Tensor, params: TfheParams) -> torch.Tensor:
     nbit = params.trgsw_lv1.nbit
     rnd = 1 << (TORUS_BITS - nbit - 2)
     return logical_rshift(x + rnd, TORUS_BITS - nbit - 1)
+
+
+def mb_route_batch_cap(params: TfheParams) -> int:
+    """Largest batch "auto" routes through the multi-bit rotation: 4 where the
+    gadget has L >= 3 (the strict boolean sets, RADIX, NIBBLE, TEST_TINY),
+    else 2 (FAST). The JAX package's rule (rs_tfhe_tpu/ops/blind_rotate.py:49-56),
+    which it set from a crossover measured on a TPU v5e (LATENCY_SWEEP_r05.json,
+    2026-08): at L=2 the multi-bit chain won only to B=2 (B=4: 5.7 ms against
+    5.4 per tile), at L=3 the heavier per-step dot kept the half-length chain
+    ahead to B=4 (7.9 ms against 8.5), and by B=8 the per-tile kernel won
+    everywhere (FAST 5.8 against 10.6, strict 8.8 against 15.4). Those are TPU
+    times, not the port's: the port keeps the cap for bit-equality with the
+    JAX package, since the two rotations give different ciphertexts, not for
+    speed."""
+    return 4 if params.trgsw_lv1.l >= 3 else 2
 
 
 def rotation_exponents(ct: torch.Tensor, params: TfheParams):
@@ -141,7 +157,9 @@ def blind_rotate(
     b_til, a_til = rotation_exponents(ct, params)
     if impl == "fused_small_mb" and bsk_mb is None:
         raise ValueError("step_impl='fused_small_mb' needs a multi-bit key (bsk_mb)")
-    if bsk_mb is not None and impl != "pallas":
+    if bsk_mb is not None and (
+        impl == "fused_small_mb" or (impl == "auto" and ct.shape[0] <= mb_route_batch_cap(params))
+    ):
         if on_card:
             return cuda_blind_rotate_mb.blind_rotate_mb_kernel(b_til, a_til, testvec, bsk_mb, params)
         return blind_rotate_mb_plain(b_til, a_til, testvec, bsk_mb, params)

@@ -239,18 +239,6 @@ def max_active_clusters(index: int, log_n: int, tile: int, cluster: int, limbs: 
     return count
 
 
-def fit_tile(batch: int, max_tile: int, sm_count: int) -> int:
-    """The largest power-of-two tile up to `max_tile` that still gives every
-    SM a block; smaller tiles cost more shared-memory loads per multiply-add
-    but keep the card full at small batches. Each kernel states its
-    `max_tile` per ring size in its source and exports it through the C
-    interface (`tfhe_*_max_tile`)."""
-    tile = max_tile
-    while tile > 1 and -(-batch // tile) < sm_count:
-        tile //= 2
-    return tile
-
-
 def on_device(index: int):
     """A context in which CUDA device `index` is current: nothing to do (and
     no cudaSetDevice round trip) when it already is."""

@@ -1,42 +1,121 @@
-"""The multi-bit blind-rotation kernel's wrapper: checks, launch and launch
-count.
+"""The multi-bit blind-rotation kernel's wrapper: checks, plan, launch and
+launch count.
 
 The kernel (`csrc/blind_rotate_mb.cu`) replaces the TPU kernel
 `fused_blind_rotate_small_mb` of rs_tfhe_tpu/ops/pallas_blind_rotate.py; its
 plain PyTorch version is `ops.blind_rotate.blind_rotate_mb_plain`. This
-wrapper takes CUDA tensors only: it launches the kernel or raises. It takes
-any batch size, and `ops.blind_rotate.blind_rotate` routes every batch with
-a multi-bit key here.
+wrapper takes CUDA tensors only: it launches the kernel or raises.
+
+The kernel has two instances: a thread-block cluster of `cluster` blocks
+that owns a tile of `tile` ciphertexts (1, 2 or 4) and splits the 2N output
+columns between its blocks, and, with cluster 1, a single block per tile.
+`planned_instance` picks tile and cluster from the batch and from how many
+clusters of each size the card holds, in one wave where the batch allows.
+`ops.blind_rotate.blind_rotate` sends a multi-bit key here under "auto" only
+up to `mb_route_batch_cap` ciphertexts (one cluster each), and at any batch
+under "fused_small_mb" (the single blocks once clusters no longer fill the
+card in one wave).
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
 from .. import _build
 from ..params import TfheParams
-from .cuda_blind_rotate import check_shapes, check_tensor, fit_tile
+from .cuda_blind_rotate import _instance_cost, check_shapes, check_tensor, on_device
 
 #: Launches of the kernel in this process (the wrapper adds one per launch).
 launches = 0
 
-#: Launches by (ring size N, tile) in this process, beside `launches`.
+#: Launches by instance (ring size N, tile, cluster) in this process, beside
+#: `launches`; cluster 1 is the single-block instance.
 launched_tiles: collections.Counter = collections.Counter()
+
+#: The tiles the instances take (up to their largest at a ring size).
+TILES = (1, 2, 4)
+
+
+def rotation_instance(batch: int, slots: dict, n: int, max_tile: int, max_cluster_tile: int) -> tuple:
+    """(tile, cluster) for a batch at ring size n. `slots[c]` is the number
+    of clusters of c blocks the card holds at one block an SM (`slots[1]` its
+    SM count; sizes it cannot schedule are absent); `max_tile` is the
+    single-block instance's largest tile, `max_cluster_tile` the cluster
+    instance's. Ranked as the whole-rotation kernel's plan ranks its
+    instances (`cuda_blind_rotate.rotation_instance`): waves times the cost
+    of one block's rotation, one wave before more."""
+    candidates = [
+        (tile, cluster)
+        for cluster in slots
+        for tile in TILES
+        if tile <= (max_tile if cluster == 1 else max_cluster_tile)
+    ]
+    return min(candidates, key=lambda tc: (*_instance_cost(batch, *tc, slots, n), -tc[1], tc[0]))
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(index: int, log_n: int, tile: int, cluster: int) -> int:
+    """How many clusters of the (tile, cluster) instance CUDA device `index`
+    holds at one block an SM (cudaOccupancyMaxActiveClusters, asked with the
+    instance's own shared memory). Raises for an instance the kernel does not
+    have."""
+    lib = _build.load()
+    with torch.cuda.device(index):
+        count = lib.tfhe_blind_rotate_mb_max_active_clusters(log_n, tile, cluster)
+    if count < 0:
+        msg = lib.tfhe_cuda_error_string(-count).decode()
+        raise RuntimeError(f"blind_rotate_mb: no instance (tile={tile}, cluster={cluster}) at N=2^{log_n}: {msg}")
+    return count
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_slots(index: int, log_n: int) -> dict:
+    """{cluster size: clusters of the cluster instance CUDA device `index`
+    holds at one block an SM}, asked at the largest tile (the most shared
+    memory), with the SM count under 1. A size the device cannot schedule is
+    left out."""
+    lib = _build.load()
+    slots = {1: torch.cuda.get_device_properties(index).multi_processor_count}
+    tile = lib.tfhe_blind_rotate_mb_max_cluster_tile(log_n)
+    cluster = 2
+    while tile and cluster <= lib.tfhe_blind_rotate_max_cluster(log_n):
+        held = max_active_clusters(index, log_n, tile, cluster)
+        if held > 0:
+            slots[cluster] = held
+        cluster *= 2
+    return slots
+
+
+def planned_instance(index: int, batch: int, params: TfheParams) -> tuple:
+    """(tile, cluster) the wrapper launches for a batch on CUDA device
+    `index`."""
+    lib = _build.load()
+    log_n = params.n1.bit_length() - 1
+    return rotation_instance(
+        batch, cluster_slots(index, log_n), params.n1,
+        lib.tfhe_blind_rotate_mb_max_tile(log_n), lib.tfhe_blind_rotate_mb_max_cluster_tile(log_n),
+    )
 
 
 def blind_rotate_mb_kernel(
     b_til: torch.Tensor, a_til: torch.Tensor, testvec: torch.Tensor,
-    bsk_mb: torch.Tensor, params: TfheParams, tile: int | None = None,
+    bsk_mb: torch.Tensor, params: TfheParams, tile: int | None = None, cluster: int | None = None,
 ) -> torch.Tensor:
     """The whole multi-bit blind rotation on the card.
 
     b_til: int32 [B] and a_til: int32 [B, n0], the mod-switched exponents in
     [0, 2N); testvec: int32 [2, N] (shared) or [B, 2, N] (per ciphertext);
-    bsk_mb: int32 [n0/2, 4, 2L, 2, N] raw torus words. Returns int32
-    [B, 2, N] on the same device, launched on the current stream without
-    synchronising.
+    bsk_mb: int32 [n0/2, 4, 2L, 2, N] raw torus words, 16-byte aligned.
+    Returns int32 [B, 2, N] on the same device, launched on the current
+    stream without synchronising. Tile and cluster come from
+    `planned_instance`; a cluster the device cannot schedule raises.
+
+    `tile` and `cluster` force an instance and are for tests and measurement
+    scripts only; no path of the package sets them. With `tile` given
+    `cluster` defaults to 1 (the single-block instance).
     """
     global launches
     if b_til.device.type != "cuda":
@@ -51,6 +130,8 @@ def blind_rotate_mb_kernel(
     check_tensor("b_til", b_til, (batch,), dev)
     check_tensor("a_til", a_til, (batch, n0), dev)
     check_tensor("bsk_mb", bsk_mb, (n0 // 2, 4, 2 * g.l, 2, n), dev)
+    if bsk_mb.data_ptr() % 16:
+        raise ValueError("bsk_mb: the cluster instance copies 16-byte words; its data must be 16-byte aligned")
     if testvec.dim() == 2:
         check_tensor("testvec", testvec, (2, n), dev)
         tv_stride = 0
@@ -61,20 +142,29 @@ def blind_rotate_mb_kernel(
     if batch == 0:
         return out
     lib = _build.load()
+    log_n = n.bit_length() - 1
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     if tile is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tile = fit_tile(batch, lib.tfhe_blind_rotate_mb_max_tile(n.bit_length() - 1), sms)
+        if cluster is not None:
+            raise ValueError("blind_rotate_mb_kernel: a cluster needs its tile")
+        tile, cluster = planned_instance(index, batch, params)
+    elif cluster is None:
+        cluster = 1
+    if cluster > 1 and max_active_clusters(index, log_n, tile, cluster) < 1:
+        raise RuntimeError(
+            f"blind_rotate_mb: the device cannot schedule a cluster of {cluster} blocks at N={n}, tile={tile}"
+        )
     dec_offset = (params.decomposition_offset + params.decomposition_round_bit) & 0xFFFFFFFF
-    with torch.cuda.device(dev):
+    with on_device(index):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tfhe_blind_rotate_mb(
             b_til.data_ptr(), a_til.data_ptr(), testvec.data_ptr(), tv_stride,
-            bsk_mb.data_ptr(), out.data_ptr(), batch, n0, n.bit_length() - 1,
-            g.l, g.bgbit, dec_offset, tile, stream,
+            bsk_mb.data_ptr(), out.data_ptr(), batch, n0, log_n,
+            g.l, g.bgbit, dec_offset, tile, cluster, stream,
         )
     if err != 0:
         msg = lib.tfhe_cuda_error_string(err).decode()
-        raise RuntimeError(f"blind_rotate_mb kernel launch failed (tile={tile}): {msg} ({err})")
+        raise RuntimeError(f"blind_rotate_mb kernel launch failed (tile={tile}, cluster={cluster}): {msg} ({err})")
     launches += 1
-    launched_tiles[(n, tile)] += 1
+    launched_tiles[(n, tile, cluster)] += 1
     return out

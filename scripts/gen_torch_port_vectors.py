@@ -5,7 +5,9 @@ reproduce bit for bit:
                                         gate pipeline's outputs;
   tests/vectors/torch_port_tiny_mb.npz  a multi-bit key, the multi-bit
                                         rotation's output, a NAND at B=1
-                                        through the multi-bit route, and LUT
+                                        through the multi-bit route, a NAND
+                                        at B=5 (above the route's batch cap:
+                                        the standard rotation), and LUT
                                         programmable bootstraps with and
                                         without the multi-bit route;
   tests/vectors/torch_port_tiny_circuits.npz
@@ -89,15 +91,20 @@ def make_vectors() -> dict:
 
 
 def make_vectors_mb() -> dict:
-    """The multi-bit fixture's arrays as numpy, from fixed seeds. Batches
-    are 1 and 2, which both packages route through the multi-bit rotation."""
+    """The multi-bit fixture's arrays as numpy, from fixed seeds. Batches 1
+    and 2 take the multi-bit rotation in both packages; the NAND at B=5 is
+    above `mb_route_batch_cap` (4 at TEST_TINY) and takes the standard one."""
     p = TEST_TINY
     sk = SecretKey.generate(jax.random.key(3024), p)
     ck = CloudKey.generate(jax.random.key(3025), sk, multibit=True)
     rng = np.random.default_rng(3026)
     bits = rng.integers(0, 2, (2, 2)).astype(bool)
     msgs = rng.integers(0, MB_MODULUS, 2)
+    bits5 = rng.integers(0, 2, (2, 5)).astype(bool)
     ka, kb, km = jax.random.split(jax.random.key(3027), 3)
+    ka5, kb5 = jax.random.split(jax.random.key(3028), 2)
+    a5 = lwe_encrypt_bool(ka5, sk.lv0, jnp.asarray(bits5[0]), p.tlwe_lv0.alpha)
+    b5 = lwe_encrypt_bool(kb5, sk.lv0, jnp.asarray(bits5[1]), p.tlwe_lv0.alpha)
     a = lwe_encrypt_bool(ka, sk.lv0, jnp.asarray(bits[0]), p.tlwe_lv0.alpha)
     b = lwe_encrypt_bool(kb, sk.lv0, jnp.asarray(bits[1]), p.tlwe_lv0.alpha)
     m = lwe_encrypt_message(km, sk.lv0, jnp.asarray(msgs), MB_MODULUS, p.tlwe_lv0.alpha)
@@ -114,6 +121,8 @@ def make_vectors_mb() -> dict:
         "lut": lut, "lut_per_ct": lut_per_ct,
         "blind_rotate_mb": blind_rotate_mb(a, ck.testvec, ck.bsk_mb, p),
         "nand_b1": gates.nand(a[:1], b[:1], ck),
+        "bits5": bits5, "ct_a5": a5, "ct_b5": b5,
+        "nand_b5": gates.nand(a5, b5, ck),
         "pbs_mb": bootstrap_with_testvec(m, lut, ck, allow_mb=True),
         "pbs_std": bootstrap_with_testvec(m, lut, ck, allow_mb=False),
         "pbs_mb_per_ct": bootstrap_with_testvec(m, lut_per_ct, ck, allow_mb=True),

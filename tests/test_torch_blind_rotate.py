@@ -33,6 +33,7 @@ from rs_tfhe_tpu_torch import _build  # noqa: E402
 from rs_tfhe_tpu_torch import params as PP  # noqa: E402
 from rs_tfhe_tpu_torch.ops import blind_rotate as PBR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_blind_rotate_mb as CMB  # noqa: E402
 from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
 
 #: the smallest kernel-eligible set of tests/test_pallas_kernels.py (N = 128)
@@ -165,17 +166,16 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_select_tile():
-    """The wrappers' tile choice, `fit_tile`: the largest power of two up to
-    the kernel's `max_tile` (the whole-rotation kernel's: 8 up to N=1024, 4
-    at 2048, 2 at 4096; the multi-bit kernel's: 4, 2, 1) that still gives
-    each of 132 SMs a block."""
-    sms = 132
-    assert CBR.fit_tile(4096, 8, sms) == 8
-    assert CBR.fit_tile(512, 8, sms) == 2
-    assert CBR.fit_tile(1, 8, sms) == 1
-    assert CBR.fit_tile(8, 8, sms) == 1
-    assert CBR.fit_tile(4096, 4, sms) == 4
-    assert CBR.fit_tile(4096, 2, sms) == 2
-    assert CBR.fit_tile(528, 4, sms) == 4
-    assert CBR.fit_tile(264, 2, sms) == 2
-    assert CBR.fit_tile(256, 2, sms) == 1
+    """The multi-bit kernel's tile and cluster at batches that clusters of 16
+    no longer hold (under step_impl="fused_small_mb"), from its plan with an
+    H100's cluster slots: tiles up to the instance's largest (single blocks:
+    4 up to N=1024, 2 at 2048, 1 at 4096; clusters: 4, and 1 at 4096), the
+    single blocks where their waves cost the least."""
+    slots = CBR.H100_CLUSTER_SLOTS
+    assert CMB.rotation_instance(4096, slots, 1024, 4, 4) == (4, 1)
+    assert CMB.rotation_instance(1024, slots, 1024, 4, 4) == (4, 1)
+    assert CMB.rotation_instance(256, slots, 1024, 4, 4) == (4, 2)
+    assert CMB.rotation_instance(64, slots, 1024, 4, 4) == (1, 2)
+    assert CMB.rotation_instance(4096, slots, 2048, 2, 4) == (4, 2)
+    assert CMB.rotation_instance(4096, slots, 4096, 1, 1) == (1, 2)
+    assert CMB.rotation_instance(528, {1: 132}, 512, 4, 0) == (4, 1)

@@ -105,17 +105,20 @@ def test_port_reproduces_circuit_fixture():
 
 
 def test_port_reproduces_mb_fixture():
-    """The multi-bit rotation, a NAND at B=1 and LUT bootstraps with and
-    without the multi-bit route, from the stored JAX multi-bit key."""
+    """The multi-bit rotation, a NAND at B=1 (the multi-bit route), a NAND at
+    B=5 (above the route's batch cap: the standard rotation) and LUT
+    bootstraps with and without the multi-bit route, from the stored JAX
+    multi-bit key."""
     v = np.load(VEC_MB)
     sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY, "cpu")
     ck = key.cloud_key_from_numpy(v, TEST_TINY, "cpu")
-    a, b, m = (to_torch(v[n], "cpu") for n in ("ct_a", "ct_b", "ct_m"))
+    a, b, m, a5, b5 = (to_torch(v[n], "cpu") for n in ("ct_a", "ct_b", "ct_m", "ct_a5", "ct_b5"))
     lut, lut_per_ct = to_torch(v["lut"], "cpu"), to_torch(v["lut_per_ct"], "cpu")
     b_til, a_til = rotation_exponents(a, TEST_TINY)
     outputs = {
         "blind_rotate_mb": blind_rotate_mb_plain(b_til, a_til, ck.testvec, ck.bsk_mb, TEST_TINY),
         "nand_b1": gates.nand(a[:1], b[:1], ck),
+        "nand_b5": gates.nand(a5, b5, ck),
         "pbs_mb": bootstrap.bootstrap_with_testvec(m, lut, ck, allow_mb=True),
         "pbs_std": bootstrap.bootstrap_with_testvec(m, lut, ck, allow_mb=False),
         "pbs_mb_per_ct": bootstrap.bootstrap_with_testvec(m, lut_per_ct, ck, allow_mb=True),
@@ -124,6 +127,8 @@ def test_port_reproduces_mb_fixture():
         np.testing.assert_array_equal(to_numpy(out), v[name], err_msg=name)
     bits, msgs, modulus = v["bits"], v["msgs"], _load_generator().MB_MODULUS
     np.testing.assert_array_equal(lwe_decrypt_bool(outputs["nand_b1"], sk.lv0).numpy(), ~(bits[0, :1] & bits[1, :1]))
+    bits5 = v["bits5"]
+    np.testing.assert_array_equal(lwe_decrypt_bool(outputs["nand_b5"], sk.lv0).numpy(), ~(bits5[0] & bits5[1]))
     for name in ("pbs_mb", "pbs_std"):
         np.testing.assert_array_equal(lwe_decrypt_message(outputs[name], sk.lv0, modulus), (msgs + 1) % modulus)
 

@@ -309,6 +309,88 @@ def test_mb_kernel_matches_plain_full_width(dev, name, batch):
     assert torch.equal(out, BR.blind_rotate_mb_plain(*args, p))
 
 
+def _mb_extremes(bsk_mb):
+    """0x80000000 and 0xFFFFFFFF in every pattern of the multi-bit key (in
+    place): the monomial's sign and the extension's sign meet on them."""
+    bsk_mb[:, :, 0, 0, ::7], bsk_mb[:, :, -1, 1, 3::11] = -(1 << 31), -1
+    return bsk_mb
+
+
+_MB_CLUSTER_INSTANCES = [(t, c) for c in (2, 4, 8) for t in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("per_ct_tv", [False, True], ids=["shared_tv", "per_ct_tv"])
+@pytest.mark.parametrize("tile,cluster", _MB_CLUSTER_INSTANCES, ids=lambda v: str(v))
+def test_mb_cluster_kernel_matches_plain_every_instance(dev, tile, cluster, per_ct_tv):
+    """TEST_TINY (N=64: clusters of 2, 4 and 8), every tile of the cluster
+    instance, a ragged batch (rows past the batch), full-range key words with
+    the sign extremes."""
+    b_til, a_til, tv, bsk_mb = _mb_inputs(dev, P.TEST_TINY, 2 * tile + 3, per_ct_tv, seed=200 + 10 * cluster + tile)
+    _mb_extremes(bsk_mb)
+    before = CMB.launched_tiles.copy()
+    out = CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, P.TEST_TINY, tile=tile, cluster=cluster)
+    torch.cuda.synchronize()
+    assert CMB.launched_tiles - before == {(P.TEST_TINY.n1, tile, cluster): 1}
+    assert torch.equal(out, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, P.TEST_TINY))
+
+
+@pytest.mark.parametrize(
+    "name,batch,per_ct_tv",
+    [("SECURITY_128_BIT_FAST", 1, False), ("SECURITY_128_BIT_FAST", 2, True), ("SECURITY_128_BIT", 4, False),
+     ("SECURITY_128_BIT_RADIX", 1, False), ("SECURITY_128_BIT_NIBBLE", 1, True)],
+)
+def test_mb_cluster_kernel_matches_plain_full_width(dev, name, batch, per_ct_tv):
+    """The batches `auto` sends the multi-bit kernel, at the real ring sizes:
+    the plan gives each ciphertext a cluster of 16."""
+    p = getattr(P, name)
+    b_til, a_til, tv, bsk_mb = _mb_inputs(dev, p, batch, per_ct_tv, seed=300 + batch)
+    _mb_extremes(bsk_mb)
+    assert CMB.planned_instance(dev.index or 0, batch, p) == (1, 16)
+    before = CMB.launched_tiles.copy()
+    out = CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p)
+    torch.cuda.synchronize()
+    assert CMB.launched_tiles - before == {(p.n1, 1, 16): 1}
+    assert torch.equal(out, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, p))
+
+
+@pytest.mark.parametrize("name", ["TEST_TINY", "SECURITY_128_BIT_FAST"])
+def test_blind_rotate_mb_key_launches_by_cap(dev, name):
+    """`blind_rotate` with a multi-bit key launches the multi-bit kernel up to
+    `mb_route_batch_cap` (4 at TEST_TINY, 2 at FAST) and the whole-rotation
+    kernel above it, each equal to its plain version."""
+    p = getattr(P, name)
+    p = _short(p, 6) if p.n1 == 1024 else p
+    cap = BR.mb_route_batch_cap(p)
+    _, _, tv, bsk_mb = _mb_inputs(dev, p, cap + 1, False, seed=60)
+    _, _, _, bsk = _inputs(dev, p, cap + 1, False, seed=61)
+    ct = torch.randint(-(1 << 31), 1 << 31, (cap + 1, p.n0 + 1), dtype=torch.int32, device=dev)
+    for batch, multibit in ((cap, True), (cap + 1, False)):
+        x = ct[:batch]
+        k1, k4 = CBR.launches, CMB.launches
+        out = BR.blind_rotate(x, tv, bsk, p, bsk_mb=bsk_mb)
+        assert (CBR.launches - k1, CMB.launches - k4) == ((0, 1) if multibit else (1, 0))
+        b_til, a_til = BR.rotation_exponents(x, p)
+        ref = (BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, p) if multibit
+               else BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
+        assert torch.equal(out, ref)
+
+
+def test_mb_cluster_tiles_and_refusals(dev):
+    """The cluster instance's largest tile per ring size (4 up to N=2048, 1 at
+    4096 where a tile of 2 spills; none where the ring size has no cluster
+    instance), and what the wrapper refuses."""
+    lib = _build.load()
+    assert [lib.tfhe_blind_rotate_mb_max_cluster_tile(log_n) for log_n in range(6, 13)] == [4, 0, 0, 0, 4, 4, 1]
+    p = P.TEST_TINY
+    b_til, a_til, tv, bsk_mb = _mb_inputs(dev, p, 3, False, seed=62)
+    with pytest.raises(RuntimeError, match="no instance"):  # N=64 has no cluster of 16
+        CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p, tile=1, cluster=16)
+    with pytest.raises(RuntimeError, match="no instance"):  # tiles 1, 2 and 4 only
+        CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p, tile=3, cluster=2)
+    with pytest.raises(ValueError, match="needs its tile"):
+        CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p, cluster=2)
+
+
 def _step_inputs(dev, p, rows, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     l, n, hb = p.trgsw_lv1.l, p.n1, p.trgsw_lv1.half_bg

@@ -5,10 +5,11 @@ The port's plain multi-bit rotation, the function of its CUDA kernel
 package's XLA path `blind_rotate_mb` and against the TPU kernel K4
 `fused_blind_rotate_small_mb` in interpret mode, fed from one numpy seed, as
 tests/test_pallas_kernels.py holds K4 against the XLA path. Gates with a JAX
-multi-bit key carried across are held against JAX where both packages route
-the same way; the port's own multi-bit keygen is checked by truth table,
+multi-bit key carried across are held against JAX below and above the
+route's batch cap; the port's own multi-bit keygen is checked by truth table,
 stream identity and the noise model. The kernel itself is held against the
-plain version on the card in tests/test_torch_kernel_gpu.py."""
+plain version on the card in tests/test_torch_kernel_gpu.py; its instance
+plan is checked here without the card."""
 
 import dataclasses
 import os
@@ -40,6 +41,7 @@ from rs_tfhe_tpu_torch import gates as PGa  # noqa: E402
 from rs_tfhe_tpu_torch import key as PK  # noqa: E402
 from rs_tfhe_tpu_torch import tlwe as PT  # noqa: E402
 from rs_tfhe_tpu_torch.ops import blind_rotate as PBR  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate_mb as CMB  # noqa: E402
 from rs_tfhe_tpu_torch.ops.extract import sample_extract  # noqa: E402
 from rs_tfhe_tpu_torch.ops.keyswitch import identity_key_switch  # noqa: E402
@@ -102,11 +104,22 @@ def test_plain_mb_matches_jax_xla_and_k4(batch, per_ct_tv, rounded):
     np.testing.assert_array_equal(to_numpy(port), np.asarray(k4))
 
 
+@pytest.mark.parametrize("name", sorted(JP.ALL_SECURITY_SETS))
+def test_mb_route_batch_cap_matches_jax(name):
+    """The port's cap is its own copy of the JAX package's: 2 at L=2, 4 at
+    L>=3 (rs_tfhe_tpu/ops/blind_rotate.py:49-56)."""
+    jp = JP.ALL_SECURITY_SETS[name]
+    assert PBR.mb_route_batch_cap(params_from(jp)) == JBR.mb_route_batch_cap(jp)
+
+
 def test_blind_rotate_routes_by_batch_and_step_impl(impl):
-    """`blind_rotate` with a multi-bit key takes the multi-bit rotation at
-    every batch (the port has no batch cap), the standard one without the
-    key or under step_impl="pallas"; step_impl="fused_small_mb" routes as
-    "auto" and refuses a key without `bsk_mb`."""
+    """`blind_rotate` with a multi-bit key routes as the JAX package does
+    (rs_tfhe_tpu/ops/blind_rotate.py:242-249): under "auto" the multi-bit
+    rotation up to `mb_route_batch_cap` (4 at TEST_TINY, L=3) and the
+    standard one above it; "fused_small_mb" forces the multi-bit rotation at
+    every batch and refuses a key without `bsk_mb`; "pallas" and a key
+    without `bsk_mb` take the standard rotation."""
+    assert PBR.mb_route_batch_cap(PTINY) == 4
     rng = np.random.default_rng(50)
     l = PTINY.trgsw_lv1.l
     bsk = to_torch(rng.integers(0, 1 << 32, (PTINY.n0, 2 * l, 2, PTINY.n1), dtype=np.uint32), "cpu")
@@ -117,15 +130,37 @@ def test_blind_rotate_routes_by_batch_and_step_impl(impl):
     mb = PBR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, PTINY)
     std = PBR.blind_rotate_plain(b_til, a_til, tv, bsk, PTINY)
     assert not torch.equal(mb, std)  # random keys: the two functions differ
-    for batch in (1, 4, 9):
+    for batch in (1, 4):
         assert torch.equal(PBR.blind_rotate(ct[:batch], tv, bsk, PTINY, bsk_mb=bsk_mb), mb[:batch])
+    for batch in (5, 9):
+        assert torch.equal(PBR.blind_rotate(ct[:batch], tv, bsk, PTINY, bsk_mb=bsk_mb), std[:batch])
     assert torch.equal(PBR.blind_rotate(ct, tv, bsk, PTINY), std)
     impl("pallas")
-    assert torch.equal(PBR.blind_rotate(ct, tv, bsk, PTINY, bsk_mb=bsk_mb), std)
+    assert torch.equal(PBR.blind_rotate(ct[:1], tv, bsk, PTINY, bsk_mb=bsk_mb), std[:1])
     impl("fused_small_mb")
     assert torch.equal(PBR.blind_rotate(ct, tv, bsk, PTINY, bsk_mb=bsk_mb), mb)
     with pytest.raises(ValueError, match="multi-bit key"):
         PBR.blind_rotate(ct, tv, bsk, PTINY)
+
+
+def test_mb_kernel_plan_small_batches():
+    """The multi-bit kernel's plan (`cuda_blind_rotate_mb.rotation_instance`)
+    for batches 1..16 with an H100's cluster slots, at the ring sizes with
+    cluster instances: a tile the instance has, one wave, a cluster of 16
+    SMs per ciphertext at the batches "auto" sends (at most 4); and the
+    single-block instance where clusters no longer fill the card in one wave."""
+    slots = CBR.H100_CLUSTER_SLOTS
+    for n, max_tile, max_cluster_tile in ((64, 4, 4), (1024, 4, 4), (2048, 2, 4), (4096, 1, 1)):
+        ring_slots = {c: h for c, h in slots.items() if c <= (8 if n == 64 else 16)}
+        for batch in range(1, 17):
+            tile, cluster = CMB.rotation_instance(batch, ring_slots, n, max_tile, max_cluster_tile)
+            assert tile in CMB.TILES and cluster in ring_slots and cluster > 1
+            assert tile <= max_cluster_tile
+            assert -(-batch // tile) <= ring_slots[cluster], (n, batch)
+            if batch <= 4:
+                assert (tile, cluster) == (1, 16 if n >= 1024 else 8)
+    # a ring size without cluster instances: single blocks
+    assert CMB.rotation_instance(3, {1: 132}, 512, 4, 0) == (1, 1)
 
 
 @pytest.mark.parametrize("value", ["xla", "nussbaumer", "fused", "fused_small", "fused_wide", "fused_tile"])
@@ -187,10 +222,9 @@ def test_cloud_key_from_numpy_carries_bsk_mb(jax_mb):
 
 @pytest.mark.parametrize("gate", ["nand", "xor"])
 def test_mb_gates_match_jax_with_carried_key(jax_mb, gate):
-    """B=2: both packages route through the multi-bit rotation (JAX's cap is
-    4 at L=3; the port takes it at every batch) — bit-exact. At B=8 JAX takes
-    the standard rotation and the port the multi-bit one, so the port's
-    output is checked by decryption."""
+    """Both packages route a multi-bit key alike: B=2 through the multi-bit
+    rotation (up to the cap, 4 at L=3), B=8 through the standard rotation —
+    bit-exact at both, and every output decrypts to the truth table."""
     jsk, jck, psk, pck = jax_mb
     keys = jax.random.split(jax.random.key(63), 2)
     ja = JT.lwe_encrypt_bool(keys[0], jsk.lv0, jnp.asarray(A), TINY.tlwe_lv0.alpha)
@@ -198,8 +232,10 @@ def test_mb_gates_match_jax_with_carried_key(jax_mb, gate):
     pa, pb = to_torch(np.asarray(ja), "cpu"), to_torch(np.asarray(jb), "cpu")
     ref = np.asarray(getattr(JGa, gate)(ja[:2], jb[:2], jck))
     np.testing.assert_array_equal(to_numpy(getattr(PGa, gate)(pa[:2], pb[:2], pck)), ref)
-    truth = {"nand": ~(A & B), "xor": A ^ B}[gate]
+    assert len(A) > PBR.mb_route_batch_cap(PTINY)
     out = getattr(PGa, gate)(pa, pb, pck)
+    np.testing.assert_array_equal(to_numpy(out), np.asarray(getattr(JGa, gate)(ja, jb, jck)))
+    truth = {"nand": ~(A & B), "xor": A ^ B}[gate]
     np.testing.assert_array_equal(PT.lwe_decrypt_bool(out, psk.lv0).numpy(), truth)
 
 

@@ -8,7 +8,8 @@ the last line):
   1. environment: torch/CUDA versions and the card's name and power limit;
      exits non-zero when no CUDA device is available;
   2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a), one
-     nvcc per source, all started together;
+     nvcc per source, all started together, and reads the s8 probe kernels'
+     tensor-core instructions from the library (cuobjdump -sass: wgmma);
   3. each kernel against its plain PyTorch version on the card, bit for bit,
      with both times (CUDA events), and the instance each case launched
      (ring size, tile, cluster and unit for the rotation; ring size, unit,
@@ -39,10 +40,12 @@ the last line):
           whole-rotation kernel, beside the rotation `auto` gives a
           multi-bit key there (the JAX package's cap decides it);
        3e the seven probe and primitive-rate kernels (csrc/probes.cu) on
-          random inputs: the integer dots (s8 on the tensor cores, s16 and
-          s32 on the CUDA cores), roll, bitcast, unpack, and the chained dot
-          (both units) and chained roll+add at every shape of
-          scripts/bench_hopper_prims.py;
+          random inputs: the integer dots (s8 on the tensor cores through
+          the wgmma tile of csrc/wgmma_s8.cuh, s16 and s32 on the CUDA
+          cores), roll, bitcast, unpack, and the chained dot (both units) and
+          chained roll+add at every shape of scripts/bench_hopper_prims.py;
+          torch._int_mm on the same operands is the s8 dots' library time,
+          and the chain's tile loop is timed by its cycle counter;
      every case with its bound: the least time the card could take, the
      larger of bytes over the memory rate and operations over the peak rate
      (for 32-bit multiply-adds the better of the CUDA cores and of s8 limb
@@ -157,7 +160,9 @@ def timed(fn):
 
 #: Times of the kernels before their redesign for clusters and the tensor cores
 #: (ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md; the multi-bit kernel's
-#: single-block instance for it). Not measured by this run:
+#: single-block instance for it; for probe_dot and chain_dot the s8 dots'
+#: earlier mma.sync tile, read on the card before the wgmma tile replaced
+#: it). Not measured by this run:
 #: they are printed in the log beside the new times and never enter the
 #: kernels line, which holds only what this run measured.
 EARLIER_MS = {
@@ -166,6 +171,13 @@ EARLIER_MS = {
     "external_product": {"128_BIT_FAST B=2048": 1.122, "128_BIT B=512": 0.464, "UINT4 B=8": 0.081},
     "blind_rotate_mb": {"128_BIT_FAST B=1": 32.6, "128_BIT B=1": 50.25, "128_BIT_RADIX B=1": 191.7,
                         "128_BIT_FAST B=1024": 207.8},
+    "probe_dot": {"int8 [128,1024]x[1024,256]": 0.0512},
+    "chain_dot": {f"[{m},{k}]x[{k},{n}] per dot": ms for (m, k, n), ms in (
+        ((128, 1024, 1024), 0.0327), ((1024, 1024, 128), 0.0547), ((256, 1024, 512), 0.0371),
+        ((128, 4096, 1024), 0.0963), ((4096, 1024, 128), 0.1075), ((128, 1024, 4096), 0.0536),
+        ((256, 1024, 2048), 0.0447), ((128, 768, 1024), 0.0344), ((128, 512, 1024), 0.0363),
+        ((1024, 768, 128), 0.0407), ((128, 128, 128), 0.0278), ((128, 128, 1024), 0.0256),
+        ((128, 256, 1024), 0.0216), ((4096, 4096, 4096), 0.7200))},
 }
 
 
@@ -260,6 +272,15 @@ def show_bound(b: dict) -> str:
     return f"bound {b['bound_ms']:.3g} ms by {b['bound_by']}"
 
 
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz (nvidia-smi clocks.max.sm): what the
+    tile loop's cycle counts are turned into time with. An H100 SXM at its
+    700 W limit held it under these loads in every earlier run (PERF.md)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
 def phase_environment() -> str:
     print(f"[1] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -288,6 +309,23 @@ def phase_build():
           f"{len(spills)} with spills {elapsed()}")
     for line in spills:
         print(f"[2]   {line}")
+    # the s8 probe kernels must run wgmma (SASS IGMMA) and no mma.sync (IMMA)
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    wgmma_kernels = ("dot_wgmma_s8_kernel", "chain_dot_wgmma_kernel")
+    ops, kernel = {k: {} for k in wgmma_kernels}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = next((k for k in wgmma_kernels if k in line), None)
+        elif kernel is not None and "*/" in line:
+            words = line.split("*/")[1].split()
+            words = words[1:] if words and words[0].startswith("@") else words  # past a predicate
+            if words and "MMA" in words[0]:
+                ops[kernel][words[0]] = ops[kernel].get(words[0], 0) + 1
+    print(f"[2] tensor-core instructions of the s8 probe kernels (cuobjdump -sass): {ops}")
+    check(all(any(op.startswith("IGMMA") for op in found) and not any(op.startswith("IMMA") for op in found)
+              for found in ops.values()), "the s8 probe kernels run wgmma (IGMMA) and no mma.sync (IMMA)")
 
 
 def _rnd(g, dev):
@@ -926,7 +964,7 @@ def phase_probes_vs_plain(dev) -> dict:
     def rnd(shape, dtype):
         return torch.randint(*ranges[dtype], shape, generator=g, dtype=dtype, device=dev)
 
-    def compare(label, kernel, plain, bnd, library=None, reps=20):
+    def compare(label, kernel, plain, bnd, library=None, reps=20, earlier=None):
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         outs, refs = (out if isinstance(out, tuple) else (out,)), (ref if isinstance(ref, tuple) else (ref,))
@@ -935,7 +973,8 @@ def phase_probes_vs_plain(dev) -> dict:
         k_ms, p_ms = cuda_ms(kernel, reps), cuda_ms(plain, reps)
         lib_ms = cuda_ms(library, reps) if library is not None else None
         lib = f", library call {lib_ms:.4f} ms" if lib_ms is not None else ""
-        print(f"[3e] {label}: equal={same} max_abs_err={err} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
+        was = show_earlier(*earlier) if earlier else ""
+        print(f"[3e] {label}: equal={same} max_abs_err={err} kernel {k_ms:.4f} ms{was}, plain {p_ms:.4f} ms{lib}, "
               f"{show_bound(bnd)}")
         check(same, f"probe kernel == plain version: {label}")
         return {**case_row(label, k_ms, p_ms, bnd), "library_ms": lib_ms, "max_abs_err": err}
@@ -950,7 +989,12 @@ def phase_probes_vs_plain(dev) -> dict:
         name = str(dtype).removeprefix("torch.")
         dots.append(compare(f"probe_dot {name} [{m},{k}]x[{k},{n}] on the {CP.dot_unit(dtype)}",
                             lambda: CP.probe_dot(a, b), lambda: CP.dot_plain(a, b), bnd,
-                            (lambda: int_mm(a, b)) if int_mm is not None else None))
+                            (lambda: int_mm(a, b)) if int_mm is not None else None,
+                            earlier=("probe_dot", f"{name} [{m},{k}]x[{k},{n}]")))
+        if int_mm is not None:
+            bt = b.t().contiguous()
+            dots[-1]["library_b_kmajor_ms"] = cuda_ms(lambda: int_mm(a, bt.t()), 20)
+            print(f"[3e]   torch._int_mm with b K-major: {dots[-1]['library_b_kmajor_ms']:.4f} ms")
         # P5: operands from numpy's default_rng(0) against the int64 numpy product (raises on a difference)
         out = CP.probe_dot_correct_s16(dev, dtype)
         ra, rb = (torch.from_numpy(v).to(dev) for v in CP.dot_correct_operands(dtype))
@@ -972,6 +1016,7 @@ def phase_probes_vs_plain(dev) -> dict:
 
     chains = []
     steps = 3
+    clock_mhz = sm_clock_mhz()
     for _, shapes in bench.DOT_SHAPES:
         for m, k, n, _label in shapes:
             a0, b = rnd((m, k), torch.int8), rnd((k, n), torch.int8)
@@ -983,16 +1028,30 @@ def phase_probes_vs_plain(dev) -> dict:
                 torch.cuda.synchronize()
                 same = torch.equal(res.acc, plain[0]) and torch.equal(res.fb, plain[1])
                 check(same, f"chain_dot [{m},{k}]x[{k},{n}] on {unit} == plain version after {steps} steps")
+                if unit == "tensor":
+                    cycles, _sms, busiest = res.tile_loop()
             reps = 1 if m * k * n > 1 << 32 else 5
             k_ms = cuda_ms(lambda: CP.chain_dot(a0, b, steps, unit="tensor"), reps) / steps
             i_ms = cuda_ms(lambda: CP.chain_dot(a0, b, steps, unit="imad"), reps) / steps
             p_ms = cuda_ms(lambda: CP.chain_dot_plain(a0, b, steps), reps) / steps
+            # the library's s8 product on the same operands, one dot a call (no lhs rebuild, no barriers),
+            # and on b already K-major (the layout cuBLAS takes without a transpose of its own)
+            bt = b.t().contiguous()
+            lib_ms = cuda_ms(lambda: torch._int_mm(a0, b), 10)
+            lib_kmajor_ms = cuda_ms(lambda: torch._int_mm(a0, bt.t()), 10)
+            loop_ms = cycles / steps / (clock_mhz * 1e3)
+            mac_clk = CP.tile_loop_rate(m, k, n, "tensor", cycles, busiest)
             bnd = bound(nbytes / steps, m * k * n)
+            case = f"[{m},{k}]x[{k},{n}] per dot"
             print(f"[3e] chain_dot [{m},{k}]x[{k},{n}] {steps} steps: both units equal to the plain version, "
-                  f"max_abs_err=0; per dot: mma.sync {k_ms:.4f} ms, int32 {i_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"{show_bound(bnd)}")
-            chains.append({**case_row(f"[{m},{k}]x[{k},{n}] per dot", k_ms, p_ms, bnd), "int32_unit_ms": i_ms,
-                           "library_ms": None, "max_abs_err": 0})
+                  f"max_abs_err=0; per dot: {CP.dot_unit(torch.int8)} {k_ms:.4f} ms"
+                  f"{show_earlier('chain_dot', case)} (tile loop {loop_ms:.4f} ms at {clock_mhz:.0f} MHz, "
+                  f"{mac_clk:.1f} MAC/clk/SM), int32 {i_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"torch._int_mm {lib_ms:.4f} ms (b K-major {lib_kmajor_ms:.4f} ms), {show_bound(bnd)}")
+            chains.append({**case_row(case, k_ms, p_ms, bnd), "int32_unit_ms": i_ms, "library_ms": lib_ms,
+                           "library_b_kmajor_ms": lib_kmajor_ms,
+                           "tile_loop_ms": loop_ms, "mac_per_clk_per_sm": mac_clk, "sm_clock_mhz": clock_mhz,
+                           "max_abs_err": 0})
     roll_adds = []
     reps_chain = 4
     for rows_, cols in bench.ROLL_SHAPES:

@@ -10,140 +10,51 @@
 // same questions of an H100:
 //
 //   - integer dot -> int32 (probe_dot, probe_dot_correct_s16): s8 operands go
-//     to the tensor cores through mma.sync.aligned.m16n8k32 (the limb product
-//     the TPU kernels are built on); Hopper's tensor cores have no s16 or s32
-//     integer type, so those run as int32 multiply-adds on the CUDA cores and
-//     wrap mod 2^32;
+//     to the tensor cores through wgmma fed by TMA (wgmma_s8.cuh: 128 x 128
+//     tiles, a producer warpgroup and two consumer warpgroups, a 4-stage
+//     ring); Hopper's tensor cores have no s16 or s32 integer type, so those
+//     run as int32 multiply-adds on the CUDA cores and wrap mod 2^32;
 //   - roll (probe_roll): an indexed shared-memory read, for 1-, 2- and 4-byte
 //     elements alike (the TPU could only rotate 32-bit lanes, which is why
 //     its kernels pack limbs into words);
 //   - bitcast and the two-s16 unpack (probe_bitcast_i32_to_i8,
 //     probe_unpack_s16): shifts on registers;
 //   - chained s8 dots (bench_dot): reps dependent products in one launch, each
-//     lhs rebuilt from the previous accumulator, on the tensor cores or (the
-//     same chain) on the CUDA cores, with the cycles spent inside the tile
-//     loop reported beside the result;
+//     lhs rebuilt from the previous accumulator, on the tensor cores (the same
+//     wgmma tile, each resident block walking its tiles) or, the same chain,
+//     on the CUDA cores, with the cycles spent inside the tile loop reported
+//     beside the result;
 //   - chained roll+add (bench_roll_add): x += roll(x, 1 + i) in shared memory.
 //
 // Bounds: the dots are bound by operations (2 M K N integer operations against
-// M K + K N + 4 M N bytes), the element-wise kernels by bytes. Nothing here is
-// tuned: 64 x 64 tiles, two warps a block, operands staged through shared
-// memory without a pipeline; occupancy hides the latency.
-//
-// s8 tensor-core tile. A block of 64 threads owns a 64 x 64 tile of the
-// output; warp w owns rows 32w .. 32w+31 (two m16 sub-tiles) and all eight n8
-// sub-tiles. A and B^T are staged in chunks of 64 k-values, 64 bytes a row.
-// The fragment layout of mma.m16n8k32 gives lane (g = lane / 4, t = lane % 4)
-// the k-columns 4t..4t+3 and 16+4t..16+4t+3 of rows g and g+8 of A, and the
-// same k-rows of column g of B. A dot product does not care in which order k
-// is summed, as long as A and B agree, so lane t instead takes the 16
-// contiguous bytes 16t..16t+15 of its rows (one 128-bit load each): words 0, 1
-// feed one mma, words 2, 3 the next.
+// M K + K N + 4 M N bytes), the element-wise kernels by bytes. The s8 tile is
+// designed for that bound (wgmma_s8.cuh says how); the rest is not tuned:
+// 64 x 64 CUDA-core tiles, two warps a block, operands staged through shared
+// memory without a pipeline, occupancy hiding the latency.
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "wgmma_s8.cuh"
+
 namespace {
 
-constexpr int kTile = 64;      // output tile edge of both dot kernels
+constexpr int kTile = 64;      // output tile edge of the CUDA-core dot
 constexpr int kDotThreads = 64;
-constexpr int kDotBlocksPerSm = 6;  // caps the dot kernels at 170 registers: 12 warps an SM
-constexpr int kChunkS8 = 64;   // k-values per staged chunk, tensor-core tile
-constexpr int kChunkImad = 16; // k-values per staged chunk, CUDA-core tile
+constexpr int kDotBlocksPerSm = 6;  // caps the CUDA-core dots at 170 registers: 12 warps an SM
+constexpr int kChunkImad = 16; // k-values per staged chunk
 constexpr int kAStride = kChunkImad + 1;  // padded: no bank conflicts on the row reads
 constexpr int kMaxDepK = 4096; // k of the column-parity table of the chained dot
+constexpr int kTensorK = 16;   // the tensor-core dot's k: a multiple of this (TMA's row stride)
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t a0, const uint32_t a1,
-                                       const uint32_t a2, const uint32_t a3, const uint32_t b0,
-                                       const uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Both tiles stage a chunk of k through registers: the next chunk's global
-// loads are issued before the current chunk's arithmetic and stored to
-// shared memory after it, so their latency hides behind the multiply-adds.
-
-// out[row0.., col0..] = a[m, k] . bt[n, k]^T on the tensor cores, one 64 x 64
-// tile. k is a multiple of 16 (the staging moves 16 bytes at a time); rows
-// and columns past m and n read as 0 and are not stored. smem: 2 * 64 * 64
-// bytes, 16-byte aligned.
-__device__ __forceinline__ void mma_tile_s8(const int8_t* a, const int8_t* bt, int32_t* out, int m,
-                                            int k, int n, int row0, int col0, uint4* smem) {
-  uint4* as = smem;                          // [64 rows][4 x 16 bytes]
-  uint4* bs = smem + kTile * kChunkS8 / 16;  // [64 cols][4 x 16 bytes]
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int ms = 0; ms < 2; ++ms)
-#pragma unroll
-    for (int ns = 0; ns < 8; ++ns)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[ms][ns][i] = 0;
-
-  // 64 rows x 4 quads of A and of B^T a chunk: 512 16-byte moves, 8 a thread
-  uint4 ra[4], rb[4];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int x = i * kDotThreads + tid;
-      const int r = x / 4, kk = k0 + (x % 4) * 16;
-      ra[i] = rb[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (kk < k && row0 + r < m)
-        ra[i] = *reinterpret_cast<const uint4*>(a + static_cast<size_t>(row0 + r) * k + kk);
-      if (kk < k && col0 + r < n)
-        rb[i] = *reinterpret_cast<const uint4*>(bt + static_cast<size_t>(col0 + r) * k + kk);
-    }
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < k; k0 += kChunkS8) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      as[i * kDotThreads + tid] = ra[i];
-      bs[i * kDotThreads + tid] = rb[i];
-    }
-    __syncthreads();
-    if (k0 + kChunkS8 < k) fetch(k0 + kChunkS8);
-    uint4 af[2][2];
-#pragma unroll
-    for (int ms = 0; ms < 2; ++ms) {
-      af[ms][0] = as[(warp * 32 + ms * 16 + g) * 4 + t];
-      af[ms][1] = as[(warp * 32 + ms * 16 + g + 8) * 4 + t];
-    }
-#pragma unroll
-    for (int ns = 0; ns < 8; ++ns) {
-      const uint4 bf = bs[(ns * 8 + g) * 4 + t];
-#pragma unroll
-      for (int ms = 0; ms < 2; ++ms) {
-        mma_s8(acc[ms][ns], af[ms][0].x, af[ms][1].x, af[ms][0].y, af[ms][1].y, bf.x, bf.y);
-        mma_s8(acc[ms][ns], af[ms][0].z, af[ms][1].z, af[ms][0].w, af[ms][1].w, bf.z, bf.w);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int ms = 0; ms < 2; ++ms)
-#pragma unroll
-    for (int ns = 0; ns < 8; ++ns)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = row0 + warp * 32 + ms * 16 + g + (i / 2) * 8;
-        const int c = col0 + ns * 8 + t * 2 + (i % 2);
-        if (r < m && c < n) out[static_cast<size_t>(r) * n + c] = acc[ms][ns][i];
-      }
-}
-
-// The same tile on the CUDA cores, for 1-, 2- and 4-byte signed operands:
-// sign-extended int32 multiply-adds that wrap mod 2^32. Thread (ty, tx) of
+// The dot on the CUDA cores, one 64 x 64 output tile, for 1-, 2- and 4-byte
+// signed operands: sign-extended int32 multiply-adds that wrap mod 2^32. It
+// stages a chunk of k through registers: the next chunk's global loads are
+// issued before the current chunk's arithmetic and stored to shared memory
+// after it, so their latency hides behind the multiply-adds. Thread (ty, tx) of
 // the 8 x 8 thread grid owns rows 8ty..8ty+7 and the columns 4tx..4tx+3 and
 // 32+4tx..32+4tx+3 (two 128-bit shared-memory reads without bank conflicts).
 // b is [k, n] as given. smem: (64 * 17 + 16 * 64) words.
@@ -208,8 +119,7 @@ __device__ __forceinline__ void imad_tile(const T* a, const T* b, int32_t* out, 
     }
 }
 
-constexpr size_t kDotSmemWords = kTile * kAStride + kChunkImad * kTile;  // 2112 words >= 2 * 4096 bytes
-static_assert(kDotSmemWords * 4 >= 2 * kTile * kChunkS8, "one buffer serves both tiles");
+constexpr size_t kDotSmemWords = kTile * kAStride + kChunkImad * kTile;
 
 // bt[c, r] = b[r, c] for int8 [k, n] -> [n, k].
 __global__ void transpose_s8_kernel(const int8_t* __restrict__ b, int8_t* __restrict__ bt, int k,
@@ -225,11 +135,27 @@ __global__ void transpose_s8_kernel(const int8_t* __restrict__ b, int8_t* __rest
       bt[static_cast<size_t>(c0 + i) * k + r0 + threadIdx.x] = tile[threadIdx.x][i];
 }
 
-__global__ void __launch_bounds__(kDotThreads, kDotBlocksPerSm)
-dot_mma_s8_kernel(const int8_t* a, const int8_t* bt, int32_t* out, int m, int k, int n) {
-  __shared__ __align__(16) uint32_t smem[kDotSmemWords];
-  mma_tile_s8(a, bt, out, m, k, n, blockIdx.y * kTile, blockIdx.x * kTile,
-              reinterpret_cast<uint4*>(smem));
+// out[m, n] = a[m, k] . bt[n, k]^T on the tensor cores: one 128 x 128 tile a
+// block (wgmma_s8.cuh), kSmemBytes of dynamic shared memory.
+__global__ void __launch_bounds__(wgmma_s8::kThreads, 1)
+dot_wgmma_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_bt,
+                    int32_t* out, int m, int k, int n) {
+  using namespace wgmma_s8;
+  extern __shared__ __align__(16) unsigned char dot_smem[];
+  const Ring ring = make_ring(dot_smem);
+  __syncthreads();
+  const int row0 = blockIdx.y * kTileM, col0 = blockIdx.x * kTileN;
+  Pipe pipe;
+  if (threadIdx.x < 128) {
+    producer_registers<kProducerRegs>();
+    if (threadIdx.x == 0) load_tile(&map_a, &map_bt, ring, pipe, row0, col0, k);
+  } else {
+    consumer_registers<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1;
+    uint32_t d[64];
+    mma_tile<int8_t, int8_t>(ring, pipe, k, wg, d);
+    store_tile(d, out, m, n, row0, col0, wg);
+  }
 }
 
 template <typename T>
@@ -276,18 +202,20 @@ __global__ void unpack_s16_kernel(const int32_t* __restrict__ in, int16_t* __res
 }
 
 // All blocks of a cooperative launch meet here. `counter` only grows:
-// the n-th barrier waits for n * gridDim.x arrivals.
-__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned& target) {
+// the n-th barrier waits for n * gridDim.x arrivals. sync() joins the
+// block's threads that take part, of which `leader` is one.
+template <class Sync>
+__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned& target, bool leader, Sync sync) {
   target += gridDim.x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  sync();
+  if (leader) {
     __threadfence();
     atomicAdd(counter, 1u);
     while (*reinterpret_cast<volatile unsigned*>(counter) < target) {
     }
     __threadfence();
   }
-  __syncthreads();
+  sync();
 }
 
 // The feedback term of bench_dot: the first k columns of acc plus the parity
@@ -298,63 +226,104 @@ __device__ __forceinline__ int32_t feedback(const int32_t* acc, int i, int c, in
   return static_cast<int32_t>(static_cast<uint32_t>(row[c]) + static_cast<uint32_t>(row[n - 1] & 1));
 }
 
-// A chain of `steps` dependent s8 dots. Step s:
-//   a_cur = int8(a0 + (dep & 1)),  dep = the feedback of step s-1 (0 at s = 0):
-//           row i of the feedback, or, where `big`, the sum of its 8 rows;
-//   acc   = a_cur . b              (TENSOR: mma.sync s8; else int32 multiply-adds)
-// and after the last step fb = feedback(acc)[0:fm]. All blocks are resident
-// (cooperative launch) and meet at a barrier after each phase. stats[0]
-// takes the largest per-block sum of cycles spent in the tile loop and
-// stats[1 + smid] counts the tiles each SM ran, over all steps.
-template <bool TENSOR>
-__global__ void __launch_bounds__(kDotThreads, kDotBlocksPerSm)
-chain_dot_kernel(const int8_t* __restrict__ a0, const int8_t* __restrict__ b, int8_t* bt,
-                 int8_t* a_cur, int32_t* acc, int32_t* fb, int m, int k, int n, int fm, int big,
-                 int steps, unsigned* barrier, unsigned long long* stats) {
-  __shared__ __align__(16) uint32_t smem[kDotSmemWords];
-  __shared__ int8_t dep_s[kMaxDepK];
-  const int tid = threadIdx.x;
-  const long long gtid = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
-  const long long gthreads = static_cast<long long>(gridDim.x) * blockDim.x;
-  const int tiles_n = (n + kTile - 1) / kTile;
-  const int tiles = tiles_n * ((m + kTile - 1) / kTile);
-  unsigned target = 0;
-  unsigned long long busy = 0;
+// Where `big`, the parity of the column sums of the feedback's fm rows, for
+// every column, by `threads` threads of the block from thread t.
+__device__ __forceinline__ void column_parities(int8_t* dep_s, const int32_t* acc, int fm, int k, int n, int t,
+                                                int threads) {
+  for (int c = t; c < k; c += threads) {
+    uint32_t sum = 0u;
+    for (int i = 0; i < fm; ++i) sum += static_cast<uint32_t>(feedback(acc, i, c, k, n));
+    dep_s[c] = static_cast<int8_t>(sum & 1);
+  }
+}
 
-  if (TENSOR) {
-    for (long long x = gtid; x < static_cast<long long>(k) * n; x += gthreads)
-      bt[(x % n) * k + x / n] = b[x];
-  }
-  for (int s = 0; s < steps; ++s) {
-    if (big && s > 0) {
-      for (int c = tid; c < k; c += blockDim.x) {
-        uint32_t sum = 0u;
-        for (int i = 0; i < fm; ++i) sum += static_cast<uint32_t>(feedback(acc, i, c, k, n));
-        dep_s[c] = static_cast<int8_t>(sum & 1);
-      }
-      __syncthreads();
-    }
-    for (long long x = gtid; x < static_cast<long long>(m) * k; x += gthreads) {
-      const int i = static_cast<int>(x / k), c = static_cast<int>(x % k);
-      int32_t dep = 0;
-      if (s > 0) dep = big ? dep_s[c] : feedback(acc, i, c, k, n) & 1;
-      a_cur[x] = static_cast<int8_t>(a0[x] + dep);
-    }
-    grid_barrier(barrier, target);
-    const long long t0 = clock64();
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int row0 = (tile / tiles_n) * kTile, col0 = (tile % tiles_n) * kTile;
-      if (TENSOR)
-        mma_tile_s8(a_cur, bt, acc, m, k, n, row0, col0, reinterpret_cast<uint4*>(smem));
+// Step s's lhs, a_cur = int8(a0 + (dep & 1)), W bytes of a row at a time (W
+// divides k): dep is 0 at the first step, then row i of the previous step's
+// feedback or, where `big`, the column parities in dep_s. Thread t of
+// `threads` across the grid, kBatch pieces a turn, whose loads are all
+// issued before the first store: one load in flight a thread would leave
+// the copy bound by latency.
+constexpr int kBatch = 4;
+template <int W>
+__device__ __forceinline__ void rebuild_lhs(const int8_t* __restrict__ a0, int8_t* __restrict__ a_cur,
+                                            const int32_t* __restrict__ acc, const int8_t* dep_s, int s, int big,
+                                            int m, int k, int n, long long t, long long threads) {
+  static_assert(W == 1 || W == 16, "a byte or a 16-byte vector");
+  const long long pieces = static_cast<long long>(m) * k / W;
+  for (long long x0 = t; x0 < pieces; x0 += threads * kBatch) {
+    alignas(16) int8_t v[kBatch][W];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long e = (x0 + u * threads) * W;
+      if (x0 + u * threads >= pieces) break;
+      if constexpr (W == 16)
+        *reinterpret_cast<uint4*>(v[u]) = *reinterpret_cast<const uint4*>(a0 + e);
       else
-        imad_tile<int8_t>(a_cur, b, acc, m, k, n, row0, col0, smem);
+        v[u][0] = a0[e];
     }
-    busy += static_cast<unsigned long long>(clock64() - t0);
-    grid_barrier(barrier, target);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long e = (x0 + u * threads) * W;
+      if (x0 + u * threads >= pieces) break;
+      const int i = static_cast<int>(e / k), c = static_cast<int>(e % k);
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        int32_t dep = 0;
+        if (s > 0) dep = big ? dep_s[c + j] : feedback(acc, i, c + j, k, n) & 1;
+        v[u][j] = static_cast<int8_t>(v[u][j] + dep);
+      }
+      if constexpr (W == 16)
+        *reinterpret_cast<uint4*>(a_cur + e) = *reinterpret_cast<const uint4*>(v[u]);
+      else
+        a_cur[e] = v[u][0];
+    }
   }
-  for (long long x = gtid; x < static_cast<long long>(fm) * k; x += gthreads)
+}
+
+// bt = b^T for int8 b [k, n], by the whole grid in kTransposeTile-square
+// tiles staged through `stage` (rows kTransposeStride bytes apart: 33 words,
+// so a column read hits 32 banks): rows of b read and rows of bt written
+// contiguously, with all of a block's threads, each with kTransposeBatch
+// loads in flight (one byte at a time, latency would bound the copy).
+constexpr int kTransposeTile = 128;
+constexpr int kTransposeStride = kTransposeTile + 4;
+constexpr int kTransposeBatch = 16;
+__device__ __forceinline__ void transpose_in_grid(const int8_t* __restrict__ b, int8_t* __restrict__ bt, int k,
+                                                  int n, int8_t* stage) {
+  constexpr int T = kTransposeTile;
+  const int tiles_n = (n + T - 1) / T, tiles = tiles_n * ((k + T - 1) / T);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r0 = (tile / tiles_n) * T, c0 = (tile % tiles_n) * T;
+    for (int e0 = threadIdx.x; e0 < T * T; e0 += blockDim.x * kTransposeBatch) {
+      int8_t v[kTransposeBatch];
+#pragma unroll
+      for (int u = 0; u < kTransposeBatch; ++u) {
+        const int e = e0 + u * blockDim.x, r = e / T, c = e % T;
+        v[u] = e < T * T && r0 + r < k && c0 + c < n ? b[static_cast<size_t>(r0 + r) * n + c0 + c] : int8_t(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kTransposeBatch; ++u) {
+        const int e = e0 + u * blockDim.x;
+        if (e < T * T) stage[(e / T) * kTransposeStride + e % T] = v[u];
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < T * T; e += blockDim.x) {
+      const int c = e / T, r = e % T;
+      if (r0 + r < k && c0 + c < n) bt[static_cast<size_t>(c0 + c) * k + r0 + r] = stage[r * kTransposeStride + c];
+    }
+    __syncthreads();
+  }
+}
+
+// After the last step: fb = feedback(acc)[0:fm] (0 without steps), and the
+// statistics of one block, by its thread `leader`.
+__device__ __forceinline__ void finish_chain(const int32_t* acc, int32_t* fb, int fm, int k, int n, int steps,
+                                             int tiles, unsigned long long busy, bool leader, long long t,
+                                             long long threads, unsigned long long* stats) {
+  for (long long x = t; x < static_cast<long long>(fm) * k; x += threads)
     fb[x] = steps > 0 ? feedback(acc, static_cast<int>(x / k), static_cast<int>(x % k), k, n) : 0;
-  if (tid == 0) {
+  if (leader) {
     atomicMax(stats, busy);
     unsigned smid;
     asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
@@ -362,6 +331,118 @@ chain_dot_kernel(const int8_t* __restrict__ a0, const int8_t* __restrict__ b, in
         blockIdx.x < tiles ? (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
     atomicAdd(stats + 1 + smid, mine * static_cast<unsigned long long>(steps));
   }
+}
+
+// A chain of `steps` dependent s8 dots. Step s:
+//   a_cur = int8(a0 + (dep & 1)),  dep = the feedback of step s-1 (0 at s = 0):
+//           row i of the feedback, or, where `big`, the sum of its 8 rows;
+//   acc   = a_cur . b
+// and after the last step fb = feedback(acc)[0:fm]. All blocks are resident
+// (cooperative launch) and meet at a barrier after each phase. stats[0]
+// takes the largest per-block sum of cycles spent in the tile loop and
+// stats[1 + smid] counts the tiles each SM ran, over all steps.
+//
+// This kernel is the CUDA-core unit: int32 multiply-adds on 64 x 64 tiles.
+__global__ void __launch_bounds__(kDotThreads, kDotBlocksPerSm)
+chain_dot_imad_kernel(const int8_t* __restrict__ a0, const int8_t* __restrict__ b, int8_t* a_cur, int32_t* acc,
+                      int32_t* fb, int m, int k, int n, int fm, int big, int steps, unsigned* barrier,
+                      unsigned long long* stats) {
+  __shared__ __align__(16) uint32_t smem[kDotSmemWords];
+  __shared__ int8_t dep_s[kMaxDepK];
+  const int tid = threadIdx.x;
+  const long long gtid = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
+  const long long gthreads = static_cast<long long>(gridDim.x) * blockDim.x;
+  const int tiles_n = (n + kTile - 1) / kTile;
+  const int tiles = tiles_n * ((m + kTile - 1) / kTile);
+  const auto sync = [] { __syncthreads(); };
+  unsigned target = 0;
+  unsigned long long busy = 0;
+
+  for (int s = 0; s < steps; ++s) {
+    if (big && s > 0) {
+      column_parities(dep_s, acc, fm, k, n, tid, blockDim.x);
+      __syncthreads();
+    }
+    rebuild_lhs<1>(a0, a_cur, acc, dep_s, s, big, m, k, n, gtid, gthreads);
+    grid_barrier(barrier, target, tid == 0, sync);
+    const long long t0 = clock64();
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      imad_tile<int8_t>(a_cur, b, acc, m, k, n, (tile / tiles_n) * kTile, (tile % tiles_n) * kTile, smem);
+    busy += static_cast<unsigned long long>(clock64() - t0);
+    grid_barrier(barrier, target, tid == 0, sync);
+  }
+  finish_chain(acc, fb, fm, k, n, steps, tiles, busy, tid == 0, gtid, gthreads, stats);
+}
+
+// The same chain on the tensor cores: the wgmma tile of dot_wgmma_s8_kernel,
+// each resident block walking its 128 x 128 tiles. The transpose bt = b^T is
+// made once, by the whole grid, staged in the ring before its first use. Then the producer warp waits, each step, for
+// the consumers to have rebuilt the lhs (grid barrier among the consumer
+// warpgroups, then named barrier kBarLoad) and issues the copies of all the
+// block's tiles into the ring; the consumers run them and store acc. a_cur and
+// bt are written by ordinary stores and read by TMA in a later phase: each
+// writer fences the async proxy after its stores and the producer after the
+// barrier, or a copy could read a stale lhs from step 2 on.
+__global__ void __launch_bounds__(wgmma_s8::kThreads, 1)
+chain_dot_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_bt,
+                       const int8_t* __restrict__ a0, const int8_t* __restrict__ b, int8_t* bt, int8_t* a_cur,
+                       int32_t* acc, int32_t* fb, int m, int k, int n, int fm, int big, int steps,
+                       unsigned* barrier, unsigned long long* stats) {
+  using namespace wgmma_s8;
+  extern __shared__ __align__(16) unsigned char chain_dot_smem[];
+  __shared__ int8_t dep_s[kMaxDepK];
+  const Ring ring = make_ring(chain_dot_smem);
+  const int tiles_n = (n + kTileN - 1) / kTileN;
+  const int tiles = tiles_n * ((m + kTileM - 1) / kTileM);
+  // the ring's first stage stages the transpose; the copies write it later
+  static_assert(kTransposeTile * kTransposeStride <= kStageBytes, "a transpose tile fits a stage");
+  transpose_in_grid(b, bt, k, n, reinterpret_cast<int8_t*>(ring.a(0)));
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_proxy_async_global();
+  __syncthreads();
+  Pipe pipe;
+
+  if (threadIdx.x < 128) {  // the producer warpgroup; its first warp stays
+    producer_registers<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    for (int s = 0; s < steps; ++s) {
+      named_sync(kBarLoad, 32 + kConsumerThreads);
+      if (threadIdx.x == 0) {
+        fence_proxy_async_global();
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+          load_tile(&map_a, &map_bt, ring, pipe, (tile / tiles_n) * kTileM, (tile % tiles_n) * kTileN, k);
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  consumer_registers<kConsumerRegs>();
+  const int ct = threadIdx.x - 128, wg = ct / 128;
+  const long long gtid = static_cast<long long>(blockIdx.x) * kConsumerThreads + ct;
+  const long long gthreads = static_cast<long long>(gridDim.x) * kConsumerThreads;
+  const auto sync = [] { named_sync(kBarConsumers, kConsumerThreads); };
+  unsigned target = 0;
+  unsigned long long busy = 0;
+  uint32_t d[64];
+  for (int s = 0; s < steps; ++s) {
+    if (big && s > 0) {
+      column_parities(dep_s, acc, fm, k, n, ct, kConsumerThreads);
+      sync();
+    }
+    rebuild_lhs<kTensorK>(a0, a_cur, acc, dep_s, s, big, m, k, n, gtid, gthreads);
+    fence_proxy_async_global();
+    grid_barrier(barrier, target, ct == 0, sync);
+    named_arrive(kBarLoad, 32 + kConsumerThreads);
+    const long long t0 = clock64();
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      mma_tile<int8_t, int8_t>(ring, pipe, k, wg, d);
+      store_tile(d, acc, m, n, (tile / tiles_n) * kTileM, (tile % tiles_n) * kTileN, wg);
+    }
+    busy += static_cast<unsigned long long>(clock64() - t0);
+    grid_barrier(barrier, target, ct == 0, sync);
+  }
+  finish_chain(acc, fb, fm, k, n, steps, tiles, busy, ct == 0, gtid, gthreads, stats);
 }
 
 // x += roll(x, 1 + i) for i < 16, `reps` times, each row in shared memory.
@@ -409,29 +490,44 @@ int launch_roll(const void* in, void* out, int rows, int cols, int shift, cudaSt
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TENSOR>
-int launch_chain(const void* a0, const void* b, void* bt, void* a_cur, void* acc, void* fb, int m,
-                 int k, int n, int fm, int big, int steps, void* barrier, void* stats, int* grid_out,
+// Launches a chain kernel cooperatively: every SM gets a block (the lhs is
+// rebuilt by all of them), more only for more tiles, no more than are
+// resident at once. *grid_out receives the number of blocks.
+int launch_chain(const void* kern, int threads, size_t smem, int tiles, void** args, int* grid_out,
                  cudaStream_t s) {
-  auto kern = chain_dot_kernel<TENSOR>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kDotThreads, 0);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  // every SM gets a block (the lhs is rebuilt by all of them); more only for more tiles
-  const int tiles = ((n + kTile - 1) / kTile) * ((m + kTile - 1) / kTile);
   int grid = tiles > sms ? tiles : sms;
   if (grid > per_sm * sms) grid = per_sm * sms;
   *grid_out = grid;
-  void* args[] = {&a0, &b, &bt, &a_cur, &acc, &fb, &m, &k, &n, &fm, &big, &steps, &barrier, &stats};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid), dim3(kDotThreads),
-                                    args, 0, s);
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), args, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The two tensor maps of the wgmma tile, a [m, k] and bt [n, k], and the
+// kernel's shared-memory size, set once per device (`set` holds a bit per
+// device index below 64; the probes' host path is most of their time).
+cudaError_t prepare_wgmma(const void* kern, std::atomic<unsigned long long>& set, CUtensorMap* map_a,
+                          const void* a, CUtensorMap* map_bt, const void* bt, int m, int k, int n) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (err == cudaSuccess && !(set.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(wgmma_s8::kSmemBytes));
+    if (err == cudaSuccess) set.fetch_or(bit, std::memory_order_release);
+  }
+  if (err == cudaSuccess) err = wgmma_s8::encode_kmajor(map_a, a, m, k);
+  if (err == cudaSuccess) err = wgmma_s8::encode_kmajor(map_bt, bt, n, k);
+  return err;
+}
+
+std::atomic<unsigned long long> dot_smem_set{0}, chain_smem_set{0};
 
 }  // namespace
 
@@ -442,20 +538,26 @@ extern "C" {
 // take, does not synchronise and allocates nothing.
 
 // out int32 [m, n] = a int8 [m, k] . b int8 [k, n] on the tensor cores;
-// bt is scratch, int8 [n, k]. k must be a multiple of 16.
+// bt is scratch, int8 [n, k]. k must be a multiple of 16, a and bt 16-byte
+// aligned (TMA).
 int tfhe_probe_dot_s8(const void* a, const void* b, void* bt, void* out, int m, int k, int n,
                       void* stream) {
-  if (m < 1 || n < 1 || k < 16 || k % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || n < 1 || k < kTensorK || k % kTensorK) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  CUtensorMap map_a, map_bt;
+  cudaError_t err =
+      prepare_wgmma(reinterpret_cast<const void*>(dot_wgmma_s8_kernel), dot_smem_set, &map_a, a, &map_bt, bt, m,
+                    k, n);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 tgrid((n + 31) / 32, (k + 31) / 32);
   transpose_s8_kernel<<<tgrid, dim3(32, 8), 0, s>>>(static_cast<const int8_t*>(b),
                                                     static_cast<int8_t*>(bt), k, n);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  dot_mma_s8_kernel<<<grid, kDotThreads, 0, s>>>(static_cast<const int8_t*>(a),
-                                                 static_cast<const int8_t*>(bt),
-                                                 static_cast<int32_t*>(out), m, k, n);
+  const dim3 grid((n + wgmma_s8::kTileN - 1) / wgmma_s8::kTileN,
+                  (m + wgmma_s8::kTileM - 1) / wgmma_s8::kTileM);
+  dot_wgmma_s8_kernel<<<grid, wgmma_s8::kThreads, wgmma_s8::kSmemBytes, s>>>(
+      map_a, map_bt, static_cast<int32_t*>(out), m, k, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -506,23 +608,35 @@ int tfhe_probe_unpack_s16(const void* in, void* lo, void* hi, long long count, v
   return static_cast<int>(cudaGetLastError());
 }
 
-// The chained dot (chain_dot_kernel). a0 int8 [m, k], b int8 [k, n]; scratch
-// bt int8 [n, k] and a_cur int8 [m, k]; outputs acc int32 [m, n] and fb int32
-// [fm, k]; barrier: one zeroed uint32; stats: 1 + 1024 zeroed uint64.
-// tensor != 0 takes the tensor cores (k a multiple of 16), else the CUDA
-// cores. *grid_out receives the number of blocks launched.
+// The chained dot. a0 int8 [m, k], b int8 [k, n]; scratch bt int8 [n, k]
+// (tensor cores only) and a_cur int8 [m, k]; outputs acc int32 [m, n] and fb
+// int32 [fm, k]; barrier: one zeroed uint32; stats: 1 + 1024 zeroed uint64.
+// tensor != 0 takes the tensor cores (chain_dot_wgmma_kernel: k a multiple
+// of 16; a0, bt and a_cur 16-byte aligned), else the CUDA cores
+// (chain_dot_imad_kernel). *grid_out receives the number of blocks launched.
 int tfhe_probe_chain_dot(const void* a0, const void* b, void* bt, void* a_cur, void* acc, void* fb,
                          int m, int k, int n, int fm, int big, int steps, int tensor,
                          void* barrier, void* stats, int* grid_out, void* stream) {
   const bool folds = n >= k || k % n == 0;
   if (m < 1 || n < 1 || k < 1 || fm < 1 || fm > m || steps < 0 || !folds ||
-      (big && k > kMaxDepK) || (tensor && k % 16))
+      (big && k > kMaxDepK) || (tensor && (k < kTensorK || k % kTensorK)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return tensor ? launch_chain<true>(a0, b, bt, a_cur, acc, fb, m, k, n, fm, big, steps, barrier,
-                                     stats, grid_out, s)
-                : launch_chain<false>(a0, b, bt, a_cur, acc, fb, m, k, n, fm, big, steps, barrier,
-                                      stats, grid_out, s);
+  if (!tensor) {
+    void* args[] = {&a0, &b, &a_cur, &acc, &fb, &m, &k, &n, &fm, &big, &steps, &barrier, &stats};
+    const int tiles = ((n + kTile - 1) / kTile) * ((m + kTile - 1) / kTile);
+    return launch_chain(reinterpret_cast<const void*>(chain_dot_imad_kernel), kDotThreads, 0, tiles, args,
+                        grid_out, s);
+  }
+  const void* kern = reinterpret_cast<const void*>(chain_dot_wgmma_kernel);
+  CUtensorMap map_a, map_bt;
+  const cudaError_t err = prepare_wgmma(kern, chain_smem_set, &map_a, a_cur, &map_bt, bt, m, k, n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&map_a, &map_bt, &a0, &b, &bt, &a_cur, &acc, &fb, &m, &k, &n, &fm, &big, &steps,
+                  &barrier, &stats};
+  const int tiles = ((n + wgmma_s8::kTileN - 1) / wgmma_s8::kTileN) *
+                    ((m + wgmma_s8::kTileM - 1) / wgmma_s8::kTileM);
+  return launch_chain(kern, wgmma_s8::kThreads, wgmma_s8::kSmemBytes, tiles, args, grid_out, s);
 }
 
 // out int32 [rows, cols] = in after reps * 16 steps of x += roll(x, 1 + i).

@@ -5,7 +5,7 @@ The kernels (`csrc/probes.cu`) replace the seven TPU probe kernels of
 scripts/probe_mosaic.py and scripts/bench_kernel_prims.py:
 
   probe_dot                integer dot -> int32: s8 on the tensor cores
-                           (mma.sync), s16 and s32 on the CUDA cores
+                           (wgmma fed by TMA), s16 and s32 on the CUDA cores
   probe_dot_correct_s16    that dot on full-range random operands, held
                            against an int64 numpy product mod 2^32
   probe_roll               rotate each row, for 1-, 2- and 4-byte elements
@@ -33,6 +33,7 @@ import torch
 
 from .. import _build
 from ..torus import wrap_i32
+from .cuda_blind_rotate import on_device
 
 #: Launches by wrapper name in this process (a wrapper adds one per launch).
 launches: collections.Counter = collections.Counter()
@@ -44,6 +45,12 @@ _NP_TYPES = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32}
 _STATS_SMS = 1024
 #: A chain's barrier counter is 32 bits: 2 * steps * blocks arrivals.
 _MAX_CHAIN_STEPS = 1 << 20
+#: Output tile edge of the dot kernels by unit: the tensor-core tile
+#: (csrc/wgmma_s8.cuh) and the CUDA-core tile (csrc/probes.cu).
+DOT_TILE = {"tensor": 128, "imad": 64}
+#: The tensor-core dot's K is a multiple of this: TMA copies rows of a
+#: multiple of 16 bytes.
+TENSOR_K = 16
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +163,18 @@ def _check_dot(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"shapes {tuple(a.shape)} x {tuple(b.shape)} do not contract")
 
 
+def check_tensor_core_operands(*ts: torch.Tensor) -> None:
+    """Raise unless each int8 matrix can feed the tensor-core tile's TMA
+    copies: rows of K bytes with K a multiple of TENSOR_K, and a 16-byte
+    aligned base."""
+    for t in ts:
+        k = t.shape[1]
+        if k % TENSOR_K:
+            raise ValueError(f"the s8 tensor-core dot takes K a multiple of {TENSOR_K}, got {k}")
+        if t.data_ptr() % 16:
+            raise ValueError("the s8 tensor-core dot's operands must be 16-byte aligned")
+
+
 def _check_chain(m: int, k: int, n: int, steps: int) -> None:
     if not 0 <= steps <= _MAX_CHAIN_STEPS:
         raise ValueError(f"steps = {steps} outside [0, {_MAX_CHAIN_STEPS}]")
@@ -167,7 +186,7 @@ def _launch(name: str, symbol: str, *args, device) -> None:
     """Call the library's launcher `symbol` on `device`'s current stream;
     raise on a refused launch, count a launch made under `name`."""
     lib = _build.load()
-    with torch.cuda.device(device):
+    with on_device(device.index):
         err = getattr(lib, symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: {lib.tfhe_cuda_error_string(err).decode()} ({err})")
@@ -181,8 +200,7 @@ def _dot(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if a.dtype == torch.int8:
-        if k % 16:
-            raise ValueError(f"the s8 tensor-core dot takes K a multiple of 16, got {k}")
+        check_tensor_core_operands(a)
         bt = torch.empty((n, k), dtype=torch.int8, device=a.device)
         _launch(name, "tfhe_probe_dot_s8",
                 a.data_ptr(), b.data_ptr(), bt.data_ptr(), out.data_ptr(), m, k, n, device=a.device)
@@ -196,9 +214,23 @@ def _dot(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # The wrappers
 # ---------------------------------------------------------------------------
 
+def dot_tiles(m: int, n: int, unit: str = "tensor") -> int:
+    """Output tiles of an [M, K] . [K, N] dot on `unit`: what the chained
+    dot's blocks walk, and what its per-SM tile counts count."""
+    edge = DOT_TILE[unit]
+    return -(-m // edge) * -(-n // edge)
+
+
+def tile_loop_rate(m: int, k: int, n: int, unit: str, cycles: int, busiest: int) -> float:
+    """Multiply-adds a clock of one SM inside a chain's tile loop: the tiles
+    of the SM that ran most (`ChainDot.tile_loop`), each of M K N / tiles
+    multiply-adds, over the cycles of the slowest block."""
+    return m * k * n / dot_tiles(m, n, unit) * busiest / cycles
+
+
 def dot_unit(dtype: torch.dtype) -> str:
     """Where `probe_dot` runs this operand type on the card."""
-    return "tensor cores (mma.sync m16n8k32)" if dtype == torch.int8 else "CUDA cores (int32 multiply-adds)"
+    return "tensor cores (wgmma m64n128k32)" if dtype == torch.int8 else "CUDA cores (int32 multiply-adds)"
 
 
 def probe_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -291,8 +323,8 @@ class ChainDot:
 def chain_dot(a0: torch.Tensor, b: torch.Tensor, steps: int, unit: str = "tensor") -> ChainDot:
     """bench_dot's chain (`chain_dot_plain`) in one launch: all blocks
     resident, a grid barrier after each lhs rebuild and each dot.
-    unit: "tensor" (mma.sync s8) or "imad" (int32 multiply-adds on the same
-    int8 operands)."""
+    unit: "tensor" (wgmma s8, 128 x 128 tiles) or "imad" (int32
+    multiply-adds on the same int8 operands, 64 x 64 tiles)."""
     if unit not in ("tensor", "imad"):
         raise ValueError(f"unit {unit!r}: 'tensor' or 'imad'")
     _check_dot(a0, b)
@@ -303,12 +335,13 @@ def chain_dot(a0: torch.Tensor, b: torch.Tensor, steps: int, unit: str = "tensor
     (m, k), n = a0.shape, b.shape[1]
     _check_chain(m, k, n, steps)
     big, fm = chain_shape(m, k)
-    if unit == "tensor" and k % 16:
-        raise ValueError(f"the s8 tensor-core dot takes K a multiple of 16, got {k}")
+    if unit == "tensor":
+        check_tensor_core_operands(a0)
     dev = a0.device
     bt = torch.empty((n, k), dtype=torch.int8, device=dev)
     a_cur = torch.empty_like(a0)
-    acc = torch.zeros((m, n), dtype=torch.int32, device=dev)
+    # every step stores all of acc; without steps the result is zeros
+    acc = (torch.empty if steps else torch.zeros)((m, n), dtype=torch.int32, device=dev)
     fb = torch.empty((fm, k), dtype=torch.int32, device=dev)
     barrier = torch.zeros(4, dtype=torch.int32, device=dev)
     stats = torch.zeros(1 + _STATS_SMS, dtype=torch.int64, device=dev)

@@ -6,7 +6,7 @@ of rs_tfhe_tpu_torch/csrc/probes.cu and held against its plain PyTorch
 version on full-range random inputs (a FAIL names the first difference):
 
   - integer dots -> int32 at [128,1024]x[1024,256]: s8 on the tensor cores
-    (mma.sync m16n8k32); s16 and s32 on the CUDA cores, since Hopper's
+    (wgmma m64n128k32 fed by TMA); s16 and s32 on the CUDA cores, since Hopper's
     tensor cores have no 16- or 32-bit integer type;
   - that each dot wraps mod 2^32 (against an int64 numpy product);
   - rolls of int8, int16 and int32 rows (an indexed shared-memory read);

@@ -542,6 +542,26 @@ def test_probe_dot_matches_plain(dev, dtype, shape):
     assert torch.equal(out.cpu(), CP.dot_plain(a.cpu(), b.cpu()))
 
 
+@pytest.mark.parametrize(
+    "shape", [(80, 48, 72), (129, 16, 257), (256, 1040, 384), (1024, 1024, 1024)],
+    ids=lambda s: "x".join(map(str, s)),
+)
+def test_probe_dot_s8_tile_edges(dev, shape):
+    """The tensor-core tile at shapes that straddle its 128 x 128 tile and
+    its 128-byte stage (k below one stage, one row and column past a tile, a
+    partial last stage), and one that fills the card; full-range operands
+    with both extremes, since a wrong fragment or swizzle map permutes."""
+    m, k, n = shape
+    a, b = _rand(dev, (m, k), torch.int8, 72), _rand(dev, (k, n), torch.int8, 73)
+    a[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
+    b[:2, -1] = torch.tensor([-128, 127], dtype=torch.int8)
+    before = CP.launches["probe_dot"]
+    out = CP.probe_dot(a, b)
+    torch.cuda.synchronize()
+    assert CP.launches["probe_dot"] == before + 1
+    assert torch.equal(out, CP.dot_plain(a, b))
+
+
 @pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["s8", "s16", "s32"])
 def test_probe_dot_wraps_mod_2_32(dev, dtype):
     before = CP.launches["probe_dot_correct_s16"]
@@ -579,15 +599,39 @@ def test_chain_dot_matches_plain(dev, shape, unit):
     (8-row column sums) form, on random operands."""
     m, k, n = shape
     a0, b = _rand(dev, (m, k), torch.int8, 64), _rand(dev, (k, n), torch.int8, 65)
+    before = CP.launches["chain_dot"]
     res = CP.chain_dot(a0, b, 5, unit=unit)
     torch.cuda.synchronize()
+    assert CP.launches["chain_dot"] == before + 1
     acc, fb = CP.chain_dot_plain(a0, b, 5)
     assert torch.equal(res.acc, acc)
     assert torch.equal(res.fb, fb)
     cycles, sms, busiest = res.tile_loop()
     assert cycles > 0 and 0 < sms <= torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = (m // 64) * (n // 64)
+    tiles = CP.dot_tiles(m, n, unit)
     assert 5 * tiles / sms <= busiest <= 5 * tiles
+
+
+@pytest.mark.parametrize("shape", [(2048, 512, 2048), (1024, 256, 4096)], ids=["big", "small_form"])
+def test_chain_dot_tensor_more_tiles_than_sms(dev, shape):
+    """Each resident block walks several tensor-core tiles a step, in the big
+    (8-row column sums) and the small feedback form; 5 steps, because a lhs
+    the copies read stale (a missing proxy fence) shows only from step 2 on.
+    Every tile of every step is counted on some SM."""
+    m, k, n = shape
+    a0, b = _rand(dev, (m, k), torch.int8, 74), _rand(dev, (k, n), torch.int8, 75)
+    tiles = CP.dot_tiles(m, n, "tensor")
+    assert tiles > torch.cuda.get_device_properties(dev).multi_processor_count
+    assert CP.chain_shape(m, k)[0] == (shape == (2048, 512, 2048))
+    before = CP.launches["chain_dot"]
+    res = CP.chain_dot(a0, b, 5, unit="tensor")
+    torch.cuda.synchronize()
+    assert CP.launches["chain_dot"] == before + 1
+    acc, fb = CP.chain_dot_plain(a0, b, 5)
+    assert torch.equal(res.acc, acc)
+    assert torch.equal(res.fb, fb)
+    assert int(res.stats[1:].sum()) == 5 * tiles
+    assert res.blocks < tiles
 
 
 @pytest.mark.parametrize("shape", [(128, 1024), (128, 128), (8, 1024), (256, 2048), (3, 17)])

@@ -301,6 +301,46 @@ def test_chain_dot_rejects_what_it_does_not_take():
 
 
 # ---------------------------------------------------------------------------
+# P1, P6: what the wrappers of the tensor-core tile compute in Python
+# ---------------------------------------------------------------------------
+
+def test_dot_tiles_by_unit():
+    """128 x 128 tiles on the tensor cores, 64 x 64 on the CUDA cores; a
+    ragged edge is a tile of its own."""
+    assert CP.DOT_TILE == {"tensor": 128, "imad": 64}
+    assert CP.dot_tiles(129, 257) == 2 * 3
+    assert CP.dot_tiles(129, 257, "imad") == 3 * 5
+    assert CP.dot_tiles(80, 72) == 1
+    assert CP.dot_tiles(4096, 4096) == 1024 and CP.dot_tiles(4096, 4096, "imad") == 4096
+
+
+@pytest.mark.parametrize("unit", ["tensor", "imad"])
+def test_bench_tile_loop_rate(unit):
+    """scripts/bench_hopper_prims.py turns the tile loop's statistics into
+    multiply-adds a clock and SM with the unit's tile: every shape it runs,
+    one SM running all its tiles at one tile per 1000 cycles."""
+    bench = _load_script("bench_hopper_prims")
+    edge = CP.DOT_TILE[unit]
+    for _, shapes in bench.DOT_SHAPES:
+        for m, k, n, _label in shapes:
+            tiles = -(-m // edge) * -(-n // edge)
+            assert CP.dot_tiles(m, n, unit) == tiles
+            rate = CP.tile_loop_rate(m, k, n, unit, cycles=1000 * tiles, busiest=tiles)
+            assert rate == pytest.approx(m * k * n / tiles / 1000)
+
+
+def test_tensor_core_operand_checks():
+    """What the tensor-core tile's copies refuse: K not a multiple of 16
+    (TMA's row stride), a base off 16 bytes. The wrappers refuse other
+    operand types before (test_dot_rejects_what_it_does_not_take)."""
+    CP.check_tensor_core_operands(torch.zeros((4, 32), dtype=torch.int8), torch.zeros((8, 16), dtype=torch.int8))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        CP.check_tensor_core_operands(torch.zeros((4, 24), dtype=torch.int8))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        CP.check_tensor_core_operands(torch.zeros(4 * 32 + 1, dtype=torch.int8)[1:].view(4, 32))
+
+
+# ---------------------------------------------------------------------------
 # P7: the chained roll+add
 # ---------------------------------------------------------------------------
 

@@ -8,8 +8,10 @@ the last line):
   1. environment: torch/CUDA versions and the card's name and power limit;
      exits non-zero when no CUDA device is available;
   2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a), one
-     nvcc per source, all started together, and reads the s8 probe kernels'
-     tensor-core instructions from the library (cuobjdump -sass: wgmma);
+     nvcc per source, all started together, and reads from the library
+     (cuobjdump -sass) the s8 probe kernels' tensor-core instructions
+     (wgmma) and the roll and bitcast kernels' 128-bit global loads and
+     stores;
   3. each kernel against its plain PyTorch version on the card, bit for bit,
      with both times (CUDA events), and the instance each case launched
      (ring size, tile, cluster and unit for the rotation; ring size, unit,
@@ -45,7 +47,13 @@ the last line):
           cores), roll, bitcast, unpack, and the chained dot (both units) and
           chained roll+add at every shape of scripts/bench_hopper_prims.py;
           torch._int_mm on the same operands is the s8 dots' library time,
-          and the chain's tile loop is timed by its cycle counter;
+          and the chain's tile loop is timed by its cycle counter; the roll
+          (int8, int16, int32) and the bitcast at the TPU probe shape [8,256]
+          beside the same wrapper on one word (the floor of a call), and at
+          size: the roll on the FAST B = 4096 accumulator's [8192,1024] by 5
+          and by 1000, the bitcast on the FAST cloud key's bsk as
+          [5600,1024], each input rotating through copies that span three
+          times the L2; torch.roll, view and a clone are their library times;
      every case with its bound: the least time the card could take, the
      larger of bytes over the memory rate and operations over the peak rate
      (for 32-bit multiply-adds the better of the CUDA cores and of s8 limb
@@ -172,6 +180,8 @@ EARLIER_MS = {
     "blind_rotate_mb": {"128_BIT_FAST B=1": 32.6, "128_BIT B=1": 50.25, "128_BIT_RADIX B=1": 191.7,
                         "128_BIT_FAST B=1024": 207.8},
     "probe_dot": {"int8 [128,1024]x[1024,256]": 0.0512},
+    "probe_roll": {"int8 [8,256] by 5": 0.0157},
+    "probe_bitcast_i32_to_i8": {"[8,256]": 0.0171},
     "chain_dot": {f"[{m},{k}]x[{k},{n}] per dot": ms for (m, k, n), ms in (
         ((128, 1024, 1024), 0.0327), ((1024, 1024, 128), 0.0547), ((256, 1024, 512), 0.0371),
         ((128, 4096, 1024), 0.0963), ((4096, 1024, 128), 0.1075), ((128, 1024, 4096), 0.0536),
@@ -309,23 +319,30 @@ def phase_build():
           f"{len(spills)} with spills {elapsed()}")
     for line in spills:
         print(f"[2]   {line}")
-    # the s8 probe kernels must run wgmma (SASS IGMMA) and no mma.sync (IMMA)
+    # the s8 probe kernels must run wgmma (SASS IGMMA) and no mma.sync (IMMA); the roll and the bitcast
+    # must move 16 bytes a global load and store (LDG/STG with .128)
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True,
                           timeout=300).stdout
     wgmma_kernels = ("dot_wgmma_s8_kernel", "chain_dot_wgmma_kernel")
-    ops, kernel = {k: {} for k in wgmma_kernels}, None
+    copy_kernels = ("roll_kernel", "bitcast_i32_to_i8_kernel")
+    ops, kernel = {k: {} for k in wgmma_kernels + copy_kernels}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            kernel = next((k for k in wgmma_kernels if k in line), None)
+            kernel = next((k for k in ops if k in line), None)
         elif kernel is not None and "*/" in line:
             words = line.split("*/")[1].split()
             words = words[1:] if words and words[0].startswith("@") else words  # past a predicate
-            if words and "MMA" in words[0]:
+            if words and ("MMA" in words[0] or words[0].startswith(("LDG", "STG"))):
                 ops[kernel][words[0]] = ops[kernel].get(words[0], 0) + 1
-    print(f"[2] tensor-core instructions of the s8 probe kernels (cuobjdump -sass): {ops}")
-    check(all(any(op.startswith("IGMMA") for op in found) and not any(op.startswith("IMMA") for op in found)
-              for found in ops.values()), "the s8 probe kernels run wgmma (IGMMA) and no mma.sync (IMMA)")
+    print(f"[2] tensor-core instructions of the s8 probe kernels (cuobjdump -sass): "
+          f"{ {k: ops[k] for k in wgmma_kernels} }")
+    check(all(any(op.startswith("IGMMA") for op in ops[k]) and not any(op.startswith("IMMA") for op in ops[k])
+              for k in wgmma_kernels), "the s8 probe kernels run wgmma (IGMMA) and no mma.sync (IMMA)")
+    print(f"[2] global loads and stores of the roll and bitcast kernels: { {k: ops[k] for k in copy_kernels} }")
+    check(all(any(op.startswith(kind) and ".128" in op for op in ops[k])
+              for k in copy_kernels for kind in ("LDG", "STG")),
+          "the roll and bitcast kernels hold 128-bit global loads and stores (LDG/STG .128)")
 
 
 def _rnd(g, dev):
@@ -955,6 +972,7 @@ def phase_probes_vs_plain(dev) -> dict:
     inputs, with times, bound and, where one PyTorch call computes the same
     function, that call's time. Returns the kernels-line fields by wrapper
     name."""
+    from rs_tfhe_tpu_torch import params as P
     from rs_tfhe_tpu_torch.ops import cuda_probes as CP
 
     bench = _load_script("bench_hopper_prims")
@@ -964,20 +982,24 @@ def phase_probes_vs_plain(dev) -> dict:
     def rnd(shape, dtype):
         return torch.randint(*ranges[dtype], shape, generator=g, dtype=dtype, device=dev)
 
-    def compare(label, kernel, plain, bnd, library=None, reps=20, earlier=None):
+    def compare(label, kernel, plain, bnd, library=None, reps=20, earlier=None, also=None, timer=cuda_ms):
+        """`also`: {name: call} timed beside the library call (into `<name>_ms`); `timer`: what times
+        each of the calls."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         outs, refs = (out if isinstance(out, tuple) else (out,)), (ref if isinstance(ref, tuple) else (ref,))
         same = all(torch.equal(o, r) for o, r in zip(outs, refs))
         err = max(int((o.to(torch.int64) - r.to(torch.int64)).abs().max()) for o, r in zip(outs, refs))
-        k_ms, p_ms = cuda_ms(kernel, reps), cuda_ms(plain, reps)
-        lib_ms = cuda_ms(library, reps) if library is not None else None
+        k_ms, p_ms = timer(kernel, reps), timer(plain, reps)
+        lib_ms = timer(library, reps) if library is not None else None
+        also_ms = {f"{name}_ms": timer(fn, reps) for name, fn in (also or {}).items()}
         lib = f", library call {lib_ms:.4f} ms" if lib_ms is not None else ""
+        lib += "".join(f", {k.removesuffix('_ms')} {v:.4f} ms" for k, v in also_ms.items())
         was = show_earlier(*earlier) if earlier else ""
         print(f"[3e] {label}: equal={same} max_abs_err={err} kernel {k_ms:.4f} ms{was}, plain {p_ms:.4f} ms{lib}, "
               f"{show_bound(bnd)}")
         check(same, f"probe kernel == plain version: {label}")
-        return {**case_row(label, k_ms, p_ms, bnd), "library_ms": lib_ms, "max_abs_err": err}
+        return {**case_row(label, k_ms, p_ms, bnd), "library_ms": lib_ms, **also_ms, "max_abs_err": err}
 
     m, k, n = 128, 1024, 256
     dots, correct = [], []
@@ -1002,15 +1024,49 @@ def phase_probes_vs_plain(dev) -> dict:
         correct.append(compare(f"probe_dot_correct {name} (default_rng(0) operands; equal to the int64 numpy product)",
                                lambda: CP.probe_dot(ra, rb), lambda: CP.dot_plain(ra, rb), bnd))
 
+    # P2 and P3 at the TPU probe shape, where a call is its host path (beside the floor: the same wrapper
+    # on one word), and at size: the FAST B = 4096 accumulator (4096 x 2 polynomials of N = 1024) for the
+    # roll, the FAST cloud key's bsk as [n0 * 2L * 2, N] words for the bitcast. At size every call reads
+    # its input from memory (the inputs rotate through copies spanning three times the L2), and the calls
+    # are timed on the card behind a sleep kernel, so that a copy shorter than its host path is timed
+    # and not the host path (bench_hopper_prims.device_ms).
+    floor8, floor32 = rnd((1, 16), torch.int8), rnd((1, 1), torch.int32)
     rolls = []
     for dtype, size in ((torch.int8, 1), (torch.int16, 2), (torch.int32, 4)):
+        name = str(dtype).removeprefix("torch.")
         x = rnd((8, 256), dtype)
-        rolls.append(compare(f"probe_roll {str(dtype).removeprefix('torch.')} [8,256] by 5", lambda: CP.probe_roll(x, 5),
+        rolls.append(compare(f"probe_roll {name} [8,256] by 5", lambda: CP.probe_roll(x, 5),
                              lambda: CP.roll_plain(x, 5), bound(2 * size * x.numel()),
-                             lambda: torch.roll(x, 5, dims=1)))
+                             lambda: torch.roll(x, 5, dims=1), earlier=("probe_roll", f"{name} [8,256] by 5"),
+                             also={"floor_int8_1x16": lambda: CP.probe_roll(floor8, 5)} if size == 1 else None))
+        x = rnd((8192, 1024), dtype)
+        xs = bench.copies_of(x, 2 * size * x.numel())
+        for shift in (5, 1000):
+            rolls.append(compare(
+                f"probe_roll {name} [8192,1024] by {shift}",
+                bench.rotating(lambda t, s=shift: CP.probe_roll(t, s), xs),
+                bench.rotating(lambda t, s=shift: CP.roll_plain(t, s), xs), bound(2 * size * x.numel()),
+                bench.rotating(lambda t, s=shift: torch.roll(t, s, dims=1), xs),
+                earlier=("probe_roll", f"{name} [8192,1024] by {shift}"), timer=bench.device_ms))
+        del x, xs
     x = rnd((8, 256), torch.int32)
-    bitcast = compare("probe_bitcast_i32_to_i8 [8,256]", lambda: CP.probe_bitcast_i32_to_i8(x),
-                      lambda: CP.bitcast_i32_to_i8_plain(x), bound(8 * x.numel()), lambda: x.view(torch.int8))
+    bitcasts = [compare("probe_bitcast_i32_to_i8 [8,256]", lambda: CP.probe_bitcast_i32_to_i8(x),
+                        lambda: CP.bitcast_i32_to_i8_plain(x), bound(8 * x.numel()), lambda: x.view(torch.int8),
+                        earlier=("probe_bitcast_i32_to_i8", "[8,256]"),
+                        also={"clone": lambda: x.view(torch.int8).reshape(8, -1).clone(),
+                              "floor_int32_1x1": lambda: CP.probe_bitcast_i32_to_i8(floor32)})]
+    fast = P.SECURITY_128_BIT_FAST
+    key = _keygen(fast, dev, SEED + 71)[1].bsk.reshape(-1, fast.n1)
+    keys = bench.copies_of(key, 8 * key.numel())
+    rows_ = key.shape[0]
+    bitcasts.append(compare(
+        f"probe_bitcast_i32_to_i8 [{rows_},{fast.n1}] (the FAST cloud key's bsk)",
+        bench.rotating(CP.probe_bitcast_i32_to_i8, keys), bench.rotating(CP.bitcast_i32_to_i8_plain, keys),
+        bound(8 * key.numel()), bench.rotating(lambda t: t.view(torch.int8), keys),
+        earlier=("probe_bitcast_i32_to_i8", f"[{rows_},{fast.n1}]"),
+        also={"clone": bench.rotating(lambda t: t.view(torch.int8).reshape(rows_, -1).clone(), keys)},
+        timer=bench.device_ms))
+    del key, keys
     unpack = compare("probe_unpack_s16 [8,256]", lambda: CP.probe_unpack_s16(x), lambda: CP.unpack_s16_plain(x),
                      bound(8 * x.numel()))
 
@@ -1069,7 +1125,7 @@ def phase_probes_vs_plain(dev) -> dict:
 
     return {
         "probe_dot": entry(dots), "probe_dot_correct_s16": entry(correct, main=1), "probe_roll": entry(rolls),
-        "probe_bitcast_i32_to_i8": entry([bitcast]), "probe_unpack_s16": entry([unpack]),
+        "probe_bitcast_i32_to_i8": entry(bitcasts), "probe_unpack_s16": entry([unpack]),
         "chain_dot": entry(chains, main=len(chains) - 1), "chain_roll_add": entry(roll_adds),
     }
 

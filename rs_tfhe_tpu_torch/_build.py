@@ -155,8 +155,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load() -> ctypes.CDLL:
-    """The kernels' library, built on the first call in this process."""
+    """The kernels' library, built on the first call in this process. The
+    lock is taken only until the library is loaded: after that a call is a
+    read of `_lib`."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             _lib = _bind(ctypes.CDLL(str(build())))

@@ -14,11 +14,12 @@
 //     tiles, a producer warpgroup and two consumer warpgroups, a 4-stage
 //     ring); Hopper's tensor cores have no s16 or s32 integer type, so those
 //     run as int32 multiply-adds on the CUDA cores and wrap mod 2^32;
-//   - roll (probe_roll): an indexed shared-memory read, for 1-, 2- and 4-byte
+//   - roll (probe_roll): a rotation of each row's bytes, for 1-, 2- and 4-byte
 //     elements alike (the TPU could only rotate 32-bit lanes, which is why
-//     its kernels pack limbs into words);
-//   - bitcast and the two-s16 unpack (probe_bitcast_i32_to_i8,
-//     probe_unpack_s16): shifts on registers;
+//     its kernels pack limbs into words), and the bitcast
+//     (probe_bitcast_i32_to_i8), whose lanes are the words' bytes in memory
+//     order: both streaming copies of 16-byte vectors at any base and width;
+//   - the two-s16 unpack (probe_unpack_s16): shifts on registers;
 //   - chained s8 dots (bench_dot): reps dependent products in one launch, each
 //     lhs rebuilt from the previous accumulator, on the tensor cores (the same
 //     wgmma tile, each resident block walking its tiles) or, the same chain,
@@ -28,10 +29,12 @@
 //
 // Bounds: the dots are bound by operations (2 M K N integer operations against
 // M K + K N + 4 M N bytes), the element-wise kernels by bytes. The s8 tile is
-// designed for that bound (wgmma_s8.cuh says how); the rest is not tuned:
+// designed for that bound (wgmma_s8.cuh says how), and so are the roll and the
+// bitcast (16-byte vectors, several in flight a thread); the rest is not tuned:
 // 64 x 64 CUDA-core tiles, two warps a block, operands staged through shared
 // memory without a pipeline, occupancy hiding the latency.
 
+#include <algorithm>
 #include <atomic>
 #include <cstddef>
 #include <cstdint>
@@ -165,30 +168,159 @@ dot_imad_kernel(const T* a, const T* b, int32_t* out, int m, int k, int n) {
   imad_tile<T>(a, b, out, m, k, n, blockIdx.y * kTile, blockIdx.x * kTile, smem);
 }
 
-// out[r, c] = in[r, (c - shift) mod cols]: each row through shared memory.
-template <typename T>
-__global__ void roll_kernel(const T* __restrict__ in, T* __restrict__ out, int cols, int shift) {
-  extern __shared__ __align__(16) unsigned char roll_smem[];
-  T* row = reinterpret_cast<T*>(roll_smem);
-  const T* src = in + static_cast<size_t>(blockIdx.x) * cols;
-  T* dst = out + static_cast<size_t>(blockIdx.x) * cols;
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) row[c] = src[c];
-  __syncthreads();
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-    int s = c - shift;
-    if (s < 0) s += cols;
-    dst[c] = row[s];
+// P2 and P3 move bytes and compute nothing else, so they are bound by bytes:
+// each input byte read once, each output byte written once, at 3.35 TB/s.
+// Both are streaming copies built from the same pieces: every output byte
+// that lies in an aligned 16-byte vector of the output is written by a
+// 16-byte store, and the 16 input bytes behind it come from aligned 16-byte
+// loads (two, funnel-shifted into place, where the input window is not
+// aligned), kCopyVectors vectors a thread in flight before the first store.
+// The few bytes before the output's first aligned vector and after its last
+// one take a scalar path, so any base and any length are taken. Where every
+// input window is aligned (kAligned: both bases, and for the roll the row
+// length and the shift, multiples of 16 bytes), a vector is one load and no
+// realignment; the launchers pick that instance from the pointers and sizes.
+constexpr int kCopyThreads = 256;  // the most threads a copy block has
+constexpr int kCopyVectors = 4;    // 16-byte vectors a thread has in flight
+
+// The aligned 16-byte input granules that cover the 16 bytes at some address,
+// and that address's offset d into the first. Both granules hold a byte of
+// the window, so neither load reaches a page the window does not touch.
+struct Window {
+  uint4 lo, hi;
+  unsigned d;
+};
+
+template <bool kAligned>
+__device__ __forceinline__ Window load_window(const unsigned char* p) {
+  Window w;
+  if constexpr (kAligned) {
+    w.lo = w.hi = __ldg(reinterpret_cast<const uint4*>(p));
+    w.d = 0;
+  } else {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    const uint4* g = reinterpret_cast<const uint4*>(a & ~static_cast<uintptr_t>(15));
+    w.d = static_cast<unsigned>(a & 15);
+    w.lo = __ldg(g);
+    w.hi = w.d ? __ldg(g + 1) : w.lo;
+  }
+  return w;
+}
+
+// The window's 16 bytes: bytes d..d+15 of lo:hi, little-endian, so result
+// word k is words q+k and q+k+1 shifted right by the remaining 8 (d mod 4)
+// bits. The word offset q selects among registers with fixed indices (a
+// runtime index would put the eight words in local memory).
+template <bool kAligned>
+__device__ __forceinline__ uint4 realign(const Window& w) {
+  if constexpr (kAligned) {
+    return w.lo;
+  } else {
+    const unsigned q = w.d >> 2, sh = (w.d & 3) * 8;
+    const uint32_t v[8] = {w.lo.x, w.lo.y, w.lo.z, w.lo.w, w.hi.x, w.hi.y, w.hi.z, w.hi.w};
+    uint32_t s[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) s[k] = q == 0 ? v[k] : q == 1 ? v[k + 1] : q == 2 ? v[k + 2] : v[k + 3];
+    return make_uint4(__funnelshift_r(s[0], s[1], sh), __funnelshift_r(s[1], s[2], sh),
+                      __funnelshift_r(s[2], s[3], sh), __funnelshift_r(s[3], s[4], sh));
   }
 }
 
-// Each int32 word as its four bytes, least significant first.
-__global__ void bitcast_i32_to_i8_kernel(const uint32_t* __restrict__ in, char4* __restrict__ out,
-                                         long long count) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const uint32_t w = in[i];
-  out[i] = make_char4(static_cast<signed char>(w), static_cast<signed char>(w >> 8),
-                      static_cast<signed char>(w >> 16), static_cast<signed char>(w >> 24));
+// out[r, c] = in[r, (c - shift) mod cols]: with elements of e bytes, each
+// row's bytes rotated by shift_bytes = shift * e, so one kernel serves every
+// element size. Thread (x, y) of a block takes row blockIdx.y * blockDim.y + y
+// (then every gridDim.y * blockDim.y-th row) and, of its aligned output
+// vectors, those of chunk blockIdx.x: x, x + blockDim.x, ... kCopyVectors of
+// them. An output vector's input window is contiguous unless it wraps past
+// the row's end; a wrapping vector (at most one a row, none where kAligned)
+// gathers its bytes one by one. Block x = 0 also writes the row's unaligned
+// head and tail bytes.
+template <bool kAligned>
+__global__ void __launch_bounds__(kCopyThreads)
+roll_kernel(const unsigned char* __restrict__ in, unsigned char* __restrict__ out, int rows, int row_bytes,
+            int shift_bytes) {
+  for (long long r = static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y; r < rows;
+       r += static_cast<long long>(gridDim.y) * blockDim.y) {
+    const unsigned char* src = in + r * row_bytes;
+    unsigned char* dst = out + r * row_bytes;
+    const int head =
+        kAligned ? 0 : min(static_cast<int>((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15), row_bytes);
+    const int vectors = (row_bytes - head) >> 4;
+    const int tail0 = head + (vectors << 4);
+    if (blockIdx.x == 0) {
+      for (int i = threadIdx.x; i < head + row_bytes - tail0; i += blockDim.x) {
+        const int e = i < head ? i : tail0 + i - head;
+        const int s = e >= shift_bytes ? e - shift_bytes : e - shift_bytes + row_bytes;
+        dst[e] = src[s];
+      }
+    }
+    const int v0 = blockIdx.x * blockDim.x * kCopyVectors + threadIdx.x;
+    Window w[kCopyVectors];
+#pragma unroll
+    for (int u = 0; u < kCopyVectors; ++u) {
+      const int v = v0 + u * blockDim.x;
+      if (v >= vectors) break;
+      const int b = head + 16 * v;
+      const int s = b >= shift_bytes ? b - shift_bytes : b - shift_bytes + row_bytes;
+      if (kAligned || s <= row_bytes - 16) {
+        w[u] = load_window<kAligned>(src + s);
+      } else {  // the wrap: row_bytes >= 16 here, so one subtraction brings an index back into the row
+        uint32_t word[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int t = s + j < row_bytes ? s + j : s + j - row_bytes;
+          word[j >> 2] |= static_cast<uint32_t>(src[t]) << (8 * (j & 3));
+        }
+        w[u].lo = w[u].hi = make_uint4(word[0], word[1], word[2], word[3]);
+        w[u].d = 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyVectors; ++u) {
+      const int v = v0 + u * blockDim.x;
+      if (v >= vectors) break;
+      reinterpret_cast<uint4*>(dst + head)[v] = realign<kAligned>(w[u]);
+    }
+  }
+}
+
+// Each int32 word as its four bytes, least significant first. The card's
+// memory is little-endian, so a word's bytes in lane order are the word as it
+// is stored: the output is the input's bytes, in order, and the kernel is a
+// streaming copy of nbytes = 4 * count bytes. A grid sized to the blocks the
+// card holds at once walks the output's aligned vectors: thread t of T takes
+// vectors t, t + T, t + 2T, ..., kCopyVectors an iteration, so every thread
+// has the same number of vectors to within one (a block-sized chunk a turn
+// would leave the last turn's blocks alone on the card). Block 0 writes the
+// bytes before the first aligned vector and after the last one.
+template <bool kAligned>
+__global__ void __launch_bounds__(kCopyThreads)
+bitcast_i32_to_i8_kernel(const unsigned char* __restrict__ in, unsigned char* __restrict__ out, long long nbytes) {
+  const long long align = kAligned ? 0 : static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(out) & 15)) & 15);
+  const long long head = align < nbytes ? align : nbytes;
+  const long long vectors = (nbytes - head) >> 4;
+  const long long tail0 = head + (vectors << 4);
+  if (blockIdx.x == 0 && threadIdx.x < head + nbytes - tail0) {
+    const long long e = threadIdx.x < head ? threadIdx.x : tail0 + threadIdx.x - head;
+    out[e] = in[e];
+  }
+  const unsigned char* src = in + head;
+  uint4* dst = reinterpret_cast<uint4*>(out + head);
+  const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long v0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; v0 < vectors;
+       v0 += threads * kCopyVectors) {
+    Window w[kCopyVectors];
+#pragma unroll
+    for (int u = 0; u < kCopyVectors; ++u) {
+      const long long v = v0 + u * threads;
+      if (v < vectors) w[u] = load_window<kAligned>(src + 16 * v);
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyVectors; ++u) {
+      const long long v = v0 + u * threads;
+      if (v < vectors) dst[v] = realign<kAligned>(w[u]);
+    }
+  }
 }
 
 // The two sign-extended 16-bit halves of each word, by shifts.
@@ -483,11 +615,39 @@ int launch_dot_imad(const void* a, const void* b, void* out, int m, int k, int n
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_roll(const void* in, void* out, int rows, int cols, int shift, cudaStream_t s) {
-  roll_kernel<T><<<rows, row_threads(cols), static_cast<size_t>(cols) * sizeof(T), s>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), cols, shift);
+// Blocks of bitcast_i32_to_i8_kernel<kAligned> the current device holds at
+// once: its SMs times the resident blocks of kCopyThreads, read once per
+// device index below 64 (the probes' host path is most of their time).
+template <bool kAligned>
+cudaError_t copy_blocks(int* blocks) {
+  static std::atomic<int> by_device[64];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (*blocks = by_device[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bitcast_i32_to_i8_kernel<kAligned>, kCopyThreads, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < 64) by_device[dev].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+template <bool kAligned>
+int launch_bitcast(const void* in, void* out, long long nbytes, cudaStream_t s) {
+  int cap = 0;
+  const cudaError_t err = copy_blocks<kAligned>(&cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long per_block = static_cast<long long>(kCopyThreads) * kCopyVectors * 16;
+  const long long blocks = (nbytes + per_block - 1) / per_block;
+  bitcast_i32_to_i8_kernel<kAligned><<<static_cast<unsigned>(blocks < cap ? blocks : cap), kCopyThreads, 0, s>>>(
+      static_cast<const unsigned char*>(in), static_cast<unsigned char*>(out), nbytes);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
 }
 
 // Launches a chain kernel cooperatively: every SM gets a block (the lhs is
@@ -575,28 +735,38 @@ int tfhe_probe_dot_imad(const void* a, const void* b, void* out, int m, int k, i
 }
 
 // out[r, c] = in[r, (c - shift) mod cols], 0 <= shift < cols, elements of 1, 2
-// or 4 bytes; a row must fit the 48 KB of static-limit shared memory.
-int tfhe_probe_roll(const void* in, void* out, int rows, int cols, int shift, int elem_bytes,
-                    void* stream) {
-  if (rows < 1 || cols < 1 || shift < 0 || shift >= cols ||
-      static_cast<size_t>(cols) * elem_bytes > 49152)
+// or 4 bytes, rows of at most 2^30 bytes; any base. Blocks of 8 to 256 threads
+// in x, a power of two (enough for kCopyVectors vectors each to cover a row),
+// rows in y up to 128 threads a block, 65535 blocks in y at most (then each
+// thread walks further rows).
+int tfhe_probe_roll(const void* in, void* out, int rows, int cols, int shift, int elem_bytes, void* stream) {
+  if (rows < 1 || cols < 1 || shift < 0 || shift >= cols || (elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4) ||
+      static_cast<long long>(cols) * elem_bytes > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (elem_bytes) {
-    case 1: return launch_roll<int8_t>(in, out, rows, cols, shift, s);
-    case 2: return launch_roll<int16_t>(in, out, rows, cols, shift, s);
-    case 4: return launch_roll<int32_t>(in, out, rows, cols, shift, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int row_bytes = cols * elem_bytes, shift_bytes = shift * elem_bytes, vectors = row_bytes / 16;
+  const int per_thread = (vectors + kCopyVectors - 1) / kCopyVectors;
+  int tx = 8;
+  while (tx < per_thread && tx < kCopyThreads) tx *= 2;
+  const int ty = std::max(128 / tx, 1);
+  const dim3 grid(std::max((vectors + tx * kCopyVectors - 1) / (tx * kCopyVectors), 1),
+                  std::min((rows + ty - 1) / ty, 65535));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto src = static_cast<const unsigned char*>(in);
+  const auto dst = static_cast<unsigned char*>(out);
+  if (aligned16(in, out) && row_bytes % 16 == 0 && shift_bytes % 16 == 0)
+    roll_kernel<true><<<grid, dim3(tx, ty), 0, s>>>(src, dst, rows, row_bytes, shift_bytes);
+  else
+    roll_kernel<false><<<grid, dim3(tx, ty), 0, s>>>(src, dst, rows, row_bytes, shift_bytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// out int8 [4 * count]: the bytes of in int32 [count], least significant first.
+// out int8 [4 * count]: the bytes of in int32 [count], least significant
+// first; any base.
 int tfhe_probe_bitcast_i32_to_i8(const void* in, void* out, long long count, void* stream) {
   if (count < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((count + 255) / 256);
-  bitcast_i32_to_i8_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<char4*>(out), count);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  return aligned16(in, out) ? launch_bitcast<true>(in, out, 4 * count, s)
+                            : launch_bitcast<false>(in, out, 4 * count, s);
 }
 
 // lo, hi int16 [count]: the sign-extended halves of in int32 [count].

@@ -33,7 +33,6 @@ import torch
 
 from .. import _build
 from ..torus import wrap_i32
-from .cuda_blind_rotate import on_device
 
 #: Launches by wrapper name in this process (a wrapper adds one per launch).
 launches: collections.Counter = collections.Counter()
@@ -139,28 +138,34 @@ def chain_roll_add_plain(x: torch.Tensor, reps: int) -> torch.Tensor:
 # Checks and the launch
 # ---------------------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, dtypes) -> None:
+def _check(name: str, t: torch.Tensor, dtypes, aligned: bool = True) -> bool:
     """Raise unless t is a non-empty contiguous matrix of one of `dtypes` on
-    the CPU or, 16-byte aligned, on a CUDA device."""
+    the CPU or on a CUDA device, there 16-byte aligned unless `aligned` is
+    False (the roll and the bitcast take any base). True on a CUDA device."""
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype}, expected one of {sorted(map(str, dtypes))}")
-    if t.dim() != 2 or 0 in t.shape:
+    if t.dim() != 2 or not t.numel():
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected 2 non-empty dimensions")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.device.type not in ("cuda", "cpu"):
+    if t.is_cuda:
+        if aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+        return True
+    if not t.is_cpu:
         raise ValueError(f"{name}: no implementation for device {t.device}")
-    if t.device.type == "cuda" and t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be 16-byte aligned")
+    return False
 
 
-def _check_dot(a: torch.Tensor, b: torch.Tensor) -> None:
-    _check("a", a, _INT_TYPES)
+def _check_dot(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """`_check` of both operands of a dot; True on a CUDA device."""
+    on_cuda = _check("a", a, _INT_TYPES)
     _check("b", b, (a.dtype,))
     if b.device != a.device:
         raise ValueError(f"b: on {b.device}, expected {a.device}")
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"shapes {tuple(a.shape)} x {tuple(b.shape)} do not contract")
+    return on_cuda
 
 
 def check_tensor_core_operands(*ts: torch.Tensor) -> None:
@@ -182,31 +187,60 @@ def _check_chain(m: int, k: int, n: int, steps: int) -> None:
         raise ValueError(f"the feedback needs N >= K or N dividing K, got K = {k}, N = {n}")
 
 
-def _launch(name: str, symbol: str, *args, device) -> None:
-    """Call the library's launcher `symbol` on `device`'s current stream;
-    raise on a refused launch, count a launch made under `name`."""
-    lib = _build.load()
-    with on_device(device.index):
-        err = getattr(lib, symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: {lib.tfhe_cuda_error_string(err).decode()} ({err})")
+#: The library's functions by name, each looked up once (`_fn`).
+_fns: dict = {}
+
+
+def _fn(symbol: str):
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = _fns[symbol] = getattr(_build.load(), symbol)
+    return fn
+
+
+def _stream_handle(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+#: The raw handle of a device's current stream, in one call where this build
+#: of torch has the accessor, else through a Stream object; and the current
+#: device's index, without `torch.cuda.current_device()`'s initialisation
+#: check where torch has the accessor (a CUDA tensor in hand means CUDA is
+#: initialised).
+_current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or _stream_handle
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+
+
+def _launch(name: str, symbol: str, *args, index: int) -> None:
+    """Call the library's launcher `symbol` on the current stream of CUDA
+    device `index` (made current for the call if it is not); raise on a
+    refused launch, count a launch made under `name`. A launch is most of
+    what the probes cost at their probe shapes, so this path does only what
+    a launch needs."""
+    fn = _fn(symbol)
+    if _current_device() == index:
+        err = fn(*args, _current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _current_stream(index))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: {_fn('tfhe_cuda_error_string')(err).decode()} ({err})")
     launches[name] += 1
 
 
 def _dot(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    _check_dot(a, b)
-    if a.device.type == "cpu":
+    if not _check_dot(a, b):
         return dot_plain(a, b)
     (m, k), n = a.shape, b.shape[1]
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    out = a.new_empty((m, n), dtype=torch.int32)
     if a.dtype == torch.int8:
         check_tensor_core_operands(a)
-        bt = torch.empty((n, k), dtype=torch.int8, device=a.device)
+        bt = a.new_empty((n, k))
         _launch(name, "tfhe_probe_dot_s8",
-                a.data_ptr(), b.data_ptr(), bt.data_ptr(), out.data_ptr(), m, k, n, device=a.device)
+                a.data_ptr(), b.data_ptr(), bt.data_ptr(), out.data_ptr(), m, k, n, index=a.get_device())
     else:
         _launch(name, "tfhe_probe_dot_imad",
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, _INT_TYPES[a.dtype], device=a.device)
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, _INT_TYPES[a.dtype], index=a.get_device())
     return out
 
 
@@ -264,38 +298,37 @@ def probe_dot_correct_s16(device, dtype: torch.dtype = torch.int16) -> torch.Ten
 
 
 def probe_roll(x: torch.Tensor, shift: int = 5) -> torch.Tensor:
-    """out[r, (c + shift) mod cols] = x[r, c] for int8, int16 or int32 [R, C]."""
-    _check("x", x, _INT_TYPES)
-    if x.device.type == "cpu":
+    """out[r, (c + shift) mod cols] = x[r, c] for int8, int16 or int32 [R, C],
+    any shift, any base."""
+    if not _check("x", x, _INT_TYPES, aligned=False):
         return roll_plain(x, shift)
     rows, cols = x.shape
     out = torch.empty_like(x)
     _launch("probe_roll", "tfhe_probe_roll",
-            x.data_ptr(), out.data_ptr(), rows, cols, shift % cols, _INT_TYPES[x.dtype], device=x.device)
+            x.data_ptr(), out.data_ptr(), rows, cols, shift % cols, x.element_size(), index=x.get_device())
     return out
 
 
 def probe_bitcast_i32_to_i8(x: torch.Tensor) -> torch.Tensor:
     """int32 [R, C] -> int8 [R, 4C], each word's bytes least significant first
-    (the lane order of `jax.lax.bitcast_convert_type`)."""
-    _check("x", x, (torch.int32,))
-    if x.device.type == "cpu":
+    (the lane order of `jax.lax.bitcast_convert_type`); any base."""
+    if not _check("x", x, (torch.int32,), aligned=False):
         return bitcast_i32_to_i8_plain(x)
-    out = torch.empty((x.shape[0], 4 * x.shape[1]), dtype=torch.int8, device=x.device)
+    rows, cols = x.shape
+    out = x.new_empty((rows, 4 * cols), dtype=torch.int8)
     _launch("probe_bitcast_i32_to_i8", "tfhe_probe_bitcast_i32_to_i8",
-            x.data_ptr(), out.data_ptr(), x.numel(), device=x.device)
+            x.data_ptr(), out.data_ptr(), rows * cols, index=x.get_device())
     return out
 
 
 def probe_unpack_s16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """int32 [R, C] -> the (low, high) sign-extended s16 halves, by shifts."""
-    _check("x", x, (torch.int32,))
-    if x.device.type == "cpu":
+    if not _check("x", x, (torch.int32,)):
         return unpack_s16_plain(x)
-    lo = torch.empty(x.shape, dtype=torch.int16, device=x.device)
+    lo = x.new_empty(x.shape, dtype=torch.int16)
     hi = torch.empty_like(lo)
     _launch("probe_unpack_s16", "tfhe_probe_unpack_s16",
-            x.data_ptr(), lo.data_ptr(), hi.data_ptr(), x.numel(), device=x.device)
+            x.data_ptr(), lo.data_ptr(), hi.data_ptr(), x.numel(), index=x.get_device())
     return lo, hi
 
 
@@ -327,10 +360,10 @@ def chain_dot(a0: torch.Tensor, b: torch.Tensor, steps: int, unit: str = "tensor
     multiply-adds on the same int8 operands, 64 x 64 tiles)."""
     if unit not in ("tensor", "imad"):
         raise ValueError(f"unit {unit!r}: 'tensor' or 'imad'")
-    _check_dot(a0, b)
+    on_cuda = _check_dot(a0, b)
     if a0.dtype != torch.int8:
         raise TypeError(f"chain_dot takes int8 operands, got {a0.dtype}")
-    if a0.device.type == "cpu":
+    if not on_cuda:
         return ChainDot(*chain_dot_plain(a0, b, steps))
     (m, k), n = a0.shape, b.shape[1]
     _check_chain(m, k, n, steps)
@@ -349,20 +382,20 @@ def chain_dot(a0: torch.Tensor, b: torch.Tensor, steps: int, unit: str = "tensor
     _launch("chain_dot", "tfhe_probe_chain_dot",
             a0.data_ptr(), b.data_ptr(), bt.data_ptr(), a_cur.data_ptr(), acc.data_ptr(), fb.data_ptr(),
             m, k, n, fm, int(big), steps, int(unit == "tensor"), barrier.data_ptr(), stats.data_ptr(),
-            ctypes.byref(blocks), device=dev)
+            ctypes.byref(blocks), index=a0.get_device())
     return ChainDot(acc, fb, stats, blocks.value)
 
 
 def chain_roll_add(x: torch.Tensor, reps: int) -> torch.Tensor:
     """bench_roll_add's chain (`chain_roll_add_plain`) in one launch, one
     block a row, the row in shared memory."""
-    _check("x", x, (torch.int32,))
+    on_cuda = _check("x", x, (torch.int32,))
     if not 0 <= reps <= _MAX_CHAIN_STEPS:
         raise ValueError(f"reps = {reps} outside [0, {_MAX_CHAIN_STEPS}]")
-    if x.device.type == "cpu":
+    if not on_cuda:
         return chain_roll_add_plain(x, reps)
     rows, cols = x.shape
     out = torch.empty_like(x)
     _launch("chain_roll_add", "tfhe_probe_roll_add",
-            x.data_ptr(), out.data_ptr(), rows, cols, reps, device=x.device)
+            x.data_ptr(), out.data_ptr(), rows, cols, reps, index=x.get_device())
     return out

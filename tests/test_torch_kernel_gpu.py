@@ -578,6 +578,85 @@ def test_probe_roll_matches_plain(dev, dtype, shift):
     assert torch.equal(out, torch.roll(x, shift, dims=1))
 
 
+#: The roll kernel's edges (tests/test_torch_probes.py): no shift, one
+#: element, around a 16-byte vector, the last column, past a turn, negative.
+_EDGE_SHIFTS = (0, 1, 15, 16, 17, "C-1", "C+3", -3)
+
+
+def _shift(shift, cols):
+    return {"C-1": cols - 1, "C+3": cols + 3}.get(shift, shift)
+
+
+def _roll_matches(x, shift):
+    before = CP.launches["probe_roll"]
+    out = CP.probe_roll(x, shift)
+    torch.cuda.synchronize()
+    assert CP.launches["probe_roll"] == before + 1
+    assert torch.equal(out, CP.roll_plain(x, shift))
+
+
+@pytest.mark.parametrize("shift", _EDGE_SHIFTS, ids=str)
+@pytest.mark.parametrize("shape", [(3, 1), (3, 3), (3, 17), (3, 1000), (8192, 1024), (2, 16384)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["int8", "int16", "int32"])
+def test_probe_roll_every_row_shape(dev, dtype, shape, shift):
+    """Rows of one element and rows whose byte length is no multiple of 16
+    (each row then begins off the 16-byte grid), the FAST accumulator's
+    [8192, 1024], and rows of 16384 columns (int32: 64 KB, past the 48 KB a
+    row could take when it was staged in shared memory); full-range words."""
+    _roll_matches(_rand(dev, shape, dtype, 80 + shape[1]), _shift(shift, shape[1]))
+
+
+@pytest.mark.parametrize("shift", [0, 5, 16, 1000])
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["int8", "int16", "int32"])
+def test_probe_roll_any_base(dev, dtype, offset, shift):
+    """A contiguous input `offset` elements past an aligned allocation, so
+    neither its base nor its rows lie on the 16-byte grid."""
+    for rows, cols in ((8, 256), (5, 1000), (3, 17)):
+        flat = _rand(dev, (rows * cols + offset,), dtype, 90 + offset)
+        x = flat[offset:].view(rows, cols)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+        _roll_matches(x, shift % cols)
+
+
+def _bitcast_matches(x):
+    before = CP.launches["probe_bitcast_i32_to_i8"]
+    out = CP.probe_bitcast_i32_to_i8(x)
+    torch.cuda.synchronize()
+    assert CP.launches["probe_bitcast_i32_to_i8"] == before + 1
+    assert torch.equal(out, CP.bitcast_i32_to_i8_plain(x))
+    assert torch.equal(out, x.view(torch.int8))
+
+
+@pytest.mark.parametrize("rows_first", [False, True], ids=["one_row", "one_column"])
+@pytest.mark.parametrize("count", [1, 3, 5, 255, 257])
+def test_probe_bitcast_every_count(dev, count, rows_first):
+    """Word counts that leave a partial 16-byte vector (or none at all), with
+    0x80000000 and 0xFFFFFFFF among full-range words."""
+    x = _rand(dev, (count,), torch.int32, 100 + count)
+    x[0], x[-1] = -(1 << 31), -1
+    _bitcast_matches(x.view((count, 1) if rows_first else (1, count)))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_probe_bitcast_any_base(dev, offset):
+    """An input `offset` words past an aligned allocation: its 16-byte input
+    windows straddle two aligned vectors."""
+    for rows, cols in ((8, 256), (3, 5), (1, 1)):
+        x = _rand(dev, (rows * cols + offset,), torch.int32, 110 + offset)[offset:].view(rows, cols)
+        assert x.data_ptr() % 16
+        _bitcast_matches(x)
+
+
+def test_probe_bitcast_fast_key_size(dev):
+    """Full-range words in the shape of the FAST cloud key's bsk
+    ([n0, 2L, 2, N] = [700, 4, 2, 1024]) viewed as [5600, 1024]."""
+    p = P.SECURITY_128_BIT_FAST
+    bsk = _rand(dev, (p.n0, 2 * p.trgsw_lv1.l, 2, p.n1), torch.int32, 120)
+    _bitcast_matches(bsk.view(-1, p.n1))
+
+
 def test_probe_bitcast_and_unpack_match_plain(dev):
     x = _rand(dev, (8, 256), torch.int32, 63)
     out = CP.probe_bitcast_i32_to_i8(x)

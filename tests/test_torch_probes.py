@@ -187,6 +187,85 @@ def test_roll_plain_takes_any_shift(shift):
     np.testing.assert_array_equal(CP.probe_roll(_t(x), shift).numpy(), np.roll(x, shift, axis=1))
 
 
+#: Shifts that sit at the roll kernel's edges: none, one element, around a
+#: 16-byte vector of int8, the last column, past a whole turn, negative.
+_EDGE_SHIFTS = (0, 1, 15, 16, 17, "C-1", "C+3", -3)
+
+
+def _shift(shift, cols):
+    return {"C-1": cols - 1, "C+3": cols + 3}.get(shift, shift)
+
+
+@pytest.mark.parametrize("shift", _EDGE_SHIFTS, ids=str)
+@pytest.mark.parametrize("cols", [1, 3, 17, 1000])
+def test_roll_plain_ragged_columns(cols, shift):
+    """Rows whose byte length is no multiple of 16 (and rows of one element),
+    every element size, full-range words."""
+    rng = np.random.default_rng(106 + cols)
+    for dtype in (np.int8, np.int16, np.int32):
+        x = _rand(rng, (3, cols), dtype)
+        s = _shift(shift, cols)
+        np.testing.assert_array_equal(CP.probe_roll(_t(x), s).numpy(), np.roll(x, s, axis=1))
+
+
+@pytest.mark.parametrize("shift", _EDGE_SHIFTS, ids=str)
+def test_roll_plain_rows_past_48_kb(shift):
+    """int32 rows of 16384 columns (64 KB, above the 48 KB of shared memory a
+    block gets without opting in)."""
+    x = _rand(np.random.default_rng(107), (2, 16384), np.int32)
+    s = _shift(shift, 16384)
+    np.testing.assert_array_equal(CP.probe_roll(_t(x), s).numpy(), np.roll(x, s, axis=1))
+
+
+@pytest.mark.parametrize("rows_first", [False, True], ids=["one_row", "one_column"])
+@pytest.mark.parametrize("count", [1, 3, 5, 257])
+def test_bitcast_plain_every_count(count, rows_first):
+    """Word counts that leave a partial 16-byte vector, as one row or one
+    column, with the sign bit alone and all bits set among the words."""
+    words = _rand(np.random.default_rng(108 + count), count, np.int32)
+    words[0] = np.int32(-(1 << 31))  # 0x80000000
+    words[-1] = np.int32(-1)         # 0xFFFFFFFF
+    x = words.reshape((count, 1) if rows_first else (1, count))
+    out = CP.probe_bitcast_i32_to_i8(_t(x))
+    assert out.dtype == torch.int8 and tuple(out.shape) == (x.shape[0], 4 * x.shape[1])
+    np.testing.assert_array_equal(out.numpy(), x.view(np.int8))
+
+
+@pytest.mark.parametrize("fault", ["dtype", "three_dims", "non_contiguous", "empty"])
+@pytest.mark.parametrize("wrapper", ["probe_roll", "probe_bitcast_i32_to_i8"])
+def test_roll_and_bitcast_reject_what_they_do_not_take(wrapper, fault):
+    """The wrappers' argument errors on CPU tensors."""
+    fn = getattr(CP, wrapper)
+    x = torch.zeros((4, 8), dtype=torch.int32)
+    bad, error = {
+        "dtype": (x.to(torch.int64), TypeError),
+        "three_dims": (x.reshape(2, 2, 8), ValueError),
+        "non_contiguous": (x.t(), ValueError),
+        "empty": (x[:0], ValueError),
+    }[fault]
+    with pytest.raises(error, match="dtype" if error is TypeError else None):
+        fn(bad)
+
+
+def test_library_load_is_one_object_without_the_lock_once_loaded(monkeypatch):
+    """`_build.load()` returns the loaded library as it is, the same object
+    each call, and takes its lock only until the library is loaded."""
+    from rs_tfhe_tpu_torch import _build
+
+    class Refused:
+        def __enter__(self):
+            raise AssertionError("load() took the lock after the library was loaded")
+
+        def __exit__(self, *exc):
+            return False
+
+    loaded = object()
+    monkeypatch.setattr(_build, "_lib", loaded)
+    monkeypatch.setattr(_build, "_lock", Refused())
+    assert _build.load() is loaded
+    assert _build.load() is _build.load()
+
+
 @pytest.mark.parametrize("random", [False, True], ids=["script_inputs", "random_inputs"])
 def test_bitcast_plain_matches_tpu_probe(scripts, random):
     probe, _ = scripts

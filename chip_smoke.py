@@ -9,9 +9,10 @@ the last line):
      exits non-zero when no CUDA device is available;
   2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a), one
      nvcc per source, all started together, and reads from the library
-     (cuobjdump -sass) the s8 probe kernels' tensor-core instructions
-     (wgmma) and the roll and bitcast kernels' 128-bit global loads and
-     stores;
+     (cuobjdump -sass) the probe dots' tensor-core instructions (wgmma; for
+     the s16/s32 byte-limb dots the u8 forms, and no operand loaded into
+     registers, so no CUDA-core dot loop) and the roll, bitcast and unpack
+     kernels' 128-bit global loads and stores;
   3. each kernel against its plain PyTorch version on the card, bit for bit,
      with both times (CUDA events), and the instance each case launched
      (ring size, tile, cluster and unit for the rotation; ring size, unit,
@@ -42,18 +43,22 @@ the last line):
           whole-rotation kernel, beside the rotation `auto` gives a
           multi-bit key there (the JAX package's cap decides it);
        3e the seven probe and primitive-rate kernels (csrc/probes.cu) on
-          random inputs: the integer dots (s8 on the tensor cores through
-          the wgmma tile of csrc/wgmma_s8.cuh, s16 and s32 on the CUDA
-          cores), roll, bitcast, unpack, and the chained dot (both units) and
-          chained roll+add at every shape of scripts/bench_hopper_prims.py;
-          torch._int_mm on the same operands is the s8 dots' library time,
-          and the chain's tile loop is timed by its cycle counter; the roll
-          (int8, int16, int32) and the bitcast at the TPU probe shape [8,256]
-          beside the same wrapper on one word (the floor of a call), and at
+          random inputs: the integer dots on the wgmma tile of
+          csrc/wgmma_s8.cuh (s8 directly, s16 and s32 as 4 and 10 byte-limb
+          products; at the probe shape and, for s16 and s32, at
+          [4096,4096]x[4096,4096]), roll, bitcast, unpack, and the chained
+          dot (both units) and chained roll+add at every shape of
+          scripts/bench_hopper_prims.py; torch._int_mm on the same operands
+          is the s8 dots' library time, float64 torch.matmul wrapped to int32
+          the s16 dots' (s32 has none), and the chain's tile loop is timed by
+          its cycle counter; the roll (int8, int16, int32), the bitcast and
+          the unpack at the TPU probe shape [8,256] (the roll and the bitcast
+          beside the same wrapper on one word, the floor of a call), and at
           size: the roll on the FAST B = 4096 accumulator's [8192,1024] by 5
-          and by 1000, the bitcast on the FAST cloud key's bsk as
-          [5600,1024], each input rotating through copies that span three
-          times the L2; torch.roll, view and a clone are their library times;
+          and by 1000, the bitcast and the unpack on the FAST cloud key's bsk
+          as [5600,1024], each input rotating through copies that span three
+          times the L2; torch.roll, view, a clone and the int16 view's
+          permute(2, 0, 1).contiguous() are their library times;
      every case with its bound: the least time the card could take, the
      larger of bytes over the memory rate and operations over the peak rate
      (for 32-bit multiply-adds the better of the CUDA cores and of s8 limb
@@ -170,7 +175,10 @@ def timed(fn):
 #: (ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md; the multi-bit kernel's
 #: single-block instance for it; for probe_dot and chain_dot the s8 dots'
 #: earlier mma.sync tile, read on the card before the wgmma tile replaced
-#: it). Not measured by this run:
+#: it; for probe_dot at s16 and s32 the CUDA-core dot and for
+#: probe_unpack_s16 the word-a-thread unpack, read by
+#: scripts/bench_probe_versions.py before the byte-limb dot and the streaming
+#: split replaced them). Not measured by this run:
 #: they are printed in the log beside the new times and never enter the
 #: kernels line, which holds only what this run measured.
 EARLIER_MS = {
@@ -179,7 +187,10 @@ EARLIER_MS = {
     "external_product": {"128_BIT_FAST B=2048": 1.122, "128_BIT B=512": 0.464, "UINT4 B=8": 0.081},
     "blind_rotate_mb": {"128_BIT_FAST B=1": 32.6, "128_BIT B=1": 50.25, "128_BIT_RADIX B=1": 191.7,
                         "128_BIT_FAST B=1024": 207.8},
-    "probe_dot": {"int8 [128,1024]x[1024,256]": 0.0512},
+    "probe_dot": {"int8 [128,1024]x[1024,256]": 0.0512, "int16 [128,1024]x[1024,256]": 0.1348,
+                  "int32 [128,1024]x[1024,256]": 0.1347, "int16 [4096,4096]x[4096,4096]": 5.7996,
+                  "int32 [4096,4096]x[4096,4096]": 5.7031},
+    "probe_unpack_s16": {"[8,256]": 0.0179, "[5600,1024]": 0.0222},
     "probe_roll": {"int8 [8,256] by 5": 0.0157},
     "probe_bitcast_i32_to_i8": {"[8,256]": 0.0171},
     "chain_dot": {f"[{m},{k}]x[{k},{n}] per dot": ms for (m, k, n), ms in (
@@ -313,19 +324,22 @@ def phase_build():
     _build.load()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s: {os.path.relpath(path, ROOT)}")
     log = (path.parent / "build.log").read_text().splitlines()
-    regs = [int(line.split("Used ")[1].split()[0]) for line in log if "registers" in line]
+    regs = [int(line.split("Used ")[1].split()[0]) for line in log if "Used " in line and "registers" in line]
     spills = [line.strip() for line in log if "spill" in line and "0 bytes spill stores" not in line]
     print(f"[2] ptxas: {len(regs)} kernel instances, at most {max(regs)} registers per thread, "
           f"{len(spills)} with spills {elapsed()}")
     for line in spills:
         print(f"[2]   {line}")
-    # the s8 probe kernels must run wgmma (SASS IGMMA) and no mma.sync (IMMA); the roll and the bitcast
-    # must move 16 bytes a global load and store (LDG/STG with .128)
+    # the probe dots must run wgmma (SASS IGMMA) and no mma.sync (IMMA); the s16/s32 byte-limb dots also
+    # its u8 forms, and they load no operand into registers (no LDG, no LDS: the copy engine feeds the
+    # tensor cores, so there is no CUDA-core dot loop); the roll, the bitcast and the unpack must move 16
+    # bytes a global load and store (LDG/STG with .128)
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    wgmma_kernels = ("dot_wgmma_s8_kernel", "chain_dot_wgmma_kernel")
-    copy_kernels = ("roll_kernel", "bitcast_i32_to_i8_kernel")
+    limb_kernels = ("dot_limbs_tile_kernel", "dot_limbs_split_kernel")
+    wgmma_kernels = ("dot_wgmma_s8_kernel", "chain_dot_wgmma_kernel") + limb_kernels
+    copy_kernels = ("roll_kernel", "bitcast_i32_to_i8_kernel", "unpack_s16_kernel")
     ops, kernel = {k: {} for k in wgmma_kernels + copy_kernels}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -333,16 +347,20 @@ def phase_build():
         elif kernel is not None and "*/" in line:
             words = line.split("*/")[1].split()
             words = words[1:] if words and words[0].startswith("@") else words  # past a predicate
-            if words and ("MMA" in words[0] or words[0].startswith(("LDG", "STG"))):
+            if words and ("MMA" in words[0] or words[0].startswith(("LDG", "STG", "LDS", "RED"))):
                 ops[kernel][words[0]] = ops[kernel].get(words[0], 0) + 1
-    print(f"[2] tensor-core instructions of the s8 probe kernels (cuobjdump -sass): "
+    print(f"[2] tensor-core instructions, loads and reductions of the probe dots (cuobjdump -sass): "
           f"{ {k: ops[k] for k in wgmma_kernels} }")
     check(all(any(op.startswith("IGMMA") for op in ops[k]) and not any(op.startswith("IMMA") for op in ops[k])
-              for k in wgmma_kernels), "the s8 probe kernels run wgmma (IGMMA) and no mma.sync (IMMA)")
-    print(f"[2] global loads and stores of the roll and bitcast kernels: { {k: ops[k] for k in copy_kernels} }")
+              for k in wgmma_kernels), "the probe dots run wgmma (IGMMA) and no mma.sync (IMMA)")
+    check(all(any(op.startswith("IGMMA") and "U8" in op for op in ops[k]) for k in limb_kernels),
+          "the byte-limb dots run the u8 forms of wgmma")
+    check(not any(op.startswith(("LDG", "LDS")) for k in limb_kernels for op in ops[k]),
+          "the byte-limb dots load no operand into registers (no CUDA-core dot loop)")
+    print(f"[2] global loads and stores of the copy kernels: { {k: ops[k] for k in copy_kernels} }")
     check(all(any(op.startswith(kind) and ".128" in op for op in ops[k])
               for k in copy_kernels for kind in ("LDG", "STG")),
-          "the roll and bitcast kernels hold 128-bit global loads and stores (LDG/STG .128)")
+          "the roll, bitcast and unpack kernels hold 128-bit global loads and stores (LDG/STG .128)")
 
 
 def _rnd(g, dev):
@@ -1001,28 +1019,58 @@ def phase_probes_vs_plain(dev) -> dict:
         check(same, f"probe kernel == plain version: {label}")
         return {**case_row(label, k_ms, p_ms, bnd), "library_ms": lib_ms, **also_ms, "max_abs_err": err}
 
+    def dot_bound(m, k, n, dtype):
+        """An s8 multiply-add is one s8 product, an s16 or s32 one as many as the kernel's byte-limb pairs."""
+        size = torch.empty((), dtype=dtype).element_size()
+        nbytes = size * (m * k + k * n) + 4 * m * n
+        return bound(nbytes, m * k * n) if size == 1 else bound(nbytes, m * k * n, len(CP.limb_pairs(size)))
+
+    def dot_library(a, b):
+        """One PyTorch call computing the same dot: torch._int_mm (s8); float64 torch.matmul wrapped to
+        int32, exact since K 2^30 < 2^53 (s16); none for s32 (no PyTorch call multiplies int32 matrices
+        on the card, and float64 keeps 53 of the 64 bits of an s32 product)."""
+        if a.dtype == torch.int8:
+            return lambda: torch._int_mm(a, b)
+        if a.dtype == torch.int16:
+            return lambda: (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64).to(torch.int32)
+        return None
+
     m, k, n = 128, 1024, 256
     dots, correct = [], []
-    for dtype, size in ((torch.int8, 1), (torch.int16, 2), (torch.int32, 4)):
+    for dtype in (torch.int8, torch.int16, torch.int32):
         a, b = rnd((m, k), dtype), rnd((k, n), dtype)
-        nbytes = size * (m * k + k * n) + 4 * m * n
-        bnd = bound(nbytes, m * k * n) if dtype == torch.int8 else bound(nbytes, m * k * n, size)
-        int_mm = getattr(torch, "_int_mm", None) if dtype == torch.int8 else None
+        bnd = dot_bound(m, k, n, dtype)
         name = str(dtype).removeprefix("torch.")
         dots.append(compare(f"probe_dot {name} [{m},{k}]x[{k},{n}] on the {CP.dot_unit(dtype)}",
-                            lambda: CP.probe_dot(a, b), lambda: CP.dot_plain(a, b), bnd,
-                            (lambda: int_mm(a, b)) if int_mm is not None else None,
+                            lambda: CP.probe_dot(a, b), lambda: CP.dot_plain(a, b), bnd, dot_library(a, b),
                             earlier=("probe_dot", f"{name} [{m},{k}]x[{k},{n}]")))
-        if int_mm is not None:
+        if dtype == torch.int8:
             bt = b.t().contiguous()
-            dots[-1]["library_b_kmajor_ms"] = cuda_ms(lambda: int_mm(a, bt.t()), 20)
+            dots[-1]["library_b_kmajor_ms"] = cuda_ms(lambda: torch._int_mm(a, bt.t()), 20)
             print(f"[3e]   torch._int_mm with b K-major: {dots[-1]['library_b_kmajor_ms']:.4f} ms")
+        elif dtype == torch.int32:
+            print("[3e]   no library call: no PyTorch call multiplies int32 matrices on the card, and float64 "
+                  "keeps 53 of the 64 bits of an s32 product")
         # P5: operands from numpy's default_rng(0) against the int64 numpy product (raises on a difference)
         out = CP.probe_dot_correct_s16(dev, dtype)
         ra, rb = (torch.from_numpy(v).to(dev) for v in CP.dot_correct_operands(dtype))
         check(torch.equal(out, CP.dot_plain(ra, rb)), f"probe_dot_correct {name}: kernel == plain version")
         correct.append(compare(f"probe_dot_correct {name} (default_rng(0) operands; equal to the int64 numpy product)",
-                               lambda: CP.probe_dot(ra, rb), lambda: CP.dot_plain(ra, rb), bnd))
+                               lambda: CP.probe_dot(ra, rb), lambda: CP.dot_plain(ra, rb), bnd, dot_library(ra, rb),
+                               earlier=("probe_dot", f"{name} [{m},{k}]x[{k},{n}]")))
+    # s16 and s32 at a shape whose 1,024 output tiles fill the card (the in-tile instance); the extremes
+    # planted, since a wrong limb sign or weight shows at them first
+    m = k = n = 4096
+    for dtype in (torch.int16, torch.int32):
+        a, b = rnd((m, k), dtype), rnd((k, n), dtype)
+        info = torch.iinfo(dtype)
+        a[0, :3] = torch.tensor([info.min, info.max, -1], dtype=dtype)
+        b[:3, -1] = torch.tensor([info.min, info.max, -1], dtype=dtype)
+        name = str(dtype).removeprefix("torch.")
+        dots.append(compare(f"probe_dot {name} [{m},{k}]x[{k},{n}] on the {CP.dot_unit(dtype)}",
+                            lambda: CP.probe_dot(a, b), lambda: CP.dot_plain(a, b), dot_bound(m, k, n, dtype),
+                            dot_library(a, b), reps=5, earlier=("probe_dot", f"{name} [{m},{k}]x[{k},{n}]")))
+        del a, b
 
     # P2 and P3 at the TPU probe shape, where a call is its host path (beside the floor: the same wrapper
     # on one word), and at size: the FAST B = 4096 accumulator (4096 x 2 polynomials of N = 1024) for the
@@ -1066,9 +1114,21 @@ def phase_probes_vs_plain(dev) -> dict:
         earlier=("probe_bitcast_i32_to_i8", f"[{rows_},{fast.n1}]"),
         also={"clone": bench.rotating(lambda t: t.view(torch.int8).reshape(rows_, -1).clone(), keys)},
         timer=bench.device_ms))
+
+    def halves(t):
+        """The int16 halves of each word as [2, R, C] (low, high), one PyTorch call that launches."""
+        return t.view(torch.int16).view(*t.shape, 2).permute(2, 0, 1).contiguous()
+
+    unpacks = [compare("probe_unpack_s16 [8,256]", lambda: CP.probe_unpack_s16(x), lambda: CP.unpack_s16_plain(x),
+                       bound(8 * x.numel()), lambda: halves(x), earlier=("probe_unpack_s16", "[8,256]"),
+                       also={"view": lambda: x.view(torch.int16)})]
+    unpacks.append(compare(
+        f"probe_unpack_s16 [{rows_},{fast.n1}] (the FAST cloud key's bsk)",
+        bench.rotating(CP.probe_unpack_s16, keys), bench.rotating(CP.unpack_s16_plain, keys),
+        bound(8 * key.numel()), bench.rotating(halves, keys),
+        earlier=("probe_unpack_s16", f"[{rows_},{fast.n1}]"),
+        also={"view": bench.rotating(lambda t: t.view(torch.int16), keys)}, timer=bench.device_ms))
     del key, keys
-    unpack = compare("probe_unpack_s16 [8,256]", lambda: CP.probe_unpack_s16(x), lambda: CP.unpack_s16_plain(x),
-                     bound(8 * x.numel()))
 
     chains = []
     steps = 3
@@ -1125,7 +1185,7 @@ def phase_probes_vs_plain(dev) -> dict:
 
     return {
         "probe_dot": entry(dots), "probe_dot_correct_s16": entry(correct, main=1), "probe_roll": entry(rolls),
-        "probe_bitcast_i32_to_i8": entry(bitcasts), "probe_unpack_s16": entry([unpack]),
+        "probe_bitcast_i32_to_i8": entry(bitcasts), "probe_unpack_s16": entry(unpacks),
         "chain_dot": entry(chains, main=len(chains) - 1), "chain_roll_add": entry(roll_adds),
     }
 

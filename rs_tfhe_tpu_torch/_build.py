@@ -139,7 +139,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, f"{name}_max_tile").restype = i
     ll = ctypes.c_longlong
     lib.tfhe_probe_dot_s8.argtypes = [p, p, p, p, i, i, i, p]
-    lib.tfhe_probe_dot_imad.argtypes = [p, p, p, i, i, i, i, p]
+    lib.tfhe_probe_dot_limbs.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.tfhe_probe_roll.argtypes = [p, p, i, i, i, i, p]
     lib.tfhe_probe_bitcast_i32_to_i8.argtypes = [p, p, ll, p]
     lib.tfhe_probe_unpack_s16.argtypes = [p, p, p, ll, p]
@@ -147,7 +147,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, ctypes.POINTER(i), p,
     ]
     lib.tfhe_probe_roll_add.argtypes = [p, p, i, i, i, p]
-    for name in ("dot_s8", "dot_imad", "roll", "bitcast_i32_to_i8", "unpack_s16", "chain_dot", "roll_add"):
+    for name in ("dot_s8", "dot_limbs", "roll", "bitcast_i32_to_i8", "unpack_s16", "chain_dot", "roll_add"):
         getattr(lib, f"tfhe_probe_{name}").restype = i
     lib.tfhe_cuda_error_string.argtypes = [i]
     lib.tfhe_cuda_error_string.restype = ctypes.c_char_p

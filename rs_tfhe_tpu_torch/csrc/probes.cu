@@ -9,17 +9,19 @@
 // dependent s8 dots and of roll+add steps sustains. The kernels here ask the
 // same questions of an H100:
 //
-//   - integer dot -> int32 (probe_dot, probe_dot_correct_s16): s8 operands go
-//     to the tensor cores through wgmma fed by TMA (wgmma_s8.cuh: 128 x 128
-//     tiles, a producer warpgroup and two consumer warpgroups, a 4-stage
-//     ring); Hopper's tensor cores have no s16 or s32 integer type, so those
-//     run as int32 multiply-adds on the CUDA cores and wrap mod 2^32;
+//   - integer dot -> int32 (probe_dot, probe_dot_correct_s16): on the tensor
+//     cores through wgmma fed by TMA (wgmma_s8.cuh: 128 x 128 tiles, a
+//     producer warpgroup and two consumer warpgroups, a 4-stage ring); s8
+//     operands directly, s16 and s32 as products of their byte limbs (4 and
+//     10 8-bit products, recombined by shifts mod 2^32: Hopper's tensor
+//     cores have no 16- or 32-bit integer type);
 //   - roll (probe_roll): a rotation of each row's bytes, for 1-, 2- and 4-byte
 //     elements alike (the TPU could only rotate 32-bit lanes, which is why
 //     its kernels pack limbs into words), and the bitcast
 //     (probe_bitcast_i32_to_i8), whose lanes are the words' bytes in memory
 //     order: both streaming copies of 16-byte vectors at any base and width;
-//   - the two-s16 unpack (probe_unpack_s16): shifts on registers;
+//   - the two-s16 unpack (probe_unpack_s16): a streaming split of 16-byte
+//     vectors into the low and the high halves;
 //   - chained s8 dots (bench_dot): reps dependent products in one launch, each
 //     lhs rebuilt from the previous accumulator, on the tensor cores (the same
 //     wgmma tile, each resident block walking its tiles) or, the same chain,
@@ -28,16 +30,19 @@
 //   - chained roll+add (bench_roll_add): x += roll(x, 1 + i) in shared memory.
 //
 // Bounds: the dots are bound by operations (2 M K N integer operations against
-// M K + K N + 4 M N bytes), the element-wise kernels by bytes. The s8 tile is
-// designed for that bound (wgmma_s8.cuh says how), and so are the roll and the
-// bitcast (16-byte vectors, several in flight a thread); the rest is not tuned:
-// 64 x 64 CUDA-core tiles, two warps a block, operands staged through shared
-// memory without a pipeline, occupancy hiding the latency.
+// M K + K N + 4 M N bytes, an s16 multiply-add 4 and an s32 one 10 s8
+// products on the tensor cores), the element-wise kernels by bytes. The
+// tensor-core dots are designed for that bound (wgmma_s8.cuh says how), and so
+// are the roll, the bitcast and the unpack (16-byte vectors, several in flight
+// a thread); the CUDA-core unit of the chained dot is not tuned: 64 x 64
+// tiles, two warps a block, operands staged through shared memory without a
+// pipeline, occupancy hiding the latency.
 
 #include <algorithm>
 #include <atomic>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -151,7 +156,7 @@ dot_wgmma_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_cons
   Pipe pipe;
   if (threadIdx.x < 128) {
     producer_registers<kProducerRegs>();
-    if (threadIdx.x == 0) load_tile(&map_a, &map_bt, ring, pipe, row0, col0, k);
+    if (threadIdx.x == 0) load_span(&map_a, &map_bt, ring, pipe, row0, col0, 0, k);
   } else {
     consumer_registers<kConsumerRegs>();
     const int wg = threadIdx.x / 128 - 1;
@@ -161,11 +166,224 @@ dot_wgmma_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_cons
   }
 }
 
+// ---------------------------------------------------------------------------
+// P1 and P5 at s16 and s32: the dot on the tensor cores as byte-limb products
+// ---------------------------------------------------------------------------
+//
+// An operand of L bytes (L = 2: s16, L = 4: s32) is the sum of its bytes
+// times 2^(8 i): for s16 byte 1 as s8 (a >> 8) and byte 0 as u8, for s32 the
+// four bytes of the two's-complement word as u8 (the word mod 2^32). So
+//
+//   a . b = sum over (i, j) of (a_i . b_j) 2^(8 (i + j))   mod 2^32,
+//
+// where only the pairs with i + j <= 3 survive mod 2^32: for s16 all four
+// (hi.hi at 2^16, hi.lo and lo.hi at 2^8, lo.lo at 1), for s32 ten, all
+// u8 x u8. Each a_i . b_j is an 8-bit product on the wgmma tile of
+// wgmma_s8.cuh (the .s8/.u8 forms), summed in s32 without .satfinite, so
+// every step wraps and the result is exact mod 2^32 at any K.
+//
+// Bound: 4 (s16) or 10 (s32) s8 products per multiply-add at 989.5 T/s,
+// against 16.75 T/s int32 multiply-adds on the CUDA cores: the operations,
+// at every shape worth a tensor core. The design:
+//
+//   - A split pass (split_limbs_kernel, one launch for both operands) writes
+//     the limb planes K-major, the only layout an 8-bit wgmma takes: a
+//     [L, M, Kp] and b transposed through shared memory to [L, N, Kp], Kp
+//     being K rounded up to 16 (TMA's row stride) and zero-filled, so any K
+//     is taken. Each operand's planes are one 2-D tensor map [L rows, Kp]: a
+//     tile's rows may spill into the next plane only past m or n, where the
+//     stores are masked, and k zero-fills at the matrix's end.
+//   - Where the 128 x 128 output tiles fill the card, each block runs the
+//     whole sum for its tile (dot_limbs_tile_kernel), Horner's way in one
+//     64-word accumulator: the group of the largest weight first, then,
+//     between groups, the accumulator shifted left by 8 in registers (after
+//     the products have landed), the next group added into it. The producer
+//     walks the same (pair, k-block) sequence.
+//   - Where they are fewer than the SMs, each block takes one (tile, pair,
+//     k-range) (dot_limbs_split_kernel), scales its partial by its weight in
+//     registers and adds it into out (zeroed by the split pass) by
+//     red.global.add: integer addition mod 2^32, so the result is bit-exact
+//     whatever order the blocks land in.
+//
+// ptxas reports the in-tile kernel's wgmma as serialized (C7515: the Horner
+// shift writes the accumulator between products); a variant that kept a
+// second accumulator for the shifted sum, without that report, measured no
+// consistent gain on the card, so the one accumulator stays.
+
+constexpr int kLimbTop = 3;  // the largest weight i + j that survives mod 2^32
+
+// Limb pair p of the product of L-byte operands, in the order every kernel
+// walks them: weight w = i + j from kLimbTop down, i upwards within a weight.
+struct LimbPair {
+  int i, j, w;
+};
+
+__host__ __device__ constexpr LimbPair limb_pair(int L, int p) {
+  for (int w = kLimbTop; w >= 0; --w)
+    for (int i = w - L + 1 > 0 ? w - L + 1 : 0; i <= w && i < L; ++i)
+      if (p-- == 0) return {i, w - i, w};
+  return {-1, -1, -1};
+}
+
+__host__ __device__ constexpr int limb_pairs(int L) {
+  int p = 0;
+  while (limb_pair(L, p).w >= 0) ++p;
+  return p;
+}
+
+static_assert(limb_pairs(2) == 4 && limb_pairs(4) == 10, "s16: 4 limb products, s32: 10");
+
+constexpr int kSplitEdge = 64;  // elements a tile edge of the split pass
+constexpr int kSplitThreads = 256;
+
+// The limb planes of both operands in one launch: pa [L, m, kp] with
+// pa[i, r, c] = byte i of a[r, c], and pb [L, n, kp] with pb[i, c, r] = byte
+// i of b[r, c], both 0 for k <= c < kp. Blocks below tiles_a take 64 x 64
+// tiles of a; the others 64 x 64 tiles of b, staged through shared memory
+// (rows of b read, rows of the planes written, contiguously). A thread packs
+// four neighbouring k of one row into one 32-bit store a plane. The grid
+// also zeroes zero_words words at `zero` (the split instance's out, which
+// its blocks add into: one launch fewer than a memset).
 template <typename T>
-__global__ void __launch_bounds__(kDotThreads, kDotBlocksPerSm)
-dot_imad_kernel(const T* a, const T* b, int32_t* out, int m, int k, int n) {
-  __shared__ __align__(16) uint32_t smem[kDotSmemWords];
-  imad_tile<T>(a, b, out, m, k, n, blockIdx.y * kTile, blockIdx.x * kTile, smem);
+__global__ void __launch_bounds__(kSplitThreads)
+split_limbs_kernel(const T* __restrict__ a, const T* __restrict__ b, uint8_t* __restrict__ pa,
+                   uint8_t* __restrict__ pb, int m, int k, int n, int kp, int tiles_a, int32_t* __restrict__ zero,
+                   long long zero_words) {
+  constexpr int L = sizeof(T), E = kSplitEdge, Q = E / 4;  // Q: 4-k groups a tile row
+  using U = std::make_unsigned_t<T>;
+  for (long long i = static_cast<long long>(blockIdx.x) * kSplitThreads + threadIdx.x; i < zero_words;
+       i += static_cast<long long>(gridDim.x) * kSplitThreads)
+    zero[i] = 0;
+  __shared__ uint32_t stage[E][E + 1];  // padded by a word: column reads conflict at most 2-way
+  const int tiles_k = (kp + E - 1) / E;
+  const auto put = [](uint8_t* planes, size_t plane, size_t at, const uint32_t (&v)[4]) {
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      uint32_t word = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) word |= ((v[j] >> (8 * i)) & 0xFFu) << (8 * j);
+      *reinterpret_cast<uint32_t*>(planes + i * plane + at) = word;
+    }
+  };
+  if (static_cast<int>(blockIdx.x) < tiles_a) {
+    const int r0 = blockIdx.x / tiles_k * E, c0 = blockIdx.x % tiles_k * E;
+    for (int g = threadIdx.x; g < E * Q; g += kSplitThreads) {
+      const int r = r0 + g / Q, c = c0 + 4 * (g % Q);
+      if (r >= m || c >= kp) continue;
+      uint32_t v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = c + j < k ? static_cast<U>(a[static_cast<size_t>(r) * k + c + j]) : 0u;
+      put(pa, static_cast<size_t>(m) * kp, static_cast<size_t>(r) * kp + c, v);
+    }
+    return;
+  }
+  const int tile = blockIdx.x - tiles_a, tiles_n = (n + E - 1) / E;
+  const int r0 = tile / tiles_n * E, c0 = tile % tiles_n * E;  // r: k of b, c: its column
+  for (int e = threadIdx.x; e < E * E; e += kSplitThreads) {
+    const int r = e / E, c = e % E;
+    stage[r][c] = r0 + r < k && c0 + c < n ? static_cast<U>(b[static_cast<size_t>(r0 + r) * n + c0 + c]) : 0u;
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < E * Q; g += kSplitThreads) {
+    const int c = g / Q, r = 4 * (g % Q);
+    if (c0 + c >= n || r0 + r >= kp) continue;
+    const uint32_t v[4] = {stage[r][c], stage[r + 1][c], stage[r + 2][c], stage[r + 3][c]};
+    put(pb, static_cast<size_t>(n) * kp, static_cast<size_t>(c0 + c) * kp + r0 + r, v);
+  }
+}
+
+// Consumer: adds the product of limb pair q's k-blocks into d (the s16 high
+// limb is plane 1, signed; every other plane is unsigned).
+template <int L>
+__device__ __forceinline__ void mma_pair(const wgmma_s8::Ring& ring, wgmma_s8::Pipe& p, int span, int wg,
+                                         uint32_t (&d)[64], LimbPair q) {
+  using wgmma_s8::mma_accumulate;
+  if constexpr (L == 4) {
+    mma_accumulate<uint8_t, uint8_t>(ring, p, span, wg, d);
+  } else if (q.i) {
+    if (q.j)
+      mma_accumulate<int8_t, int8_t>(ring, p, span, wg, d);
+    else
+      mma_accumulate<int8_t, uint8_t>(ring, p, span, wg, d);
+  } else {
+    if (q.j)
+      mma_accumulate<uint8_t, int8_t>(ring, p, span, wg, d);
+    else
+      mma_accumulate<uint8_t, uint8_t>(ring, p, span, wg, d);
+  }
+}
+
+// out[m, n] = a . b mod 2^32 from the limb planes (maps over [L m, kp] and
+// [L n, kp]): one 128 x 128 tile a block, every limb pair, Horner's way.
+template <int L>
+__global__ void __launch_bounds__(wgmma_s8::kThreads, 1)
+dot_limbs_tile_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_bt,
+                      int32_t* out, int m, int kp, int n) {
+  using namespace wgmma_s8;
+  extern __shared__ __align__(16) unsigned char limbs_smem[];
+  const Ring ring = make_ring(limbs_smem);
+  __syncthreads();
+  const int row0 = blockIdx.y * kTileM, col0 = blockIdx.x * kTileN;
+  constexpr int P = limb_pairs(L);
+  Pipe pipe;
+  if (threadIdx.x < 128) {
+    producer_registers<kProducerRegs>();
+    if (threadIdx.x == 0)
+      for (int p = 0; p < P; ++p) {
+        const LimbPair q = limb_pair(L, p);
+        load_span(&map_a, &map_bt, ring, pipe, q.i * m + row0, q.j * n + col0, 0, kp);
+      }
+  } else {
+    consumer_registers<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1;
+    uint32_t d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0u;
+    fence_acc(d);
+    int w = limb_pair(L, 0).w;
+    for (int p = 0; p < P; ++p) {
+      const LimbPair q = limb_pair(L, p);
+      if (q.w != w) {
+        shift_acc(d, 8 * (w - q.w));
+        w = q.w;
+      }
+      mma_pair<L>(ring, pipe, kp, wg, d, q);
+    }
+    store_tile(d, out, m, n, row0, col0, wg);
+  }
+}
+
+// The same sum split over blocks: block x takes output tile x / (P ksplit),
+// limb pair (x / ksplit) % P and k-bytes [part kchunk, (part + 1) kchunk) of
+// kp (part = x % ksplit), and adds its partial times 2^(8 w) into out.
+template <int L>
+__global__ void __launch_bounds__(wgmma_s8::kThreads, 1)
+dot_limbs_split_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_bt,
+                       int32_t* out, int m, int kp, int n, int ksplit, int kchunk) {
+  using namespace wgmma_s8;
+  extern __shared__ __align__(16) unsigned char limbs_smem[];
+  const Ring ring = make_ring(limbs_smem);
+  __syncthreads();
+  constexpr int P = limb_pairs(L);
+  const int part = blockIdx.x % ksplit, tile = blockIdx.x / ksplit / P, tiles_n = (n + kTileN - 1) / kTileN;
+  const LimbPair q = limb_pair(L, blockIdx.x / ksplit % P);
+  const int row0 = tile / tiles_n * kTileM, col0 = tile % tiles_n * kTileN;
+  const int k0 = part * kchunk, k1 = min(kp, k0 + kchunk);
+  Pipe pipe;
+  if (threadIdx.x < 128) {
+    producer_registers<kProducerRegs>();
+    if (threadIdx.x == 0) load_span(&map_a, &map_bt, ring, pipe, q.i * m + row0, q.j * n + col0, k0, k1);
+  } else {
+    consumer_registers<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1;
+    uint32_t d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0u;
+    fence_acc(d);
+    mma_pair<L>(ring, pipe, k1 - k0, wg, d, q);
+    if (q.w) shift_acc(d, 8 * q.w);
+    add_tile(d, out, m, n, row0, col0, wg);
+  }
 }
 
 // P2 and P3 move bytes and compute nothing else, so they are bound by bytes:
@@ -323,14 +541,44 @@ bitcast_i32_to_i8_kernel(const unsigned char* __restrict__ in, unsigned char* __
   }
 }
 
-// The two sign-extended 16-bit halves of each word, by shifts.
-__global__ void unpack_s16_kernel(const int32_t* __restrict__ in, int16_t* __restrict__ lo,
-                                  int16_t* __restrict__ hi, long long count) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const int32_t w = in[i];
-  lo[i] = static_cast<int16_t>(static_cast<int32_t>(static_cast<uint32_t>(w) << 16) >> 16);
-  hi[i] = static_cast<int16_t>(w >> 16);
+// P4: the two sign-extended 16-bit halves of each word, a streaming split
+// bound by bytes (4 read and 4 written a word). Thread t of T takes the
+// 8-word vectors t, t + T, ... (two aligned 16-byte loads each),
+// kCopyVectors of them in flight, and writes each vector's eight low halves
+// as one 16-byte store to lo and its eight high halves as one to hi
+// (__byte_perm picks the halves of two words; the halves of a little-endian
+// word are its int16 values). Block 0 takes the last count mod 8 words one
+// by one. in, lo and hi are 16-byte aligned.
+__global__ void __launch_bounds__(kCopyThreads)
+unpack_s16_kernel(const uint4* __restrict__ in, uint4* __restrict__ lo, uint4* __restrict__ hi, long long count) {
+  const long long vectors = count >> 3, threads = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long v0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; v0 < vectors;
+       v0 += threads * kCopyVectors) {
+    uint4 x[kCopyVectors], y[kCopyVectors];
+#pragma unroll
+    for (int u = 0; u < kCopyVectors; ++u) {
+      const long long v = v0 + u * threads;
+      if (v < vectors) {
+        x[u] = __ldg(in + 2 * v);
+        y[u] = __ldg(in + 2 * v + 1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyVectors; ++u) {
+      const long long v = v0 + u * threads;
+      if (v >= vectors) continue;
+      lo[v] = make_uint4(__byte_perm(x[u].x, x[u].y, 0x5410), __byte_perm(x[u].z, x[u].w, 0x5410),
+                         __byte_perm(y[u].x, y[u].y, 0x5410), __byte_perm(y[u].z, y[u].w, 0x5410));
+      hi[v] = make_uint4(__byte_perm(x[u].x, x[u].y, 0x7632), __byte_perm(x[u].z, x[u].w, 0x7632),
+                         __byte_perm(y[u].x, y[u].y, 0x7632), __byte_perm(y[u].z, y[u].w, 0x7632));
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < (count & 7)) {
+    const long long e = (vectors << 3) + threadIdx.x;
+    const uint32_t w = reinterpret_cast<const uint32_t*>(in)[e];
+    reinterpret_cast<uint16_t*>(lo)[e] = static_cast<uint16_t>(w);
+    reinterpret_cast<uint16_t*>(hi)[e] = static_cast<uint16_t>(w >> 16);
+  }
 }
 
 // All blocks of a cooperative launch meet here. `counter` only grows:
@@ -542,7 +790,7 @@ chain_dot_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_c
       if (threadIdx.x == 0) {
         fence_proxy_async_global();
         for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-          load_tile(&map_a, &map_bt, ring, pipe, (tile / tiles_n) * kTileM, (tile % tiles_n) * kTileN, k);
+          load_span(&map_a, &map_bt, ring, pipe, (tile / tiles_n) * kTileM, (tile % tiles_n) * kTileN, 0, k);
       }
       __syncwarp();
     }
@@ -607,43 +855,41 @@ int row_threads(int cols) {
   return t > 1024 ? 1024 : t;
 }
 
-template <typename T>
-int launch_dot_imad(const void* a, const void* b, void* out, int m, int k, int n, cudaStream_t s) {
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  dot_imad_kernel<T><<<grid, kDotThreads, 0, s>>>(static_cast<const T*>(a), static_cast<const T*>(b),
-                                                   static_cast<int32_t*>(out), m, k, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Blocks of bitcast_i32_to_i8_kernel<kAligned> the current device holds at
-// once: its SMs times the resident blocks of kCopyThreads, read once per
-// device index below 64 (the probes' host path is most of their time).
-template <bool kAligned>
-cudaError_t copy_blocks(int* blocks) {
-  static std::atomic<int> by_device[64];
+// Blocks of `kern` (kCopyThreads threads) the current device holds at once:
+// its SMs times the resident blocks, read once per device index below 64
+// into `by_device` (the probes' host path is most of their time).
+cudaError_t resident_blocks(const void* kern, std::atomic<int> (&by_device)[64], int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && (*blocks = by_device[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bitcast_i32_to_i8_kernel<kAligned>, kCopyThreads, 0);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kCopyThreads, 0);
   if (err != cudaSuccess) return err;
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
   if (dev < 64) by_device[dev].store(*blocks, std::memory_order_relaxed);
   return cudaSuccess;
 }
 
+// A grid-stride launch of `kern` over `units` pieces of per_block a block,
+// no more blocks than the card holds at once (cache: resident_blocks').
+template <typename... Params, typename... Args>
+int launch_streaming(void (*kern)(Params...), std::atomic<int> (&cache)[64], long long units, long long per_block,
+                     cudaStream_t s, Args... args) {
+  int cap = 0;
+  const cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kern), cache, &cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = std::max((units + per_block - 1) / per_block, 1LL);
+  kern<<<static_cast<unsigned>(blocks < cap ? blocks : cap), kCopyThreads, 0, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kAligned>
 int launch_bitcast(const void* in, void* out, long long nbytes, cudaStream_t s) {
-  int cap = 0;
-  const cudaError_t err = copy_blocks<kAligned>(&cap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long per_block = static_cast<long long>(kCopyThreads) * kCopyVectors * 16;
-  const long long blocks = (nbytes + per_block - 1) / per_block;
-  bitcast_i32_to_i8_kernel<kAligned><<<static_cast<unsigned>(blocks < cap ? blocks : cap), kCopyThreads, 0, s>>>(
-      static_cast<const unsigned char*>(in), static_cast<unsigned char*>(out), nbytes);
-  return static_cast<int>(cudaGetLastError());
+  static std::atomic<int> cache[64];
+  return launch_streaming(bitcast_i32_to_i8_kernel<kAligned>, cache, nbytes,
+                          static_cast<long long>(kCopyThreads) * kCopyVectors * 16, s,
+                          static_cast<const unsigned char*>(in), static_cast<unsigned char*>(out), nbytes);
 }
 
 bool aligned16(const void* a, const void* b) {
@@ -688,6 +934,62 @@ cudaError_t prepare_wgmma(const void* kern, std::atomic<unsigned long long>& set
 }
 
 std::atomic<unsigned long long> dot_smem_set{0}, chain_smem_set{0};
+std::atomic<unsigned long long> limbs_smem_set[2][2];  // [L == 4][in-tile]
+
+// SMs of the current device, read once per device index below 64.
+cudaError_t sm_count(int* sms) {
+  static std::atomic<int> by_device[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (*sms = by_device[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) by_device[dev].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// The s16 (L = 2) or s32 (L = 4) dot: the split pass into `planes` (L (m +
+// n) kp bytes), then the in-tile instance where the output tiles fill the
+// card, else the split instance on out zeroed by the split pass, its
+// k-range sized so that tiles x pairs x k-ranges spread over the SMs.
+template <int L>
+int launch_dot_limbs(const void* a, const void* b, void* planes, void* out, int m, int k, int n, cudaStream_t s) {
+  using namespace wgmma_s8;
+  using T = std::conditional_t<L == 2, int16_t, int32_t>;
+  constexpr int P = limb_pairs(L);
+  const int kp = (k + kTensorK - 1) / kTensorK * kTensorK;
+  uint8_t* pa = static_cast<uint8_t*>(planes);
+  uint8_t* pb = pa + static_cast<size_t>(L) * m * kp;
+  const int tiles_m = (m + kTileM - 1) / kTileM, tiles_n = (n + kTileN - 1) / kTileN, tiles = tiles_m * tiles_n;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool in_tile = tiles >= sms;
+  const void* kern = in_tile ? reinterpret_cast<const void*>(dot_limbs_tile_kernel<L>)
+                             : reinterpret_cast<const void*>(dot_limbs_split_kernel<L>);
+  CUtensorMap map_a, map_bt;
+  err = prepare_wgmma(kern, limbs_smem_set[L == 4][in_tile], &map_a, pa, &map_bt, pb, L * m, kp, L * n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* o = static_cast<int32_t*>(out);
+  const int split_k = (kp + kSplitEdge - 1) / kSplitEdge;
+  const int tiles_a = (m + kSplitEdge - 1) / kSplitEdge * split_k;
+  split_limbs_kernel<T><<<tiles_a + split_k * ((n + kSplitEdge - 1) / kSplitEdge), kSplitThreads, 0, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), pa, pb, m, k, n, kp, tiles_a, o,
+      in_tile ? 0LL : static_cast<long long>(m) * n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (in_tile) {
+    dot_limbs_tile_kernel<L><<<dim3(tiles_n, tiles_m), kThreads, kSmemBytes, s>>>(map_a, map_bt, o, m, kp, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int kblocks = (kp + kTileK - 1) / kTileK;
+  const int parts = std::min((sms + tiles * P - 1) / (tiles * P), kblocks);
+  const int per = (kblocks + parts - 1) / parts;  // k-blocks a block
+  const int ksplit = (kblocks + per - 1) / per;
+  dot_limbs_split_kernel<L><<<tiles * P * ksplit, kThreads, kSmemBytes, s>>>(map_a, map_bt, o, m, kp, n, ksplit,
+                                                                            per * kTileK);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -721,15 +1023,18 @@ int tfhe_probe_dot_s8(const void* a, const void* b, void* bt, void* out, int m, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same product by int32 multiply-adds, for operands of 1, 2 or 4 bytes.
-int tfhe_probe_dot_imad(const void* a, const void* b, void* out, int m, int k, int n,
-                        int elem_bytes, void* stream) {
-  if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+// out int32 [m, n] = a [m, k] . b [k, n] mod 2^32 on the tensor cores, as
+// byte-limb products, for int16 (elem_bytes 2) or int32 (4) operands, any
+// k >= 1; planes is scratch of elem_bytes (m + n) kp bytes, kp = k rounded
+// up to 16, 16-byte aligned (TMA).
+int tfhe_probe_dot_limbs(const void* a, const void* b, void* planes, void* out, int m, int k, int n, int elem_bytes,
+                         void* stream) {
+  if (m < 1 || n < 1 || k < 1 || k > (1 << 30) || reinterpret_cast<uintptr_t>(planes) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (elem_bytes) {
-    case 1: return launch_dot_imad<int8_t>(a, b, out, m, k, n, s);
-    case 2: return launch_dot_imad<int16_t>(a, b, out, m, k, n, s);
-    case 4: return launch_dot_imad<int32_t>(a, b, out, m, k, n, s);
+    case 2: return launch_dot_limbs<2>(a, b, planes, out, m, k, n, s);
+    case 4: return launch_dot_limbs<4>(a, b, planes, out, m, k, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -769,13 +1074,14 @@ int tfhe_probe_bitcast_i32_to_i8(const void* in, void* out, long long count, voi
                             : launch_bitcast<false>(in, out, 4 * count, s);
 }
 
-// lo, hi int16 [count]: the sign-extended halves of in int32 [count].
+// lo, hi int16 [count]: the sign-extended halves of in int32 [count]; in, lo
+// and hi 16-byte aligned.
 int tfhe_probe_unpack_s16(const void* in, void* lo, void* hi, long long count, void* stream) {
-  if (count < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((count + 255) / 256);
-  unpack_s16_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(in), static_cast<int16_t*>(lo), static_cast<int16_t*>(hi), count);
-  return static_cast<int>(cudaGetLastError());
+  if (count < 1 || !aligned16(in, lo) || !aligned16(hi, hi)) return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<int> cache[64];
+  return launch_streaming(unpack_s16_kernel, cache, count >> 3, static_cast<long long>(kCopyThreads) * kCopyVectors,
+                          static_cast<cudaStream_t>(stream), static_cast<const uint4*>(in), static_cast<uint4*>(lo),
+                          static_cast<uint4*>(hi), count);
 }
 
 // The chained dot. a0 int8 [m, k], b int8 [k, n]; scratch bt int8 [n, k]

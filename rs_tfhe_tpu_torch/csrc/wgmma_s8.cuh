@@ -34,8 +34,11 @@
 //     launch or occupancy query.
 //
 // No .satfinite: the sums wrap mod 2^32, as the plain versions do. The operand
-// types are template parameters: s8 x s8 here; the limb product of the
-// rotation kernels is s8 digits x u8 limbs (negacyclic_mma.cuh).
+// types are template parameters, s8 or u8 each: s8 x s8 for the s8 dots,
+// every pair of the four for the byte-limb products of the s16 and s32 dots
+// (probes.cu), which also accumulate into a d they did not zero
+// (mma_accumulate), shift it between limb weights (shift_acc) and add a
+// partial into out by integer reductions (add_tile).
 
 #pragma once
 
@@ -190,34 +193,41 @@ __device__ __forceinline__ void fence_acc(uint32_t (&d)[64]) {
       "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),     \
       "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
 
+// One wgmma.mma_async m64n128k32 with s32 sums of `types` operands (the
+// PTX type pair, e.g. "u8.s8": A unsigned, B signed), accumulating into d.
+#define WGMMA_8BIT(types)                                                                          \
+  asm volatile(                                                                                    \
+      "{\n"                                                                                        \
+      ".reg .pred p;\n"                                                                            \
+      "setp.ne.b32 p, %66, 0;\n"                                                                   \
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32." types " {" WGMMA_S8_D_REGS "}, %64, %65, p;\n" \
+      "}\n"                                                                                        \
+      : WGMMA_S8_D_OPERANDS(d)                                                                     \
+      : "l"(desc_a), "l"(desc_b), "r"(1))
+
+template <typename T>
+constexpr bool kIsByte = std::is_same_v<T, int8_t> || std::is_same_v<T, uint8_t>;
+
 // d[64 x 128] += A[64 x 32] . B[128 x 32]^T from shared memory, s32 sums of
-// TA x TB products. d is the warpgroup's accumulator fragment: thread t holds
-// rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8j + 2 (t % 4) (+ 1) in
-// d[4j ..  4j + 3].
+// TA x TB products, each of TA and TB int8_t or uint8_t. d is the
+// warpgroup's accumulator fragment: thread t holds rows 16 (t / 32) +
+// (t % 32) / 4 (+ 8) and columns 8j + 2 (t % 4) (+ 1) in d[4j ..  4j + 3].
 template <typename TA, typename TB>
 __device__ __forceinline__ void wgmma_m64n128k32(uint32_t (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  static_assert(std::is_same_v<TA, int8_t> && (std::is_same_v<TB, int8_t> || std::is_same_v<TB, uint8_t>),
-                "operands: s8 x s8 or s8 x u8");
-  if constexpr (std::is_same_v<TB, int8_t>) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" WGMMA_S8_D_REGS "}, %64, %65, p;\n"
-        "}\n"
-        : WGMMA_S8_D_OPERANDS(d)
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+  static_assert(kIsByte<TA> && kIsByte<TB>, "operands: s8 or u8 each");
+  constexpr bool sa = std::is_same_v<TA, int8_t>, sb = std::is_same_v<TB, int8_t>;
+  if constexpr (sa && sb) {
+    WGMMA_8BIT("s8.s8");
+  } else if constexpr (sa) {
+    WGMMA_8BIT("s8.u8");
+  } else if constexpr (sb) {
+    WGMMA_8BIT("u8.s8");
   } else {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.u8 {" WGMMA_S8_D_REGS "}, %64, %65, p;\n"
-        "}\n"
-        : WGMMA_S8_D_OPERANDS(d)
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+    WGMMA_8BIT("u8.u8");
   }
 }
+
+#undef WGMMA_8BIT
 
 // ---------------------------------------------------------------------------
 // The ring and the two roles
@@ -271,28 +281,29 @@ __device__ __forceinline__ void consumer_registers() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
 }
 
-// Producer, one thread: the copies of the tile at (row0, col0), every k-block.
-__device__ __forceinline__ void load_tile(const CUtensorMap* map_a, const CUtensorMap* map_bt, const Ring& ring,
-                                          Pipe& p, int row0, int col0, int k) {
-  for (int k0 = 0; k0 < k; k0 += kTileK) {
+// Producer, one thread: the copies of the tile at (row0, col0), k-blocks
+// from k0 up to k1 (bytes; the last block may pass k1, where the copy
+// zero-fills past the matrix).
+__device__ __forceinline__ void load_span(const CUtensorMap* map_a, const CUtensorMap* map_bt, const Ring& ring,
+                                          Pipe& p, int row0, int col0, int k0, int k1) {
+  for (int k = k0; k < k1; k += kTileK) {
     mbar_wait(&ring.empty[p.stage], p.phase ^ 1);  // a fresh barrier's preceding phase counts as done
     mbar_expect_tx(&ring.full[p.stage], kStageBytes);
-    tma_load_2d(map_a, &ring.full[p.stage], ring.a(p.stage), k0, row0);
-    tma_load_2d(map_bt, &ring.full[p.stage], ring.b(p.stage), k0, col0);
+    tma_load_2d(map_a, &ring.full[p.stage], ring.a(p.stage), k, row0);
+    tma_load_2d(map_bt, &ring.full[p.stage], ring.b(p.stage), k, col0);
     p.next();
   }
 }
 
-// Consumer warpgroup `wg` (of kConsumers): its 64 rows of one tile into d,
-// from the k-blocks load_tile brought. Called by all 128 threads together.
+// Consumer warpgroup `wg` (of kConsumers): adds its 64 rows of the product
+// of the k-blocks load_span brought for `span` k-bytes into d, and waits for
+// its products before it returns (d is then plain registers again). Called
+// by all 128 threads together.
 template <typename TA, typename TB>
-__device__ __forceinline__ void mma_tile(const Ring& ring, Pipe& p, int k, int wg, uint32_t (&d)[64]) {
+__device__ __forceinline__ void mma_accumulate(const Ring& ring, Pipe& p, int span, int wg, uint32_t (&d)[64]) {
   const bool signals = threadIdx.x % 128 == 0;
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0u;
-  fence_acc(d);
   int held = -1;  // the stage the group in flight reads
-  for (int k0 = 0; k0 < k; k0 += kTileK) {
+  for (int k0 = 0; k0 < span; k0 += kTileK) {
     mbar_wait(&ring.full[p.stage], p.phase);
     const uint8_t* a = ring.a(p.stage) + wg * 64 * kTileK;
     const uint8_t* b = ring.b(p.stage);
@@ -308,6 +319,24 @@ __device__ __forceinline__ void mma_tile(const Ring& ring, Pipe& p, int k, int w
   wgmma_wait<0>();
   fence_acc(d);
   if (held >= 0 && signals) mbar_arrive(&ring.empty[held]);
+}
+
+// The same into a zeroed d: its 64 rows of one tile.
+template <typename TA, typename TB>
+__device__ __forceinline__ void mma_tile(const Ring& ring, Pipe& p, int k, int wg, uint32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0u;
+  fence_acc(d);
+  mma_accumulate<TA, TB>(ring, p, k, wg, d);
+}
+
+// d <<= bits, word by word (mod 2^32), between two fences: no product is in
+// flight (mma_accumulate has waited), and the next one issues after.
+__device__ __forceinline__ void shift_acc(uint32_t (&d)[64], int bits) {
+  fence_acc(d);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] <<= bits;
+  fence_acc(d);
 }
 
 // Stores consumer warpgroup wg's rows of the tile at (row0, col0) of the
@@ -331,6 +360,26 @@ __device__ __forceinline__ void store_tile(const uint32_t (&d)[64], int32_t* out
         dst[0] = v0;
         if (c + 1 < n) dst[1] = v1;
       }
+    }
+}
+
+// Adds consumer warpgroup wg's rows of the tile at (row0, col0) into the
+// int32 [m, n] out with integer reductions (red.global.add, mod 2^32: the
+// sum is the same in any order); rows and columns past m and n are dropped.
+__device__ __forceinline__ void add_tile(const uint32_t (&d)[64], int32_t* out, int m, int n, int row0, int col0,
+                                         int wg) {
+  const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+  unsigned* o = reinterpret_cast<unsigned*>(out);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wg * 64 + 16 * w + l / 4 + 8 * h;
+      const int c = col0 + 8 * j + 2 * (l % 4);
+      if (r >= m || c >= n) continue;
+      unsigned* dst = o + static_cast<size_t>(r) * n + c;
+      atomicAdd(dst, d[4 * j + 2 * h]);
+      if (c + 1 < n) atomicAdd(dst + 1, d[4 * j + 2 * h + 1]);
     }
 }
 

@@ -4,13 +4,15 @@ plain PyTorch versions.
 The kernels (`csrc/probes.cu`) replace the seven TPU probe kernels of
 scripts/probe_mosaic.py and scripts/bench_kernel_prims.py:
 
-  probe_dot                integer dot -> int32: s8 on the tensor cores
-                           (wgmma fed by TMA), s16 and s32 on the CUDA cores
+  probe_dot                integer dot -> int32 on the tensor cores (wgmma
+                           fed by TMA): s8 directly, s16 and s32 as products
+                           of their byte limbs recombined by shifts
   probe_dot_correct_s16    that dot on full-range random operands, held
                            against an int64 numpy product mod 2^32
   probe_roll               rotate each row, for 1-, 2- and 4-byte elements
   probe_bitcast_i32_to_i8  int32 words as four int8 lanes, little-endian
-  probe_unpack_s16         the two sign-extended s16 halves of each word
+  probe_unpack_s16         the two sign-extended s16 halves of each word,
+                           a streaming split of 16-byte vectors
   chain_dot                bench_dot's chain of dependent s8 dots, on the
                            tensor cores or on the CUDA cores
   chain_roll_add           bench_roll_add's chain of x += roll(x, 1 + i)
@@ -78,6 +80,59 @@ def dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     al, ah, bl, bh = a & 0xFFFF, a >> 16, b & 0xFFFF, b >> 16
     cross = _matmul_exact(ah, bl) + _matmul_exact(al, bh)
     return wrap_i32(_matmul_exact(al, bl) + ((cross & 0xFFFF) << 16))
+
+
+#: The largest limb weight i + j of a byte-limb product that survives mod 2^32.
+_LIMB_TOP = 3
+
+
+def limb_pairs(size: int) -> list[tuple[int, int, int]]:
+    """The byte-limb products (i, j, w) of a dot of `size`-byte operands, in
+    the order the tensor-core kernel walks them: limb i of a times limb j of
+    b at weight 2^(8 w), w = i + j <= 3 (the rest vanish mod 2^32), the
+    largest weight first, i upwards within a weight. s16: 4 products, s32:
+    10."""
+    return [(i, w - i, w) for w in range(_LIMB_TOP, -1, -1) for i in range(max(0, w - size + 1), min(w, size - 1) + 1)]
+
+
+def limb_planes(x: torch.Tensor) -> list[torch.Tensor]:
+    """The byte limbs of an int16 or int32 tensor as int64: x = sum_i
+    planes[i] * 2^(8 i) mod 2^32. For int16 the high limb is signed (x >> 8),
+    the low one unsigned; for int32 all four are the unsigned bytes of the
+    two's-complement word."""
+    size = _INT_TYPES[x.dtype]
+    w = x.to(torch.int64)
+    planes = [(w >> (8 * i)) & 0xFF for i in range(size)]
+    if size == 2:
+        planes[1] = w >> 8
+    return planes
+
+
+def dot_limbs_plain(a: torch.Tensor, b: torch.Tensor, horner: bool = True) -> torch.Tensor:
+    """a [M, K] . b [K, N] -> int32 [M, N] mod 2^32 for int16 or int32
+    operands, by the tensor-core kernel's arithmetic: the byte limbs
+    (`limb_planes`), their products (`limb_pairs`, each exact through
+    float64: |limb product| * K < 2^53) and, with `horner`, Horner's
+    recombination of the in-tile instance (the sum shifted left by 8 between
+    weights, largest first); without it, the split instance's (each product
+    shifted by its own weight, then summed). For the tests: `dot_plain` is
+    the plain version."""
+    if a.dtype != b.dtype or a.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"dot_limbs_plain takes two int16 or int32 tensors, got {a.dtype}, {b.dtype}")
+    pa, pb = limb_planes(a), limb_planes(b)
+    pairs = limb_pairs(_INT_TYPES[a.dtype])
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int64, device=a.device)
+    w_prev = pairs[0][2]
+    for i, j, w in pairs:
+        part = _matmul_exact(pa[i], pb[j])
+        if not horner:
+            acc = (acc + (part << (8 * w))) & 0xFFFFFFFF
+            continue
+        if w != w_prev:
+            acc = (acc << (8 * (w_prev - w))) & 0xFFFFFFFF
+            w_prev = w
+        acc = (acc + part) & 0xFFFFFFFF
+    return wrap_i32(acc)
 
 
 def roll_plain(x: torch.Tensor, shift: int = 5) -> torch.Tensor:
@@ -168,6 +223,12 @@ def _check_dot(a: torch.Tensor, b: torch.Tensor) -> bool:
     return on_cuda
 
 
+def limb_k(k: int) -> int:
+    """The k of the s16/s32 dot's limb planes: K rounded up to TENSOR_K,
+    zero-filled past K, so that any K feeds the tensor-core tile."""
+    return -(-k // TENSOR_K) * TENSOR_K
+
+
 def check_tensor_core_operands(*ts: torch.Tensor) -> None:
     """Raise unless each int8 matrix can feed the tensor-core tile's TMA
     copies: rows of K bytes with K a multiple of TENSOR_K, and a 16-byte
@@ -239,8 +300,10 @@ def _dot(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _launch(name, "tfhe_probe_dot_s8",
                 a.data_ptr(), b.data_ptr(), bt.data_ptr(), out.data_ptr(), m, k, n, index=a.get_device())
     else:
-        _launch(name, "tfhe_probe_dot_imad",
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, _INT_TYPES[a.dtype], index=a.get_device())
+        size = _INT_TYPES[a.dtype]
+        planes = a.new_empty(size * (m + n) * limb_k(k), dtype=torch.uint8)
+        _launch(name, "tfhe_probe_dot_limbs", a.data_ptr(), b.data_ptr(), planes.data_ptr(), out.data_ptr(),
+                m, k, n, size, index=a.get_device())
     return out
 
 
@@ -263,8 +326,10 @@ def tile_loop_rate(m: int, k: int, n: int, unit: str, cycles: int, busiest: int)
 
 
 def dot_unit(dtype: torch.dtype) -> str:
-    """Where `probe_dot` runs this operand type on the card."""
-    return "tensor cores (wgmma m64n128k32)" if dtype == torch.int8 else "CUDA cores (int32 multiply-adds)"
+    """Where and how `probe_dot` runs this operand type on the card."""
+    if dtype == torch.int8:
+        return "tensor cores (wgmma m64n128k32)"
+    return f"tensor cores (wgmma m64n128k32, {len(limb_pairs(_INT_TYPES[dtype]))} byte-limb products)"
 
 
 def probe_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -322,13 +387,16 @@ def probe_bitcast_i32_to_i8(x: torch.Tensor) -> torch.Tensor:
 
 
 def probe_unpack_s16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """int32 [R, C] -> the (low, high) sign-extended s16 halves, by shifts."""
+    """int32 [R, C] -> the (low, high) sign-extended s16 halves. On the card
+    both are views of one allocation, high starting at the first 16-byte
+    boundary after low."""
     if not _check("x", x, (torch.int32,)):
         return unpack_s16_plain(x)
-    lo = x.new_empty(x.shape, dtype=torch.int16)
-    hi = torch.empty_like(lo)
+    (rows, cols), count = x.shape, x.numel()
+    gap = -(-count // 8) * 8
+    lo, hi = x.new_empty_strided((2, rows, cols), (gap, cols, 1), dtype=torch.int16).unbind(0)
     _launch("probe_unpack_s16", "tfhe_probe_unpack_s16",
-            x.data_ptr(), lo.data_ptr(), hi.data_ptr(), x.numel(), index=x.get_device())
+            x.data_ptr(), lo.data_ptr(), hi.data_ptr(), count, index=x.get_device())
     return lo, hi
 
 

@@ -562,6 +562,40 @@ def test_probe_dot_s8_tile_edges(dev, shape):
     assert torch.equal(out, CP.dot_plain(a, b))
 
 
+def _plant_extremes(x):
+    """The type's minimum, maximum and -1 (all bits set) in the first row
+    and the last column: 0x8000 / 0x7FFF / 0xFFFF, 0x80000000 / 0x7FFFFFFF /
+    0xFFFFFFFF."""
+    info = torch.iinfo(x.dtype)
+    ext = torch.tensor([info.min, info.max, -1], dtype=x.dtype)[: min(3, x.numel())]
+    x.view(-1)[: len(ext)] = ext.to(x.device)
+    x[-1, -1] = info.min
+    return x
+
+
+@pytest.mark.parametrize(
+    "dtype,shape",
+    [(dt, sh) for dt in (torch.int16, torch.int32)
+     for sh in [(80, 48, 72), (129, 17, 257), (256, 1040, 384), (5, 1, 7), (128, 1024, 256), (1024, 1024, 1024)]]
+    + [(torch.int32, (4096, 4096, 4096))],
+    ids=lambda v: str(v).removeprefix("torch.") if isinstance(v, torch.dtype) else "x".join(map(str, v)),
+)
+def test_probe_dot_limbs_matches_plain(dev, dtype, shape):
+    """The byte-limb dot on the tensor cores at shapes that straddle the
+    128 x 128 tile, with K no multiple of 16 (the planes' zero fill) or of
+    the 128-byte stage, K = 1, the probe shape (fewer tiles than SMs: the
+    split instance, partials added by reductions) and shapes whose tiles
+    fill the card (the in-tile instance, Horner's recombination); full-range
+    operands with both extremes and -1 planted."""
+    m, k, n = shape
+    a, b = _plant_extremes(_rand(dev, (m, k), dtype, 76)), _plant_extremes(_rand(dev, (k, n), dtype, 77))
+    before = CP.launches["probe_dot"]
+    out = CP.probe_dot(a, b)
+    torch.cuda.synchronize()
+    assert CP.launches["probe_dot"] == before + 1
+    assert torch.equal(out, CP.dot_plain(a, b))
+
+
 @pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["s8", "s16", "s32"])
 def test_probe_dot_wraps_mod_2_32(dev, dtype):
     before = CP.launches["probe_dot_correct_s16"]
@@ -655,6 +689,31 @@ def test_probe_bitcast_fast_key_size(dev):
     p = P.SECURITY_128_BIT_FAST
     bsk = _rand(dev, (p.n0, 2 * p.trgsw_lv1.l, 2, p.n1), torch.int32, 120)
     _bitcast_matches(bsk.view(-1, p.n1))
+
+
+def _unpack_matches(x):
+    before = CP.launches["probe_unpack_s16"]
+    lo, hi = CP.probe_unpack_s16(x)
+    torch.cuda.synchronize()
+    assert CP.launches["probe_unpack_s16"] == before + 1
+    plo, phi = CP.unpack_s16_plain(x)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+
+
+@pytest.mark.parametrize("rows_first", [False, True], ids=["one_row", "one_column"])
+@pytest.mark.parametrize("count", [1, 7, 9, 8 * 1000 + 3])
+def test_probe_unpack_every_count(dev, count, rows_first):
+    """Word counts that leave a partial 8-word vector (the scalar tail), as
+    one row or one column, with the extremes among the words."""
+    x = _plant_extremes(_rand(dev, (count, 1) if rows_first else (1, count), torch.int32, 78 + count))
+    _unpack_matches(x)
+
+
+def test_probe_unpack_fast_key_size(dev):
+    """Full-range words in the shape of the FAST cloud key's bsk as
+    [5600, 1024]: every vector on the streaming path."""
+    p = P.SECURITY_128_BIT_FAST
+    _unpack_matches(_rand(dev, (p.n0 * 2 * p.trgsw_lv1.l * 2, p.n1), torch.int32, 121))
 
 
 def test_probe_bitcast_and_unpack_match_plain(dev):

@@ -148,6 +148,79 @@ def test_dot_correct_holds_every_type(dtype):
     assert CP.probe_dot_correct_s16("cpu", dtype).shape == (128, 256)
 
 
+#: Shapes of the byte-limb dot's plain version: the probe shape, one that is
+#: ragged against the kernel's 128 x 128 tile with K = 48 (no multiple of its
+#: 128-byte stage), and K = 1.
+_LIMB_SHAPES = [(128, 1024, 256), (80, 48, 72), (7, 1, 9)]
+
+
+def _extremes(rng, shape, dtype):
+    """Full-range operands with the type's minimum, maximum and -1 (all bits
+    set) planted: 0x8000 / 0x7FFF / 0xFFFF for s16, 0x80000000 / 0x7FFFFFFF /
+    0xFFFFFFFF for s32."""
+    info = np.iinfo(dtype)
+    x = _rand(rng, shape, dtype)
+    x.flat[:3] = (info.min, info.max, -1)
+    x.flat[-1] = info.min
+    return x
+
+
+@pytest.mark.parametrize("horner", [True, False], ids=["in_tile", "split"])
+@pytest.mark.parametrize("shape", _LIMB_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [np.int16, np.int32], ids=["s16", "s32"])
+def test_dot_limbs_plain_matches_dot_plain_and_int64(dtype, shape, horner):
+    """The tensor-core kernel's arithmetic (byte limbs, their products in the
+    kernel's order, Horner's recombination or the split instance's weighted
+    sum) equals the plain dot and the exact product mod 2^32."""
+    m, k, n = shape
+    rng = np.random.default_rng(110 + k)
+    a, b = _extremes(rng, (m, k), dtype), _extremes(rng, (k, n), dtype)
+    want = np.array((a.astype(object) @ b.astype(object)) % (1 << 32), dtype=np.int64)
+    got = CP.dot_limbs_plain(_t(a), _t(b), horner=horner)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_u32(got.numpy()), want)
+    np.testing.assert_array_equal(got.numpy(), CP.dot_plain(_t(a), _t(b)).numpy())
+
+
+def test_dot_limbs_plain_matches_tpu_probe_dot_s32(scripts):
+    """The ten byte-limb products of an s32 dot against the TPU probe on
+    seeded full-range operands."""
+    probe, _ = scripts
+    shim = _RandomOnes(111)
+    probe.jnp = shim
+    try:
+        ref = np.asarray(probe.probe_dot(jnp.dtype(np.int32), 128, 1024, 256))
+    finally:
+        probe.jnp = jnp
+    a, b = shim.made
+    np.testing.assert_array_equal(CP.dot_limbs_plain(_t(a), _t(b)).numpy(), ref)
+
+
+def test_limb_pairs_and_planes():
+    """s16: hi.hi at 2^16, hi.lo and lo.hi at 2^8, lo.lo at 1; s32: the ten
+    pairs with i + j <= 3, largest weight first; the planes recombine to the
+    operand mod 2^32, the s16 high limb signed."""
+    assert CP.limb_pairs(2) == [(1, 1, 2), (0, 1, 1), (1, 0, 1), (0, 0, 0)]
+    pairs = CP.limb_pairs(4)
+    assert len(pairs) == 10 and all(i + j == w <= 3 for i, j, w in pairs)
+    assert [w for _, _, w in pairs] == sorted((w for _, _, w in pairs), reverse=True)
+    rng = np.random.default_rng(112)
+    for dtype in (np.int16, np.int32):
+        x = _extremes(rng, (4, 9), dtype)
+        planes = CP.limb_planes(_t(x))
+        assert len(planes) == np.dtype(dtype).itemsize
+        total = sum(p << (8 * i) for i, p in enumerate(planes))
+        np.testing.assert_array_equal(_u32(total.numpy()), _u32(x))
+        assert int(min(p.min() for p in planes)) >= (-128 if dtype == np.int16 else 0)
+        assert int(max(p.max() for p in planes)) <= 255
+
+
+def test_limb_k_rounds_up_to_the_tile_rows():
+    assert [CP.limb_k(k) for k in (1, 15, 16, 17, 48, 1000, 1024)] == [16, 16, 16, 32, 48, 1008, 1024]
+    with pytest.raises(TypeError):
+        CP.dot_limbs_plain(torch.zeros((2, 2), dtype=torch.int8), torch.zeros((2, 2), dtype=torch.int8))
+
+
 def test_dot_rejects_what_it_does_not_take():
     a = torch.zeros((4, 8), dtype=torch.int8)
     with pytest.raises(TypeError):
@@ -296,6 +369,21 @@ def test_unpack_plain_matches_tpu_probe(scripts):
 def test_unpack_plain_on_random_words():
     x = _rand(np.random.default_rng(105), (8, 256), np.int32)
     lo, hi = CP.probe_unpack_s16(_t(x))
+    np.testing.assert_array_equal(lo.numpy(), x.astype(np.int16))
+    np.testing.assert_array_equal(hi.numpy(), (x >> 16).astype(np.int16))
+
+
+@pytest.mark.parametrize("rows_first", [False, True], ids=["one_row", "one_column"])
+@pytest.mark.parametrize("count", [1, 7, 9, 8 * 125 + 3])
+def test_unpack_plain_every_count(count, rows_first):
+    """Word counts that are no multiple of the kernel's 8-word vector, as one
+    row or one column, with 0x80000000, 0x7FFFFFFF, 0x8000 and 0xFFFFFFFF
+    among the words."""
+    words = _rand(np.random.default_rng(113 + count), count, np.int32)
+    words[:4] = (-(1 << 31), (1 << 31) - 1, 1 << 15, -1)[:count]
+    x = words.reshape((count, 1) if rows_first else (1, count))
+    lo, hi = CP.probe_unpack_s16(_t(x))
+    assert lo.dtype == hi.dtype == torch.int16 and lo.shape == hi.shape == x.shape
     np.testing.assert_array_equal(lo.numpy(), x.astype(np.int16))
     np.testing.assert_array_equal(hi.numpy(), (x >> 16).astype(np.int16))
 

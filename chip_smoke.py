@@ -11,8 +11,10 @@ the last line):
      nvcc per source, all started together, and reads from the library
      (cuobjdump -sass) the probe dots' tensor-core instructions (wgmma; for
      the s16/s32 byte-limb dots the u8 forms, and no operand loaded into
-     registers, so no CUDA-core dot loop) and the roll, bitcast and unpack
-     kernels' 128-bit global loads and stores;
+     registers, so no CUDA-core dot loop), the roll, bitcast and unpack
+     kernels' 128-bit global loads and stores, and the chained roll+add's
+     register instances' shuffles (SHFL, and no shared memory, barrier or
+     local memory: LDS, STS, BAR, LDL, STL);
   3. each kernel against its plain PyTorch version on the card, bit for bit,
      with both times (CUDA events), and the instance each case launched
      (ring size, tile, cluster and unit for the rotation; ring size, unit,
@@ -48,7 +50,10 @@ the last line):
           products; at the probe shape and, for s16 and s32, at
           [4096,4096]x[4096,4096]), roll, bitcast, unpack, and the chained
           dot (both units) and chained roll+add at every shape of
-          scripts/bench_hopper_prims.py; torch._int_mm on the same operands
+          scripts/bench_hopper_prims.py (the roll+add at 64 steps, where a
+          call is mostly its host path, and at 16,384, where it is the
+          kernel's time, in ns a step beside the step's bound, each on the
+          instance its shape selects); torch._int_mm on the same operands
           is the s8 dots' library time, float64 torch.matmul wrapped to int32
           the s16 dots' (s32 has none), and the chain's tile loop is timed by
           its cycle counter; the roll (int8, int16, int32), the bitcast and
@@ -112,6 +117,7 @@ JSON with the device.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -132,10 +138,14 @@ FIXTURE_MV_FUNCTIONS = (lambda x: (x + 1) % 4, lambda x: (3 * x) % 4)
 #: bytes/s; s8 multiply-adds/s on the tensor cores (1,979 TOP/s); 32-bit
 #: integer multiply-adds/s on the CUDA cores, half the float32 lanes' rate
 #: (67 TFLOP/s is 33.5 T fused multiply-adds/s on 128 lanes an SM, of which
-#: 64 take int32: 132 SMs x 64 x 1.98 GHz).
+#: 64 take int32: 132 SMs x 64 x 1.98 GHz); 32-bit integer adds/s, twice
+#: that: ptxas issues them as IADD3 to the integer ALUs and as IMAD to the FMA
+#: units, 64 lanes an SM a clock each, together the four schedulers' issue
+#: rate of 128 lanes (132 SMs x 128 x 1.98 GHz).
 PEAK_BYTES = 3.35e12
 PEAK_S8_MACS = 1979e12 / 2
 PEAK_INT32_MACS = 67e12 / 4
+PEAK_INT32_ADDS = 67e12 / 2
 SEED = 1234
 T_START = time.perf_counter()
 
@@ -176,9 +186,10 @@ def timed(fn):
 #: single-block instance for it; for probe_dot and chain_dot the s8 dots'
 #: earlier mma.sync tile, read on the card before the wgmma tile replaced
 #: it; for probe_dot at s16 and s32 the CUDA-core dot and for
-#: probe_unpack_s16 the word-a-thread unpack, read by
-#: scripts/bench_probe_versions.py before the byte-limb dot and the streaming
-#: split replaced them). Not measured by this run:
+#: probe_unpack_s16 the word-a-thread unpack, and for chain_roll_add the
+#: shared-memory chain at every width, read by scripts/bench_probe_versions.py
+#: before the byte-limb dot, the streaming split and the register-resident
+#: chain replaced them). Not measured by this run:
 #: they are printed in the log beside the new times and never enter the
 #: kernels line, which holds only what this run measured.
 EARLIER_MS = {
@@ -193,6 +204,8 @@ EARLIER_MS = {
     "probe_unpack_s16": {"[8,256]": 0.0179, "[5600,1024]": 0.0222},
     "probe_roll": {"int8 [8,256] by 5": 0.0157},
     "probe_bitcast_i32_to_i8": {"[8,256]": 0.0171},
+    "chain_roll_add": {"[128,1024] 16384 steps": 2.3616, "[128,128] 16384 steps": 1.1502,
+                       "[8,1024] 16384 steps": 2.3607, "[256,2048] 16384 steps": 5.9294},
     "chain_dot": {f"[{m},{k}]x[{k},{n}] per dot": ms for (m, k, n), ms in (
         ((128, 1024, 1024), 0.0327), ((1024, 1024, 128), 0.0547), ((256, 1024, 512), 0.0371),
         ((128, 4096, 1024), 0.0963), ((4096, 1024, 128), 0.1075), ((128, 1024, 4096), 0.0536),
@@ -237,14 +250,14 @@ def max_abs_err(out: torch.Tensor, ref: torch.Tensor) -> int:
     return int(((out.to(torch.int64) & 0xFFFFFFFF) - (ref.to(torch.int64) & 0xFFFFFFFF)).abs().max())
 
 
-def bound(nbytes: float, macs: float = 0.0, s8_limbs: int | None = None, int32_ops: float = 0.0) -> dict:
+def bound(nbytes: float, macs: float = 0.0, s8_limbs: int | None = None, int32_adds: float = 0.0) -> dict:
     """The least time the card could take, ms, and what binds it.
 
     nbytes: every input read once and every output written once. macs:
     multiply-adds on 32-bit words mod 2^32 when s8_limbs is the number of s8
     limb products one of them splits into (the better of the CUDA cores and
     the tensor cores is taken), or plain s8 multiply-adds when s8_limbs is
-    None. int32_ops: other 32-bit integer operations (adds), CUDA cores."""
+    None. int32_adds: 32-bit integer adds, CUDA cores."""
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     out = {"bytes_ms": bytes_ms}
     if s8_limbs is None:
@@ -254,10 +267,15 @@ def bound(nbytes: float, macs: float = 0.0, s8_limbs: int | None = None, int32_o
         out["s8_tensor_core_ms"] = macs * s8_limbs / PEAK_S8_MACS * 1e3
         out["s8_limbs_per_mac"] = s8_limbs
         ops_ms = min(out["int32_cuda_core_ms"], out["s8_tensor_core_ms"])
-    ops_ms += int32_ops / PEAK_INT32_MACS * 1e3
+    ops_ms += int32_adds / PEAK_INT32_ADDS * 1e3
     out["bound_ms"] = max(bytes_ms, ops_ms)
     out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return out
+
+
+def roll_add_instance(words: int) -> str:
+    """The chained roll+add's instance of E = `words` (`roll_add_words`; 0: shared memory), by name."""
+    return f"registers E={words}" if words else "shared"
 
 
 def rotation_bound(p, batch: int, tv_words: int, multibit: bool) -> dict:
@@ -340,15 +358,24 @@ def phase_build():
     limb_kernels = ("dot_limbs_tile_kernel", "dot_limbs_split_kernel")
     wgmma_kernels = ("dot_wgmma_s8_kernel", "chain_dot_wgmma_kernel") + limb_kernels
     copy_kernels = ("roll_kernel", "bitcast_i32_to_i8_kernel", "unpack_s16_kernel")
+    # and the chained roll+add's register instances, by E, every instruction by its name
     ops, kernel = {k: {} for k in wgmma_kernels + copy_kernels}, None
+    regs, e = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             kernel = next((k for k in ops if k in line), None)
-        elif kernel is not None and "*/" in line:
+            e = int(line.split("roll_add_regs_kernelILi")[1].split("E")[0]) if "roll_add_regs_kernelILi" in line else None
+            if e is not None:
+                regs[e] = collections.Counter()
+        elif (kernel is not None or e is not None) and "*/" in line:
             words = line.split("*/")[1].split()
             words = words[1:] if words and words[0].startswith("@") else words  # past a predicate
-            if words and ("MMA" in words[0] or words[0].startswith(("LDG", "STG", "LDS", "RED"))):
+            if not words:
+                continue
+            if kernel is not None and ("MMA" in words[0] or words[0].startswith(("LDG", "STG", "LDS", "RED"))):
                 ops[kernel][words[0]] = ops[kernel].get(words[0], 0) + 1
+            if e is not None:
+                regs[e][words[0].split(".")[0]] += 1
     print(f"[2] tensor-core instructions, loads and reductions of the probe dots (cuobjdump -sass): "
           f"{ {k: ops[k] for k in wgmma_kernels} }")
     check(all(any(op.startswith("IGMMA") for op in ops[k]) and not any(op.startswith("IMMA") for op in ops[k])
@@ -361,6 +388,19 @@ def phase_build():
     check(all(any(op.startswith(kind) and ".128" in op for op in ops[k])
               for k in copy_kernels for kind in ("LDG", "STG")),
           "the roll, bitcast and unpack kernels hold 128-bit global loads and stores (LDG/STG .128)")
+    # each register instance of the chained roll+add keeps its row in registers: shuffles, and no shared
+    # memory, barrier or local memory
+    from rs_tfhe_tpu_torch.ops import cuda_probes as CP
+
+    shown = {e: {"all": sum(c.values()), **{k: c[k] for k in ("IADD3", "IMAD", "SHFL", "LDS", "STS", "BAR", "LDL",
+                                                                 "STL", "LDG", "STG")}}
+             for e, c in sorted(regs.items())}
+    print(f"[2] the roll+add register instances by E, all instructions, adds, shuffles and memory instructions: "
+          f"{shown}")
+    check(sorted(regs) == sorted(CP.ROLL_ADD_WORDS), f"a register instance of the roll+add for each E in "
+                                                     f"{CP.ROLL_ADD_WORDS} (found {sorted(regs)})")
+    check(all(c["SHFL"] > 0 and not any(c[k] for k in ("LDS", "STS", "BAR", "LDL", "STL")) for c in shown.values()),
+          "the roll+add register instances hold SHFL and no LDS, STS, BAR, LDL or STL")
 
 
 def _rnd(g, dev):
@@ -1168,14 +1208,30 @@ def phase_probes_vs_plain(dev) -> dict:
                            "library_b_kmajor_ms": lib_kmajor_ms,
                            "tile_loop_ms": loop_ms, "mac_per_clk_per_sm": mac_clk, "sm_clock_mhz": clock_mhz,
                            "max_abs_err": 0})
+    # P7 at 64 steps, where a call is mostly its host path, and at 16,384, where it is the kernel's time; the
+    # extremes planted, since a wrong lane or register in the index map shows at them
     roll_adds = []
-    reps_chain = 4
     for rows_, cols in bench.ROLL_SHAPES:
         x = rnd((rows_, cols), torch.int32)
-        bnd = bound(8 * x.numel(), int32_ops=reps_chain * 16 * x.numel())
-        roll_adds.append(compare(f"chain_roll_add [{rows_},{cols}] {reps_chain * 16} steps",
-                                 lambda: CP.chain_roll_add(x, reps_chain), lambda: CP.chain_roll_add_plain(x, reps_chain),
-                                 bnd, reps=5))
+        x[0, :2] = torch.tensor([-(1 << 31), -1], dtype=torch.int32)
+        words = CP.roll_add_words(cols)
+        instance = roll_add_instance(words)
+        for reps_chain, timings in ((4, 5), (1024, 3)):
+            steps = 16 * reps_chain
+            before = CP.roll_add_launches.copy()
+            row = compare(f"chain_roll_add [{rows_},{cols}] {steps} steps",
+                          lambda: CP.chain_roll_add(x, reps_chain), lambda: CP.chain_roll_add_plain(x, reps_chain),
+                          bound(8 * x.numel(), int32_adds=steps * x.numel()), reps=timings,
+                          earlier=("chain_roll_add", f"[{rows_},{cols}] {steps} steps"))
+            ran = CP.roll_add_launches - before
+            check(set(ran) == {words}, f"chain_roll_add [{rows_},{cols}] ran its shape's instance "
+                                       f"{instance} (launches by E, 0 shared: {dict(ran)})")
+            row.update(instance=instance, ns_per_step=row["ms"] * 1e6 / steps,
+                       bound_ns_per_step=row["bound_ms"] * 1e6 / steps)
+            print(f"[3e]   {instance}: {row['ns_per_step']:.2f} ns a step, "
+                  f"{row['ns_per_step'] / row['bound_ns_per_step']:.2f}x the step's bound "
+                  f"{row['bound_ns_per_step']:.3g} ns")
+            roll_adds.append(row)
     print(f"[3e] done {elapsed()}")
 
     def entry(cases, main=0):
@@ -1186,7 +1242,7 @@ def phase_probes_vs_plain(dev) -> dict:
     return {
         "probe_dot": entry(dots), "probe_dot_correct_s16": entry(correct, main=1), "probe_roll": entry(rolls),
         "probe_bitcast_i32_to_i8": entry(bitcasts), "probe_unpack_s16": entry(unpacks),
-        "chain_dot": entry(chains, main=len(chains) - 1), "chain_roll_add": entry(roll_adds),
+        "chain_dot": entry(chains, main=len(chains) - 1), "chain_roll_add": entry(roll_adds, main=1),
     }
 
 
@@ -1350,6 +1406,7 @@ def main() -> int:
     probe_names = [k for k in SOURCES if k not in modules]
 
     path_tiles = {k: set() for k in modules}
+    roll_add_instances = collections.Counter()
 
     def drive(path, fn, *args):
         """Run one path with every launch count at 0 before it; return its
@@ -1358,9 +1415,11 @@ def main() -> int:
             m.launches = 0
             m.launched_tiles.clear()
         cuda_probes.launches.clear()
+        cuda_probes.roll_add_launches.clear()
         out = fn(*args)
         counts = {k: m.launches for k, m in modules.items()}
         counts.update({k: cuda_probes.launches[k] for k in probe_names})
+        roll_add_instances.update(cuda_probes.roll_add_launches)
         tiles = {k: tile_list(m.launched_tiles) for k, m in modules.items()}
         for k, m in modules.items():
             path_tiles[k].update(m.launched_tiles)
@@ -1433,6 +1492,8 @@ def main() -> int:
         }
         if name in modules:
             entry["tiles_on_path"] = tile_list(path_tiles[name])
+        if name == "chain_roll_add":
+            entry["launches_by_instance"] = {roll_add_instance(w): n for w, n in sorted(roll_add_instances.items())}
         if also:
             entry["also_replaces"] = also
         missing = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -1442,7 +1503,7 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": kernels, "main_path": results, "crossover_ms": crossover, "card": smi,
                       "peaks": {"bytes_per_s": PEAK_BYTES, "s8_macs_per_s": PEAK_S8_MACS,
-                                "int32_macs_per_s": PEAK_INT32_MACS}}))
+                                "int32_macs_per_s": PEAK_INT32_MACS, "int32_adds_per_s": PEAK_INT32_ADDS}}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -146,7 +146,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tfhe_probe_chain_dot.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, ctypes.POINTER(i), p,
     ]
-    lib.tfhe_probe_roll_add.argtypes = [p, p, i, i, i, p]
+    lib.tfhe_probe_roll_add.argtypes = [p, p, i, i, i, i, p]
     for name in ("dot_s8", "dot_limbs", "roll", "bitcast_i32_to_i8", "unpack_s16", "chain_dot", "roll_add"):
         getattr(lib, f"tfhe_probe_{name}").restype = i
     lib.tfhe_cuda_error_string.argtypes = [i]

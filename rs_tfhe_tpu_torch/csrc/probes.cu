@@ -27,22 +27,29 @@
 //     wgmma tile, each resident block walking its tiles) or, the same chain,
 //     on the CUDA cores, with the cycles spent inside the tile loop reported
 //     beside the result;
-//   - chained roll+add (bench_roll_add): x += roll(x, 1 + i) in shared memory.
+//   - chained roll+add (bench_roll_add): x += roll(x, 1 + i), each row in one
+//     warp's registers, the shifts unrolled into fixed shuffles (the widths of
+//     32 E words, E = 1, 2, 4, ..., 64), else in shared memory.
 //
 // Bounds: the dots are bound by operations (2 M K N integer operations against
 // M K + K N + 4 M N bytes, an s16 multiply-add 4 and an s32 one 10 s8
-// products on the tensor cores), the element-wise kernels by bytes. The
+// products on the tensor cores), the roll+add chain by its 32-bit adds (one a
+// word a step, at the SM's issue rate of 128 lanes a clock, which adds reach
+// on two pipes; for narrow or few rows by a warp's issue rate and the latency
+// of a step), the other element-wise kernels by bytes. The
 // tensor-core dots are designed for that bound (wgmma_s8.cuh says how), and so
 // are the roll, the bitcast and the unpack (16-byte vectors, several in flight
-// a thread); the CUDA-core unit of the chained dot is not tuned: 64 x 64
-// tiles, two warps a block, operands staged through shared memory without a
-// pipeline, occupancy hiding the latency.
+// a thread) and the roll+add (no memory traffic between its steps); the
+// CUDA-core unit of the chained dot is not tuned: 64 x 64 tiles, two warps a
+// block, operands staged through shared memory without a pipeline, occupancy
+// hiding the latency.
 
 #include <algorithm>
 #include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 #include <cuda_runtime.h>
 
@@ -825,7 +832,78 @@ chain_dot_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_c
   finish_chain(acc, fb, fm, k, n, steps, tiles, busy, ct == 0, gtid, gthreads, stats);
 }
 
-// x += roll(x, 1 + i) for i < 16, `reps` times, each row in shared memory.
+// The chained roll+add, replacing the TPU kernel of bench_roll_add (scripts/bench_kernel_prims.py:120):
+// x += roll(x, 1 + i) for i < 16, `reps` times, on int32 rows, each row alone. What bounds it: one 32-bit
+// add a word a step. ptxas issues adds to two pipes, IADD3 to the integer ALUs and IMAD to the FMA units,
+// 64 lanes an SM a clock each, so an SM adds at most at its four schedulers' issue rate, 128 lanes a
+// clock (PEAK_INT32_ADDS in chip_smoke.py). A step cannot start before the one before it has finished,
+// so for narrow or few rows a warp's issue rate (one instruction a clock) and the latency of a step (a
+// shuffle's round trip and an add, about 35 clocks) bind instead.
+//
+// The register instance (cols = 32 E) takes that away from memory: one warp a row, lane l holding words
+// l E .. l E + E - 1 in registers, the 16 shifts unrolled, so each source is fixed at compile time:
+// register j - s of the same lane for j >= s, else register (j - s) mod E of lane l - ceil((s - j) / E)
+// mod 32, fetched with a shuffle (the lane index wraps mod 32, which is the roll's wrap within the row).
+// A step is E adds and min(s, E) shuffles, the shuffles issued first so that the in-lane adds hide their
+// latency; no shared memory and no barrier. The row is loaded and stored once, 16 bytes a lane at a time
+// where E allows. One row (warp) a block, so the rows spread over the SMs and their schedulers; a
+// row's step is at least its E + min(16, E) instructions on one scheduler, so rows that leave schedulers
+// idle (fewer than 4 a SM) stay above the bound by that much.
+template <int E, int S>
+__device__ __forceinline__ void roll_add_step(uint32_t (&x)[E], int lane) {
+  constexpr int kFar = S < E ? S : E;  // registers fetched from other lanes
+  uint32_t far[kFar];
+#pragma unroll
+  for (int j = 0; j < kFar; ++j) {
+    const int q = (S - j + E - 1) / E;  // lanes back
+    far[j] = __shfl_sync(0xffffffffu, x[j - S + q * E], (lane - q) & 31);
+  }
+#pragma unroll
+  for (int j = E - 1; j >= kFar; --j) x[j] += x[j - S];  // downwards: x[j - S] is still the old word
+#pragma unroll
+  for (int j = 0; j < kFar; ++j) x[j] += far[j];
+}
+
+template <int E, int... S>
+__device__ __forceinline__ void roll_add_steps(uint32_t (&x)[E], int lane, std::integer_sequence<int, S...>) {
+  (roll_add_step<E, S + 1>(x, lane), ...);
+}
+
+template <int E>
+__global__ void __launch_bounds__(32) roll_add_regs_kernel(const int32_t* __restrict__ in,
+                                                           int32_t* __restrict__ out, int reps) {
+  static_assert(E == 1 || E == 2 || E % 4 == 0, "a lane's words load as 4-, 8- or 16-byte vectors");
+  const int lane = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * (32 * E) + static_cast<size_t>(lane) * E;
+  uint32_t x[E];
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < E / 4; ++v) {
+      const uint4 w = reinterpret_cast<const uint4*>(in + base)[v];
+      x[4 * v] = w.x, x[4 * v + 1] = w.y, x[4 * v + 2] = w.z, x[4 * v + 3] = w.w;
+    }
+  } else if constexpr (E == 2) {
+    const uint2 w = *reinterpret_cast<const uint2*>(in + base);
+    x[0] = w.x, x[1] = w.y;
+  } else {
+    x[0] = static_cast<uint32_t>(in[base]);
+  }
+  for (int r = 0; r < reps; ++r) roll_add_steps(x, lane, std::make_integer_sequence<int, 16>{});
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < E / 4; ++v)
+      reinterpret_cast<uint4*>(out + base)[v] = make_uint4(x[4 * v], x[4 * v + 1], x[4 * v + 2], x[4 * v + 3]);
+  } else if constexpr (E == 2) {
+    *reinterpret_cast<uint2*>(out + base) = make_uint2(x[0], x[1]);
+  } else {
+    out[base] = static_cast<int32_t>(x[0]);
+  }
+}
+
+// The shared-memory instance, for the widths the register instance does not take: cols not 32 E for an
+// instantiated E (a row of 32 E words unrolls into E registers a lane and 16 E adds, so each E is an
+// instance of its own), up to 6144, a row and its double buffer in 48 KB. One block a row; each step two
+// shared loads, a store and an add a word, then a barrier: bound by shared-memory traffic and barriers.
 __global__ void roll_add_chain_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                                       int cols, int reps) {
   extern __shared__ __align__(16) unsigned char chain_smem[];
@@ -1115,13 +1193,30 @@ int tfhe_probe_chain_dot(const void* a0, const void* b, void* bt, void* a_cur, v
   return launch_chain(kern, wgmma_s8::kThreads, wgmma_s8::kSmemBytes, tiles, args, grid_out, s);
 }
 
-// out int32 [rows, cols] = in after reps * 16 steps of x += roll(x, 1 + i).
-int tfhe_probe_roll_add(const void* in, void* out, int rows, int cols, int reps, void* stream) {
-  if (rows < 1 || cols < 1 || reps < 0 || static_cast<size_t>(cols) * 8 > 49152)
-    return static_cast<int>(cudaErrorInvalidValue);
-  roll_add_chain_kernel<<<rows, row_threads(cols), static_cast<size_t>(cols) * 8,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(in), static_cast<int32_t*>(out), cols, reps);
+// out int32 [rows, cols] = in after reps * 16 steps of x += roll(x, 1 + i). words = E > 0 takes the
+// register instance (cols = 32 E, E one of 1, 2, 4, ..., 64; in and out 16-byte aligned), one row a
+// block; words = 0 the shared-memory instance (cols up to 6144), one row a block.
+int tfhe_probe_roll_add(const void* in, void* out, int rows, int cols, int reps, int words, void* stream) {
+  if (rows < 1 || cols < 1 || reps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto x = static_cast<const int32_t*>(in);
+  auto y = static_cast<int32_t*>(out);
+  if (words == 0) {
+    if (static_cast<size_t>(cols) * 8 > 49152) return static_cast<int>(cudaErrorInvalidValue);
+    roll_add_chain_kernel<<<rows, row_threads(cols), static_cast<size_t>(cols) * 8, s>>>(x, y, cols, reps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (cols != 32 * words || !aligned16(in, out)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (words) {
+    case 1: roll_add_regs_kernel<1><<<rows, 32, 0, s>>>(x, y, reps); break;
+    case 2: roll_add_regs_kernel<2><<<rows, 32, 0, s>>>(x, y, reps); break;
+    case 4: roll_add_regs_kernel<4><<<rows, 32, 0, s>>>(x, y, reps); break;
+    case 8: roll_add_regs_kernel<8><<<rows, 32, 0, s>>>(x, y, reps); break;
+    case 16: roll_add_regs_kernel<16><<<rows, 32, 0, s>>>(x, y, reps); break;
+    case 32: roll_add_regs_kernel<32><<<rows, 32, 0, s>>>(x, y, reps); break;
+    case 64: roll_add_regs_kernel<64><<<rows, 32, 0, s>>>(x, y, reps); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

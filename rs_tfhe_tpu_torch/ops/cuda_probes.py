@@ -15,7 +15,9 @@ scripts/probe_mosaic.py and scripts/bench_kernel_prims.py:
                            a streaming split of 16-byte vectors
   chain_dot                bench_dot's chain of dependent s8 dots, on the
                            tensor cores or on the CUDA cores
-  chain_roll_add           bench_roll_add's chain of x += roll(x, 1 + i)
+  chain_roll_add           bench_roll_add's chain of x += roll(x, 1 + i): a
+                           row in a warp's registers where its width is 32 E
+                           for an instantiated E, else in shared memory
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and adds one to
 `launches[<its name>]`; on a CPU tensor it returns the plain version
@@ -52,6 +54,14 @@ DOT_TILE = {"tensor": 128, "imad": 64}
 #: The tensor-core dot's K is a multiple of this: TMA copies rows of a
 #: multiple of 16 bytes.
 TENSOR_K = 16
+#: The words a lane (E, a row of 32 E words) of the chained roll+add's
+#: register instances (csrc/probes.cu); every other width takes the
+#: shared-memory instance, which holds a row and its double buffer in 48 KB.
+ROLL_ADD_WORDS = (1, 2, 4, 8, 16, 32, 64)
+ROLL_ADD_SHARED_COLS = 6144
+#: Launches of `chain_roll_add` by instance: its E (`roll_add_words`), 0 for
+#: the shared-memory instance.
+roll_add_launches: collections.Counter = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +197,35 @@ def chain_roll_add_plain(x: torch.Tensor, reps: int) -> torch.Tensor:
         for i in range(16):
             x = x + torch.roll(x, 1 + i, dims=1)
     return x
+
+
+def roll_add_source(words: int, shift: int, j: int) -> tuple[int, int]:
+    """Where register j of a lane of the register instance (E = `words`
+    words a lane, lane l holding words l E + j) reads word l E + j - shift
+    from: (q, r), register r of lane (l - q) mod 32. q = 0 (the lane's own
+    register j - shift) for j >= shift, else ceil((shift - j) / E): the
+    lane wraps mod 32, as the roll wraps within the row."""
+    if j >= shift:
+        return 0, j - shift
+    q = -(-(shift - j) // words)
+    return q, j - shift + q * words
+
+
+def chain_roll_add_lanes_plain(x: torch.Tensor, reps: int) -> torch.Tensor:
+    """`chain_roll_add_plain` by the register instance's index map: each row
+    of 32 E words as 32 lanes of E registers, each step's sources from
+    `roll_add_source`. For the tests."""
+    rows, cols = x.shape
+    if cols % 32:
+        raise ValueError(f"the register instance takes rows of 32 E words, got {cols}")
+    words = cols // 32
+    lanes = torch.arange(32, device=x.device)
+    v = x.reshape(rows, 32, words)
+    for _ in range(reps):
+        for shift in range(1, 17):
+            src = [roll_add_source(words, shift, j) for j in range(words)]
+            v = v + torch.stack([v[:, (lanes - q) % 32, r] for q, r in src], dim=2)
+    return v.reshape(rows, cols)
 
 
 # ---------------------------------------------------------------------------
@@ -454,16 +493,31 @@ def chain_dot(a0: torch.Tensor, b: torch.Tensor, steps: int, unit: str = "tensor
     return ChainDot(acc, fb, stats, blocks.value)
 
 
+def roll_add_words(cols: int) -> int:
+    """The instance a row of `cols` words takes: E where cols = 32 E for E in
+    ROLL_ADD_WORDS (the register instance, one warp a row), else 0 (the
+    shared-memory instance, up to ROLL_ADD_SHARED_COLS); wider rows raise."""
+    if cols % 32 == 0 and cols // 32 in ROLL_ADD_WORDS:
+        return cols // 32
+    if cols > ROLL_ADD_SHARED_COLS:
+        raise ValueError(f"chain_roll_add takes rows of 32 E words for E in {ROLL_ADD_WORDS} "
+                         f"or of at most {ROLL_ADD_SHARED_COLS} words, got {cols}")
+    return 0
+
+
 def chain_roll_add(x: torch.Tensor, reps: int) -> torch.Tensor:
-    """bench_roll_add's chain (`chain_roll_add_plain`) in one launch, one
-    block a row, the row in shared memory."""
+    """bench_roll_add's chain (`chain_roll_add_plain`) in one launch, on the
+    instance `roll_add_words` picks from the width (counted in
+    `roll_add_launches`)."""
     on_cuda = _check("x", x, (torch.int32,))
     if not 0 <= reps <= _MAX_CHAIN_STEPS:
         raise ValueError(f"reps = {reps} outside [0, {_MAX_CHAIN_STEPS}]")
     if not on_cuda:
         return chain_roll_add_plain(x, reps)
     rows, cols = x.shape
+    words = roll_add_words(cols)
     out = torch.empty_like(x)
     _launch("chain_roll_add", "tfhe_probe_roll_add",
-            x.data_ptr(), out.data_ptr(), rows, cols, reps, index=x.get_device())
+            x.data_ptr(), out.data_ptr(), rows, cols, reps, words, index=x.get_device())
+    roll_add_launches[words] += 1
     return out

@@ -9,8 +9,10 @@ counterpart of scripts/bench_kernel_prims.py for the PyTorch port.
     cores (64 x 64 tiles). For each, the multiply-adds per clock inside the
     tile loop (cycle counter) of the SM that ran the most tiles, the number
     that says what one SM sustains;
-  - chains of x += roll(x, 1 + i) on int32 rows in shared memory: us per op
-    and TB/s of words produced;
+  - chains of x += roll(x, 1 + i) on int32 rows, each on the instance its
+    shape selects (a row in a warp's registers where its width is 32 E for an
+    instantiated E, else in shared memory): us per op and TB/s of words
+    produced;
   - the wrappers' host path: P1-P5 at their probe shapes, where the time a
     call takes is the wrapper's and not the kernel's, P2 and P3 on one word
     (the floor) and the PyTorch calls beside them (torch.roll, view, a
@@ -117,10 +119,12 @@ def bench_roll_add(rows, cols, device, label="", target_ms=TARGET_MS) -> dict:
     x = _rand(device, (rows, cols), torch.int32, SEED + 2)
     reps, ms, _ = _sized(lambda r: CP.chain_roll_add(x, r), 64, target_ms, 1 << 20)
     per = ms * 1e-3 / (reps * 16)
+    words = CP.roll_add_words(cols)
+    instance = f"registers E={words}" if words else "shared"
     row = {"rows": rows, "cols": cols, "us_per_op": per * 1e6, "tb_per_s": rows * cols * 4 / per / 1e12,
-           "reps": reps}
-    print(f"roll+add i32 [{rows:4},{cols:4}]: {row['us_per_op']:8.3f} us/op  {row['tb_per_s']:6.2f} TB/s  {label}",
-          flush=True)
+           "reps": reps, "instance": instance}
+    print(f"roll+add i32 [{rows:4},{cols:4}]: {row['us_per_op']:8.3f} us/op  {row['tb_per_s']:6.2f} TB/s  "
+          f"({instance})  {label}", flush=True)
     return row
 
 
@@ -340,7 +344,7 @@ def main(device=None, target_ms=TARGET_MS, chains=True) -> dict:
         for title, shapes in DOT_SHAPES:
             print(f"--- {title} ---")
             dots += [bench_dot(m, k, n, device, label, target_ms) for m, k, n, label in shapes]
-        print("--- shared-memory roll+add rates ---")
+        print("--- roll+add rates ---")
         rolls += [bench_roll_add(r, c, device, target_ms=target_ms) for r, c in ROLL_SHAPES]
     print("--- the wrappers' host path ---")
     launch_path = bench_launch_path(device)

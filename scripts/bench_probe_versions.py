@@ -1,6 +1,7 @@
-"""Times the probe dots (P1 at s8, s16 and s32, P6's chained s8 dot) and the
-s16 unpack (P4) of one or more checkouts of this repository on one CUDA
-card, so that two versions compare within one call, on one card.
+"""Times the probe dots (P1 at s8, s16 and s32, P6's chained s8 dot), the
+s16 unpack (P4) and the chained roll+add (P7) of one or more checkouts of
+this repository on one CUDA card, so that two versions compare within one
+call, on one card.
 
 Usage: python scripts/bench_probe_versions.py ROOT [ROOT ...]
 
@@ -23,12 +24,23 @@ Cases (ms a call):
     at the FAST cloud key's bsk as [5600,1024] (`device_ms`: the calls
     enqueued behind a sleep kernel, inputs rotating through copies that
     span three times the L2);
+  - P7 `chain_roll_add` at the four shapes of
+    scripts/bench_hopper_prims.py's ROLL_SHAPES, as a long chain (LONG_REPS
+    x 16 steps, events over a few calls: the device time, reported as ns a
+    step beside the step's bound, one 32-bit add a word at the SM's issue
+    rate, IADD3 and IMAD on two pipes) and as the 64-step call of
+    chip_smoke.py (events over calls
+    back to back, and the median host clock of a call: its host path); with
+    the instance the wrapper picked (E, 0 for shared memory) where the
+    checkout records one;
   - beside them the PyTorch calls that compute the same function: float64
     `torch.matmul` with the int64 wrap to int32 (s8, s16) and the
-    `permute(2, 0, 1).contiguous()` of the words' int16 view (P4).
+    `permute(2, 0, 1).contiguous()` of the words' int16 view (P4); none
+    computes P7.
 The last line is one JSON object: the card and the times by ROOT and run.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -38,6 +50,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PROBE_SHAPE = (128, 1024, 256)
 BIG = (4096, 4096, 4096)
 UNPACK_SHAPES = ((8, 256), (5600, 1024))
+#: Repetitions of P7's 16 steps in its long chain, and in chip_smoke.py's short one.
+LONG_REPS = 1024
+SHORT_REPS = 4
+#: 32-bit integer adds a second on the CUDA cores of one H100 SXM (chip_smoke.py's PEAK_INT32_ADDS).
+PEAK_INT32_ADDS = 67e12 / 2
 
 
 def _measure(root: str) -> dict:
@@ -106,6 +123,23 @@ def _measure(root: str) -> dict:
             case(name, lambda: CP.probe_unpack_s16(x), lambda: CP.unpack_s16_plain(x), B.device_ms, 20,
                  B.rotating(planes, xs), timed=B.rotating(CP.probe_unpack_s16, xs))
             del xs
+
+    for rows, cols in B.ROLL_SHAPES:
+        x = B._rand(dev, (rows, cols), torch.int32, 6)
+        bound_ns = rows * cols / PEAK_INT32_ADDS * 1e9
+        for reps, calls in ((LONG_REPS, 3), (SHORT_REPS, 200)):
+            steps = 16 * reps
+            name = f"P7 chain_roll_add [{rows},{cols}] {steps} steps"
+            before = collections.Counter(getattr(CP, "roll_add_launches", ()))
+            case(name, lambda: CP.chain_roll_add(x, reps), lambda: CP.chain_roll_add_plain(x, reps), B._calls_ms,
+                 calls)
+            row = out[name]
+            # a checkout without a per-instance count has the shared-memory instance alone
+            row["instance"] = sorted(collections.Counter(getattr(CP, "roll_add_launches", ())) - before) or [0]
+            if reps == LONG_REPS:
+                row.update(ns_per_step=row["ms"] * 1e6 / steps, bound_ns_per_step=bound_ns)
+                print(f"    {row['ns_per_step']:.2f} ns a step, {row['ns_per_step'] / bound_ns:.2f}x its bound "
+                      f"{bound_ns:.2f} ns, E {row['instance']}", flush=True)
     return out
 
 

@@ -772,14 +772,23 @@ def test_chain_dot_tensor_more_tiles_than_sms(dev, shape):
     assert res.blocks < tiles
 
 
-@pytest.mark.parametrize("shape", [(128, 1024), (128, 128), (8, 1024), (256, 2048), (3, 17)])
-def test_chain_roll_add_matches_plain(dev, shape):
-    """Random input: with ones the chain doubles each step and is 0 mod 2^32
-    after 32 of them."""
+@pytest.mark.parametrize("reps", [3, 0])
+@pytest.mark.parametrize("shape", [(128, 1024), (128, 128), (8, 1024), (256, 2048), (3, 17),
+                                   (1, 32), (5, 64), (2, 2080), (1, 6144), (601, 256), (301, 512)])
+def test_chain_roll_add_matches_plain(dev, shape, reps):
+    """Random input (with ones the chain doubles each step and is 0 mod 2^32
+    after 32 of them), 0x80000000 and 0xFFFFFFFF planted, on the instance the
+    shape selects: the register instance at each instantiated width (32 to
+    2048 words), the shared-memory one (0) at the others."""
     x = _rand(dev, shape, torch.int32, 66)
-    out = CP.chain_roll_add(x, 3)
+    x[0, :2] = torch.tensor([-(1 << 31), -1], dtype=torch.int32)
+    words = CP.roll_add_words(shape[1])
+    assert (words > 0) == (shape[1] in (32, 64, 128, 256, 512, 1024, 2048))
+    before = CP.roll_add_launches.copy()
+    out = CP.chain_roll_add(x, reps)
     torch.cuda.synchronize()
-    assert torch.equal(out, CP.chain_roll_add_plain(x, 3))
+    assert CP.roll_add_launches - before == {words: 1}
+    assert torch.equal(out, CP.chain_roll_add_plain(x, reps))
 
 
 def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -540,3 +540,79 @@ def test_chain_roll_add_plain_matches_numpy_transcription():
     np.testing.assert_array_equal(_u32(CP.chain_roll_add(_t(x), 2).numpy()), want)
     with pytest.raises(TypeError):
         CP.chain_roll_add(_t(x).to(torch.int16), 1)
+
+
+# P7's register instance: a row of 32 E words as 32 lanes of E registers, each
+# step's sources fixed at compile time (cuda_probes.roll_add_source)
+
+_REGISTER_COLS = [32 * e for e in CP.ROLL_ADD_WORDS]
+
+
+def _roll_add_input(rng, shape):
+    """Full-range random int32 with 0x80000000 and 0xFFFFFFFF planted."""
+    x = _rand(rng, shape, np.int32)
+    x[0, :2] = [np.iinfo(np.int32).min, -1]
+    return x
+
+
+class _RandomOnesWithExtremes(_RandomOnes):
+    def ones(self, shape, dtype):
+        arr = self.rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max + 1, shape).astype(np.int32)
+        arr[0, :2] = [np.iinfo(np.int32).min, -1]
+        self.made.append(arr)
+        return jnp.asarray(arr)
+
+
+@pytest.mark.parametrize("words", CP.ROLL_ADD_WORDS)
+def test_roll_add_source_is_the_cyclic_roll(words):
+    """Register j of lane l reads word (l E + j - s) mod 32 E, for every
+    lane, register and shift, the shifts above E (E = 1, 2, 4, 8) included:
+    the lane wraps mod 32 as the roll wraps within the row."""
+    cols = 32 * words
+    for shift in range(1, 17):
+        for j in range(words):
+            q, r = CP.roll_add_source(words, shift, j)
+            assert 0 <= r < words and 0 <= q <= -(-shift // words)
+            assert (q == 0) == (j >= shift)
+            for lane in range(32):
+                assert ((lane - q) % 32) * words + r == (lane * words + j - shift) % cols
+
+
+@pytest.mark.parametrize("reps", [0, 1, 3])
+@pytest.mark.parametrize("cols", _REGISTER_COLS)
+def test_roll_add_lane_map_matches_chain_roll_add_plain(cols, reps):
+    x = _t(_roll_add_input(np.random.default_rng(110 + cols + reps), (3, cols)))
+    assert torch.equal(CP.chain_roll_add_lanes_plain(x, reps), CP.chain_roll_add_plain(x, reps))
+
+
+@pytest.mark.parametrize("cols", _REGISTER_COLS)
+def test_roll_add_lane_map_matches_tpu_bench_roll_add(scripts, cols):
+    """The TPU kernel at its own chain length (TARGET_SECS = 0: 8 grid steps
+    of 16), on random full-range rows with the extremes planted."""
+    _, bench = scripts
+    shim = _RandomOnesWithExtremes(111)
+    bench.jnp = shim
+    bench.kept.clear()
+    try:
+        bench.bench_roll_add(4, cols)
+    finally:
+        bench.jnp = jnp
+    out = CP.chain_roll_add_lanes_plain(_t(shim.made[0]), 8).numpy()
+    np.testing.assert_array_equal(out, bench.kept[-1])
+
+
+def test_roll_add_plan_selects_the_instance_by_shape():
+    """Register instance (E) at cols = 32 E for E in ROLL_ADD_WORDS, whatever
+    the rows; shared memory (0) at other widths up to 6144; wider rows raise.
+    A CPU tensor takes the plain version and counts no launch."""
+    assert [CP.roll_add_words(c) for c in (1024, 128, 1024, 2048)] == [32, 4, 32, 64]
+    assert [CP.roll_add_words(c) for c in _REGISTER_COLS] == list(CP.ROLL_ADD_WORDS)
+    for cols in (17, 96, 4096, 2080, 6144):
+        assert CP.roll_add_words(cols) == 0
+    for cols in (6145, 8192):
+        with pytest.raises(ValueError, match="6144"):
+            CP.roll_add_words(cols)
+    before = CP.roll_add_launches.copy()
+    x = _t(_roll_add_input(np.random.default_rng(112), (2, 64)))
+    assert torch.equal(CP.chain_roll_add(x, 2), CP.chain_roll_add_plain(x, 2))
+    assert CP.roll_add_launches == before

@@ -28,7 +28,10 @@ the last line):
           that takes the instance of B = 2048; N = 2048) and
           SECURITY_128_BIT_NIBBLE B = 1 (N = 4096), then every other
           (tile, cluster) instance the wrapper picks for a batch up to 128 at
-          FAST (the batches circuits launch), compared without timing;
+          FAST (the batches circuits launch) and for the batches phases 13
+          and 14 give it at RADIX and NIBBLE (RADIX_BATCHES,
+          NIBBLE_BATCHES), each at the smallest batch that takes the
+          instance, compared without timing;
        3b the multi-bit rotation at the batches `auto` sends it (at most
           `mb_route_batch_cap`: 2 at FAST, 4 at L = 3), each on the cluster
           instance: FAST B = 1 and 2 (shared and per-ciphertext test vectors,
@@ -71,8 +74,9 @@ the last line):
   4. the card against the JAX package through the committed fixtures
      tests/vectors/torch_port_tiny.npz, torch_port_tiny_mb.npz (with a NAND
      at B = 5 above the multi-bit route's cap, which must take the
-     whole-rotation kernel) and torch_port_tiny_circuits.npz (TEST_TINY, bit
-     for bit);
+     whole-rotation kernel), torch_port_tiny_circuits.npz and
+     torch_port_tiny_radix.npz (radix arithmetic, sort_radix and the typed
+     API with a standard and a multi-bit key) (TEST_TINY, bit for bit);
   5. the gate path at full width, SECURITY_128_BIT_FAST: keygen on the card,
      4096 encrypted bit pairs through batch_gate("nand"), decrypted 100%
      correct, gates/s, and B = 1 latency as the slope between chains of 5
@@ -105,8 +109,22 @@ the last line):
      kernels run (plan groups of at most 2 gates the multi-bit one);
  12. multi-value bootstrapping at SECURITY_128_BIT_RADIX: two LUTs from one
      rotation on B = 2048 messages, each output decrypting to what the
-     dedicated bootstrap_with_testvec gives.
-Each path of phases 5-12 is driven with the kernels' launch counts set to 0
+     dedicated bootstrap_with_testvec gives;
+ 13. radix arithmetic at SECURITY_128_BIT_RADIX with a multi-bit key (the
+     JAX bench's cases, scripts/bench_suite.py:377-411): add_radix base 16
+     D = 2 and base 8 D = 3 (both ways) on B = 64, sub_radix,
+     compare_radix, min_radix and select_radix at D = 3, B = 64,
+     radix_to_bits -> bits_to_radix on B = 16, sort_radix of 8 values of two
+     base-8 digits, add_radix at B = 1 (every batch on the multi-bit
+     kernel), and FheUintRadix +, * and < on B = 16; each decrypted against
+     numpy, with its host-clock time, its launches of both rotation kernels
+     and, for three of them, the device time by kernel (torch.profiler);
+ 14. mul_radix at SECURITY_128_BIT_NIBBLE with a standard key, 8 x 8 bits
+     (base 4, D = 4) on B = 16 pairs, both ways (the JAX bench's
+     mul8x8_b16_NIBBLE(_mv), scripts/bench_suite.py:464-476), decrypted
+     exact; then FheUint(8) +, < and select at SECURITY_128_BIT_FAST on
+     B = 16 through the typed API.
+Each path of phases 5-14 is driven with the kernels' launch counts set to 0
 just before it and read just after; every kernel of a path must have
 launched, and every instance a path launched (the whole key: ring size,
 tile, cluster, unit) must be one that phase 3 held against the plain
@@ -131,6 +149,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny.npz")
 FIXTURE_MB = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_mb.npz")
 FIXTURE_CIRCUITS = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_circuits.npz")
+FIXTURE_RADIX = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_radix.npz")
+#: The radix fixture's digit base (scripts/gen_torch_port_vectors.py RADIX_BASE_BITS).
+FIXTURE_RADIX_BASE_BITS = 2
+#: The batches phase 13 gives the whole-rotation kernel at RADIX (B = 64:
+#: add 2B and B, the complement D B, compare 2D B, 2B and 3B, select B, 2D B
+#: and D B; B = 16: the casts D b B and D B, FheUintRadix (base 2, D = 4) +
+#: 2B and B, * 2D B, 2D^2 B, 2B and B, < 2D B, 2B and 3B; sort_radix's
+#: stages on 4 pairs: 16, 12, 8, 32 and 16), and those phase 14 gives it at
+#: NIBBLE (mul_radix on B = 16 at D = 4: 2D B, 2D^2 B or D^2 B, and the
+#: columns' 2B and B), as a run on the CPU records them. Phase 3a holds the
+#: instance of each against the plain version.
+RADIX_BATCHES = (8, 12, 16, 32, 48, 64, 128, 144, 192, 384, 512)
+NIBBLE_BATCHES = (16, 32, 128, 256, 512)
 #: The circuit fixture's LUT family (scripts/gen_torch_port_vectors.py MV_FUNCTIONS, MV_MODULUS).
 FIXTURE_MV_MODULUS = 4
 FIXTURE_MV_FUNCTIONS = (lambda x: (x + 1) % 4, lambda x: (3 * x) % 4)
@@ -473,6 +504,15 @@ def phase_kernel_vs_plain(dev) -> dict:
     for batch in range(1, 129):
         by_instance[instance_of(fast, batch, fast_bsk)] = batch
     cases += [(fast, fast_bsk, batch, False, False) for inst, batch in sorted(by_instance.items()) if inst not in held]
+    held.update(by_instance)
+    # the instances of the radix phases' batches, each at the smallest batch that takes it
+    for p, bsk, batches in ((p_radix, radix_bsk, RADIX_BATCHES), (p_nibble, nibble_bsk, NIBBLE_BATCHES)):
+        for batch in batches:
+            inst = instance_of(p, batch, bsk)
+            if inst not in held:
+                held.add(inst)
+                cases.append((p, bsk, next(b for b in range(1, batch + 1) if instance_of(p, b, bsk) == inst),
+                              False, False))
     max_err, rows, tiles = 0, {}, set()
     for p, bsk, batch, per_ct, timed_case in cases:
         n = p.n1
@@ -742,7 +782,45 @@ def phase_fixture(dev) -> None:
     for k, f in enumerate(FIXTURE_MV_FUNCTIONS):
         got = lwe_decrypt_message(outputs["multi_value"][:, k], sk.lv0, FIXTURE_MV_MODULUS)
         check(bool((got == f(v["msgs"])).all()), f"fixture multi-value output {k} decrypts")
+
+    v = np.load(FIXTURE_RADIX)
+    before = rotation_launches()
+    compare(radix_fixture_outputs(v, dev), v, os.path.basename(FIXTURE_RADIX))
+    now = rotation_launches()
+    check(now[0] > before[0] and now[1] > before[1], "the radix fixture ran on both rotation kernels")
     print(f"[4] done {elapsed()}")
+
+
+def radix_fixture_outputs(v, dev) -> dict:
+    """The port's outputs for the radix fixture's stored JAX outputs, from its
+    keys and ciphertexts on `dev` (as tests/test_torch_fixture.py replays
+    them on the CPU)."""
+    from rs_tfhe_tpu_torch import fhe, key
+    from rs_tfhe_tpu_torch.models import arithmetic as A
+    from rs_tfhe_tpu_torch.models.sort import sort_radix
+    from rs_tfhe_tpu_torch.params import TEST_TINY
+    from rs_tfhe_tpu_torch.torus import to_torch
+
+    bb = FIXTURE_RADIX_BASE_BITS
+    ck_mb = key.cloud_key_from_numpy(v, TEST_TINY, dev)
+    ck = key.cloud_key_from_numpy({k: v[k] for k in ("testvec", "bsk", "ksk_limbs")}, TEST_TINY, dev)
+    x, y, sel, srt, u, w = (to_torch(v[n], dev) for n in ("ct_x", "ct_y", "ct_sel", "ct_sort", "ct_u", "ct_v"))
+    bits = A.radix_to_bits(x, ck, bb)
+    xr, yr = fhe.FheUintRadix(x, bb, ck_mb), fhe.FheUintRadix(y, bb, ck_mb)
+    fu, fw = fhe.FheUint(u, ck), fhe.FheUint(w, ck)
+    return {
+        "add_radix_mv": A.add_radix(x, y, ck, bb, multi_value=True),
+        "sub_radix": A.sub_radix(x, y, ck, bb),
+        "compare_radix": torch.stack(A.compare_radix(x, y, ck, bb)),
+        "radix_to_bits": bits,
+        "bits_to_radix": A.bits_to_radix(bits, ck, bb),
+        "add_radix": A.add_radix(x, y, ck_mb, bb),
+        "mul_radix": A.mul_radix(x, y, ck_mb, bb),
+        "select_radix": A.select_radix(sel, x, y, ck_mb, bb),
+        "sort_radix": sort_radix(srt, ck_mb, bb, descending=True),
+        "fhe_radix_expr": (xr + yr).max(xr).digits,
+        "fhe_uint_expr": ((fu + fw) ^ fw).bits,
+    }
 
 
 def _keygen(p, dev, seed, multibit=False):
@@ -960,9 +1038,8 @@ def _stage_split(ct, lut, ck) -> dict:
     return {n: round(ev[i].elapsed_time(ev[i + 1]), 3) for i, n in enumerate(names)}
 
 
-def _profile_split(fn) -> dict:
-    """Device time by kernel of one fn() call, from torch.profiler (the
-    first ten by time, the rest summed)."""
+def _device_times(fn) -> list:
+    """[(kernel name, device ms)] of one fn() call, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -974,8 +1051,14 @@ def _profile_split(fn) -> dict:
         if dev_us is None:
             dev_us = getattr(evt, "cuda_time_total", 0)
         if dev_us and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            rows.append((evt.key[:60], dev_us / 1e3))
-    rows.sort(key=lambda r: -r[1])
+            rows.append((evt.key, dev_us / 1e3))
+    return rows
+
+
+def _profile_split(fn) -> dict:
+    """Device time by kernel of one fn() call (the first ten by time, the
+    rest summed)."""
+    rows = sorted(((k[:60], ms) for k, ms in _device_times(fn)), key=lambda r: -r[1])
     split = {k: round(v, 3) for k, v in rows[:10]}
     split["other"] = round(sum(v for _, v in rows[10:]), 3)
     split["total"] = round(sum(v for _, v in rows), 3)
@@ -1379,6 +1462,149 @@ def run_multi_value(p, dev, label: str) -> dict:
     return {"multi_value_ms_b2048": mv_ms, "dedicated_ms_b2048": dedicated_ms, "n_luts": len(fs)}
 
 
+def _kernel_share(fn) -> dict:
+    """Device time of one fn() call: the rotation kernels (names with
+    blind_rotate), the key switch's int8 products (cuBLAS gemm kernels) and
+    the rest, ms."""
+    share = {"rotation_ms": 0.0, "key_switch_ms": 0.0, "other_ms": 0.0}
+    for name, ms in _device_times(fn):
+        name = name.lower()
+        slot = ("rotation_ms" if "blind_rotate" in name else
+                "key_switch_ms" if any(k in name for k in ("gemm", "xmma", "cutlass", "int_mm")) else "other_ms")
+        share[slot] += ms
+    share["device_ms"] = sum(share.values())
+    share["rotation_share"] = share["rotation_ms"] / share["device_ms"] if share["device_ms"] else 0.0
+    return {k: round(v, 4) for k, v in share.items()}
+
+
+def _radix_op(label: str, name: str, fn, ok, results: dict, repeats: int = 2, profile: bool = False):
+    """Run one radix operation `repeats` times, host clock to the synchronise
+    each; check its result with ok(out); record the times, the launches of
+    both rotation kernels in the first run and, with `profile`, the device
+    time by kernel of one more run."""
+    times, launches = [], None
+    for _ in range(repeats):
+        before = rotation_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        now = rotation_launches()
+        launches = launches or {"K1": now[0] - before[0], "K4": now[1] - before[1]}
+        check(bool(ok(out)), f"{label}: {name} decrypts to the numpy answer")
+    row = {"ms": times, **launches}
+    if profile:
+        row["by_kernel"] = _kernel_share(fn)
+    results[name] = row
+    print(f"[{label}] {name}: correct; {' / '.join(f'{t:.1f}' for t in times)} ms (host clock, "
+          f"{'cold / warm' if repeats > 1 else 'one run'}); launches K1 {launches['K1']}, K4 {launches['K4']}"
+          + (f"; by kernel {json.dumps(row['by_kernel'])}" if profile else ""))
+    return out
+
+
+def run_radix(p, dev, label: str) -> dict:
+    """Radix arithmetic at full width with a multi-bit key (the JAX bench's
+    radix cases), every result decrypted against numpy."""
+    from rs_tfhe_tpu_torch import fhe
+    from rs_tfhe_tpu_torch.models import arithmetic as A
+    from rs_tfhe_tpu_torch.models.sort import sort_radix
+    from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool, lwe_encrypt_bool
+
+    sk, ck, g, keygen_ms = _keygen(p, dev, SEED + 130, multibit=True)
+    rng = np.random.default_rng(SEED + 131)
+    results = {"keygen_mb_ms": keygen_ms}
+
+    def enc(vals, d, bb):
+        return A.encrypt_radix(g, sk.lv0, vals, d, p, bb)
+
+    def dec(ct, bb):
+        return A.decrypt_radix(ct, sk.lv0, bb)
+
+    def bits_of(ct):
+        return lwe_decrypt_bool(ct, sk.lv0).cpu().numpy()
+
+    x8, y8 = rng.integers(0, 256, 64), rng.integers(0, 256, 64)
+    a, b = enc(x8, 2, 4), enc(y8, 2, 4)
+    _radix_op(label, "add_radix base 16 D=2 B=64", lambda: A.add_radix(a, b, ck, 4),
+              lambda o: (dec(o, 4) == (x8 + y8) % 256).all(), results, profile=True)
+    x, y = rng.integers(0, 512, 64), rng.integers(0, 512, 64)
+    y[:8] = x[:8]  # equal pairs for the comparator
+    a, b = enc(x, 3, 3), enc(y, 3, 3)
+    for mv in (False, True):
+        _radix_op(label, f"add_radix base 8 D=3 B=64{' multi_value' if mv else ''}",
+                  lambda mv=mv: A.add_radix(a, b, ck, 3, multi_value=mv),
+                  lambda o: (dec(o, 3) == (x + y) % 512).all(), results)
+    _radix_op(label, "sub_radix D=3 B=64", lambda: A.sub_radix(a, b, ck, 3),
+              lambda o: (dec(o, 3) == (x - y) % 512).all(), results)
+    _radix_op(label, "compare_radix D=3 B=64", lambda: A.compare_radix(a, b, ck, 3),
+              lambda o: all((bits_of(c) == want).all() for c, want in zip(o, (x == y, x > y, x < y))), results)
+    _radix_op(label, "min_radix D=3 B=64", lambda: A.min_radix(a, b, ck, 3),
+              lambda o: (dec(o, 3) == np.minimum(x, y)).all(), results)
+    sels = rng.integers(0, 2, 64).astype(bool)
+    sel = lwe_encrypt_bool(g, sk.lv0, sels, p.tlwe_lv0.alpha)
+    _radix_op(label, "select_radix D=3 B=64", lambda: A.select_radix(sel, a, b, ck, 3),
+              lambda o: (dec(o, 3) == np.where(sels, x, y)).all(), results)
+    a16 = a[:16]
+    bits = _radix_op(label, "radix_to_bits D=3 B=16", lambda: A.radix_to_bits(a16, ck, 3),
+                     lambda o: (bits_of(o) == ((x[:16, None] >> np.arange(9)) & 1)).all(), results)
+    _radix_op(label, "bits_to_radix W=9 B=16", lambda: A.bits_to_radix(bits, ck, 3),
+              lambda o: (dec(o, 3) == x[:16]).all(), results)
+    vals = rng.integers(0, 64, 8)
+    srt = enc(vals, 2, 3)
+    _radix_op(label, "sort_radix K=8 D=2 (base 8)", lambda: sort_radix(srt, ck, 3),
+              lambda o: (dec(o, 3) == np.sort(vals)).all(), results, profile=True)
+    before = rotation_launches()
+    _radix_op(label, "add_radix base 8 D=3 B=1", lambda: A.add_radix(a[:1], b[:1], ck, 3),
+              lambda o: (dec(o, 3) == (x[:1] + y[:1]) % 512).all(), results)
+    check_route(before, False, True, f"{label}: add_radix at B=1 takes the multi-bit kernel only")
+    # base 2 digits: the product's column LUTs (modulus 2 base^2) keep wide
+    # margins at N = 2048, where base 4 and 8 do not (mul_radix's docstring)
+    x4, y4 = x[:16] % 16, y[:16] % 16
+    xr = fhe.FheUintRadix.encrypt(g, sk.lv0, x4, 4, ck, base_bits=1)
+    yr = fhe.FheUintRadix.encrypt(g, sk.lv0, y4, 4, ck, base_bits=1)
+    _radix_op(label, "FheUintRadix + 4 bits B=16", lambda: xr + yr,
+              lambda o: (o.decrypt(sk.lv0) == (x4 + y4) % 16).all(), results)
+    _radix_op(label, "FheUintRadix * 4 bits B=16", lambda: xr * yr,
+              lambda o: (o.decrypt(sk.lv0) == x4 * y4).all(), results, profile=True)
+    _radix_op(label, "FheUintRadix < 4 bits B=16", lambda: xr < yr,
+              lambda o: (o.decrypt(sk.lv0) == (x4 < y4)).all(), results)
+    print(f"[{label}] done {elapsed()}")
+    return results
+
+
+def run_nibble_mul(dev, label: str) -> dict:
+    """mul_radix 8 x 8 bits at NIBBLE with a standard key, both ways, then
+    FheUint(8) at FAST through the typed API."""
+    from rs_tfhe_tpu_torch import fhe
+    from rs_tfhe_tpu_torch import params as P
+    from rs_tfhe_tpu_torch.models import arithmetic as A
+
+    p = P.SECURITY_128_BIT_NIBBLE
+    sk, ck, g, keygen_ms = _keygen(p, dev, SEED + 140)
+    rng = np.random.default_rng(SEED + 141)
+    results = {"keygen_ms": keygen_ms}
+    x, y = rng.integers(0, 256, 16), rng.integers(0, 256, 16)
+    x[0], y[0] = 255, 255
+    a, b = A.encrypt_radix(g, sk.lv0, x, 4, p, 2), A.encrypt_radix(g, sk.lv0, y, 4, p, 2)
+    for mv in (False, True):
+        _radix_op(label, f"mul_radix 8x8 base 4 D=4 B=16{' multi_value' if mv else ''}",
+                  lambda mv=mv: A.mul_radix(a, b, ck, 2, multi_value=mv),
+                  lambda o: (A.decrypt_radix(o, sk.lv0, 2) == x * y).all(), results, repeats=1, profile=mv)
+    fast = P.SECURITY_128_BIT_FAST
+    sk_f, ck_f, g_f, _ = _keygen(fast, dev, SEED + 142)
+    u = fhe.FheUint.encrypt(g_f, sk_f.lv0, x, 8, ck_f)
+    v = fhe.FheUint.encrypt(g_f, sk_f.lv0, y, 8, ck_f)
+    _radix_op(label, "FheUint(8) + B=16 (FAST)", lambda: u + v,
+              lambda o: (o.decrypt(sk_f.lv0) == (x + y) % 256).all(), results)
+    lt = _radix_op(label, "FheUint(8) < B=16 (FAST)", lambda: u < v,
+                   lambda o: (o.decrypt(sk_f.lv0) == (x < y)).all(), results)
+    _radix_op(label, "FheBool.select FheUint(8) B=16 (FAST)", lambda: lt.select(u, v),
+              lambda o: (o.decrypt(sk_f.lv0) == np.where(x < y, x, y)).all(), results)
+    print(f"[{label}] done {elapsed()}")
+    return results
+
+
 #: kernels-line name -> (source, file:line of the TPU kernel it replaces, others it also replaces)
 SOURCES = {
     "blind_rotate": ("rs_tfhe_tpu_torch/csrc/blind_rotate.cu", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:929",
@@ -1472,12 +1698,17 @@ def main() -> int:
     check(paths["multi_value"]["blind_rotate"] > 0, "multi-value bootstrapping launched the blind-rotation kernel")
     check(paths["multi_value"]["blind_rotate_mb"] == 0,
           "the dedicated B=2048 bootstraps with a multi-bit key took the whole-rotation kernel (above the cap)")
-    print(f"[5-12] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+    results["radix"], paths["radix"] = drive("13", run_radix, P.SECURITY_128_BIT_RADIX, dev, "13")
+    check(paths["radix"]["blind_rotate"] > 0, "radix arithmetic launched the whole-rotation kernel")
+    check(paths["radix"]["blind_rotate_mb"] > 0, "radix arithmetic with a multi-bit key launched the multi-bit kernel")
+    results["nibble_mul"], paths["nibble_mul"] = drive("14", run_nibble_mul, dev, "14")
+    check(paths["nibble_mul"]["blind_rotate"] > 0, "mul_radix at NIBBLE launched the whole-rotation kernel")
+    print(f"[5-14] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"total {elapsed()}")
     for name in modules:
         compared = {tuple(t) for t in compare[name]["tiles_compared"]}
         missing = path_tiles[name] - compared
-        print(f"[5-12] {name}: instances on the paths {tile_list(path_tiles[name])}, "
+        print(f"[5-14] {name}: instances on the paths {tile_list(path_tiles[name])}, "
               f"held against the plain version in phase 3: {tile_list(compared)}")
         check(not missing, f"every {name} instantiation the paths launched was held against the plain "
                            f"version (missing: {tile_list(missing)})")

@@ -35,4 +35,6 @@ from .params import (  # noqa: F401
 
 from . import bit_utils, bootstrap, gates, lut, models, tlwe, trgsw, trlwe, utils  # noqa: F401,E402
 from .bootstrap import LutBootstrap, VanillaBootstrap, default_bootstrap  # noqa: F401,E402
+from .fhe import FheBool, FheInt, FheUint, FheUintRadix  # noqa: F401,E402
+from .gates import Gates  # noqa: F401,E402
 from .key import CloudKey, SecretKey  # noqa: F401,E402

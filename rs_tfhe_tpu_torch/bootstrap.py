@@ -63,7 +63,9 @@ def bootstrap_with_testvec(
     if allow_mb is None:
         allow_mb = mb_lut_route_ok(ck.params)
     if testvec.dim() > 2:
-        testvec = testvec.reshape(-1, *testvec.shape[-2:])
+        # per-ciphertext test vectors may come broadcast (expand); the kernel
+        # reads them densely, as JAX's reshape of a broadcast array does
+        testvec = testvec.reshape(-1, *testvec.shape[-2:]).contiguous()
     lv1 = _rotate_extract(ct, testvec, ck, ck.bsk_mb if allow_mb else None)
     return identity_key_switch(lv1, ck.ksk_limbs, ck.params)
 

@@ -141,6 +141,11 @@ def mux(a, b, c, ck):
     return identity_key_switch(_biased(u1 + u2, _BIAS_1_8), ck.ksk_limbs, ck.params)
 
 
+def mux_naive(a, b, c, ck):
+    """3-gate MUX (reference gates.rs:189-199): OR(AND(a, b), AND(NOT a, c))."""
+    return or_(and_(a, b, ck), and_(not_(a), c, ck), ck)
+
+
 def not_(a):
     """Bootstrap-free NOT (reference gates.rs:202-204)."""
     return neg_torus(a)
@@ -165,3 +170,80 @@ def constant(value, batch: int, params, device=None) -> torch.Tensor:
         value = torch.as_tensor(value, dtype=torch.bool, device=device).expand(batch)
         ct[:, -1] = torch.where(value, _BIAS_1_8, i32(1 - _BIAS_1_8)).to(torch.int32)
     return ct
+
+
+class Gates:
+    """Gate API with an injectable bootstrap strategy (reference
+    gates.rs:30-49; rs_tfhe_tpu/gates.py:208-283).
+
+    With no strategy every gate is the module's function above; with one,
+    every gate's linear form is refreshed by `strategy.bootstrap_gate` (or
+    `strategy.bootstrap` where it has none), and MUX is composed from the
+    strategy's lv1 bootstraps with one key switch.
+    """
+
+    def __init__(self, strategy=None):
+        self._strategy = strategy
+
+    @property
+    def bootstrap_strategy(self) -> str:
+        return self._strategy.name if self._strategy else "vanilla"
+
+    def _run(self, name, a, b, ck):
+        if self._strategy is None:
+            return batch_gate(name, a, b, ck)
+        # the linear forms use the +/-1/8 boolean encoding: a strategy
+        # refreshes them through bootstrap_gate (its generic bootstrap may be
+        # defined over a message encoding, as LutBootstrap's is)
+        refresh = getattr(self._strategy, "bootstrap_gate", self._strategy.bootstrap)
+        return refresh(_LINEAR_FORMS[name](a, b), ck)
+
+    def nand(self, a, b, ck):
+        return self._run("nand", a, b, ck)
+
+    def or_(self, a, b, ck):
+        return self._run("or", a, b, ck)
+
+    def and_(self, a, b, ck):
+        return self._run("and", a, b, ck)
+
+    def xor(self, a, b, ck):
+        return self._run("xor", a, b, ck)
+
+    def xnor(self, a, b, ck):
+        return self._run("xnor", a, b, ck)
+
+    def nor(self, a, b, ck):
+        return self._run("nor", a, b, ck)
+
+    def and_ny(self, a, b, ck):
+        return self._run("and_ny", a, b, ck)
+
+    def and_yn(self, a, b, ck):
+        return self._run("and_yn", a, b, ck)
+
+    def or_ny(self, a, b, ck):
+        return self._run("or_ny", a, b, ck)
+
+    def or_yn(self, a, b, ck):
+        return self._run("or_yn", a, b, ck)
+
+    def mux(self, a, b, c, ck):
+        if self._strategy is None:
+            return mux(a, b, c, ck)
+        u1 = self._strategy.bootstrap_without_key_switch(_and_lin(a, b), ck)
+        u2 = self._strategy.bootstrap_without_key_switch(_and_lin(neg_torus(a), c), ck)
+        return identity_key_switch(_biased(u1 + u2, _BIAS_1_8), ck.ksk_limbs, ck.params)
+
+    def mux_naive(self, a, b, c, ck):
+        """The 3-gate MUX through this object's (strategy-aware) gates."""
+        return self.or_(self.and_(a, b, ck), self.and_(not_(a), c, ck), ck)
+
+    def not_(self, a):
+        return not_(a)
+
+    def copy(self, a):
+        return copy(a)
+
+    def constant(self, value, batch, params, device=None):
+        return constant(value, batch, params, device)

@@ -3,7 +3,8 @@
 Reference: rs-tfhe key.rs. The key material lives in registered buffers, so
 `ck.to("cuda")` moves a whole key to the card; the parameter set rides along
 as a plain attribute. Generation draws from an explicit `torch.Generator` on
-the device the key is made on.
+the device the key is made on, or, in `generate_secure`, from the operating
+system's CSPRNG (`torus.OsRandom`).
 
 Layouts:
   - `bsk`: the bootstrapping key as raw torus words, int32 [n0, 2L, 2, N] —
@@ -33,12 +34,14 @@ from torch import nn
 from .params import TORUS_BITS, TfheParams
 from .tlwe import lwe_encrypt_torus
 from .torus import (
+    OsRandom,
     f64_to_torus,
     i32,
     recombine_planar,
     resolve_device,
     split_u32_limbs_planar,
     to_torch,
+    uniform_bits,
     wrap_i32,
 )
 from .trgsw import trgsw_encrypt_torus
@@ -55,14 +58,17 @@ class SecretKey(nn.Module):
         self.register_buffer("lv1", lv1)
 
     @classmethod
-    def generate(cls, params: TfheParams, generator: torch.Generator) -> "SecretKey":
-        def bits(n):
-            return torch.randint(
-                0, 2, (n,), generator=generator, dtype=torch.int32,
-                device=generator.device,
-            )
+    def generate(cls, params: TfheParams, generator: torch.Generator | OsRandom) -> "SecretKey":
+        return cls(uniform_bits(generator, params.n0), uniform_bits(generator, params.n1), params)
 
-        return cls(bits(params.n0), bits(params.n1), params)
+    @classmethod
+    def generate_secure(cls, params: TfheParams, device=None) -> "SecretKey":
+        """The production path (rs_tfhe_tpu/key.py:62-68): every key bit from
+        the operating system's CSPRNG (`torus.OsRandom`), on `device` (None:
+        the card). The JAX package seeds a threefry key with 64 bits of
+        `os.urandom`; here every word is drawn from it, so no key rests on a
+        64-bit seed. `generate` with a seeded generator stays the test path."""
+        return cls.generate(params, OsRandom(device))
 
 
 class CloudKey(nn.Module):
@@ -97,6 +103,27 @@ class CloudKey(nn.Module):
         bsk = gen_bootstrapping_key(generator, sk)
         mb = gen_bootstrapping_key_mb(generator, sk) if multibit else None
         return cls(gen_testvec(sk.params, sk.lv1.device), bsk, ksk, sk.params, mb)
+
+    @classmethod
+    def generate_secure(cls, sk: SecretKey, multibit: bool = False) -> "CloudKey":
+        """Cloud-key generation with every mask and noise word from the
+        operating system's CSPRNG (`torus.OsRandom`), on sk's device: the
+        companion of `SecretKey.generate_secure` (rs_tfhe_tpu/key.py:130-134)."""
+        return cls.generate(sk, OsRandom(sk.lv1.device), multibit=multibit)
+
+    @classmethod
+    def generate_no_ksk(cls, params: TfheParams, device=None) -> "CloudKey":
+        """All-zero keys beside the real test vector, for unit tests of the
+        decomposition, external product and CMUX that skip keygen (reference
+        new_no_ksk, key.rs:68-75; rs_tfhe_tpu/key.py:137-150), in the port's
+        own layouts, on `device` (None: the card)."""
+        device = resolve_device(device)
+        g = params.trgsw_lv1
+        ksk = torch.zeros(
+            (params.n1 * g.iks_t * params.ks_base, 4 * ksk_width(params)), dtype=torch.int8, device=device
+        )
+        bsk = torch.zeros((params.n0, 2 * g.l, 2, params.n1), dtype=torch.int32, device=device)
+        return cls(gen_testvec(params, device), bsk, ksk, params)
 
 
 def gen_testvec(params: TfheParams, device=None) -> torch.Tensor:

@@ -11,10 +11,14 @@ pattern of an int32 IS the uint32 torus word. Two operations differ:
 
 Host-side conversions stay numpy (`f64_to_torus`, `torus_to_f64`), and
 `to_torch`/`to_numpy` move uint32 arrays in and out without changing a bit.
-Randomness comes from an explicit `torch.Generator` on the tensor's device.
+Randomness comes from an explicit `torch.Generator` on the tensor's device,
+or from `OsRandom`, which draws every word from the operating system's CSPRNG
+(the `generate_secure` keys).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -96,27 +100,69 @@ def logical_rshift(x: torch.Tensor, shift: int) -> torch.Tensor:
 # Noise and mask sampling (distribution-equivalent to utils.rs:22-48)
 # ---------------------------------------------------------------------------
 
+class OsRandom:
+    """Randomness for secret material straight from the operating system's
+    CSPRNG (`os.urandom`), accepted wherever the key and encryption functions
+    take a `torch.Generator`.
+
+    A `torch.Generator` is seeded with 64 bits, so every key drawn from one
+    rests on at most 64 bits of entropy; here each random word is read from
+    the kernel's generator, which is seeded from its entropy pool with far
+    more than 128 bits. The words are drawn on the host and moved to `device`
+    (None: the card, `resolve_device`). Nothing is reproducible: this is the
+    production path, the seeded `torch.Generator` the test and replay path.
+    """
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def words(self, shape) -> torch.Tensor:
+        """Uniform 32-bit words, int32 `shape`, on the host."""
+        count = int(np.prod(shape, dtype=np.int64))
+        raw = np.frombuffer(os.urandom(4 * count), dtype=np.int32)
+        return torch.from_numpy(raw.copy()).reshape(tuple(shape))
+
+    def normal(self, shape) -> torch.Tensor:
+        """Standard normal float64 samples, `shape`, on the host: Box-Muller
+        on two 53-bit uniforms in (0, 1] from 64 random bits each."""
+        count = int(np.prod(shape, dtype=np.int64))
+        raw = np.frombuffer(os.urandom(16 * count), dtype=np.uint64).reshape(2, count)
+        u = ((raw >> np.uint64(11)).astype(np.float64) + 1.0) * 2.0 ** -53
+        z = np.sqrt(-2.0 * np.log(u[0])) * np.cos(2.0 * np.pi * u[1])
+        return torch.from_numpy(z).reshape(tuple(shape))
+
+
 def gaussian_torus(
-    generator: torch.Generator, alpha: float, shape, device=None
+    generator: torch.Generator | OsRandom, alpha: float, shape, device=None
 ) -> torch.Tensor:
     """Torus noise round-toward-zero(N(0, alpha) * 2^32) as int32.
 
     Matches the reference's gaussian_f64 (utils.rs:31-38) in distribution;
     the float -> int32 cast truncates toward zero as the reference's does.
     """
-    x = torch.randn(
-        shape, generator=generator, dtype=torch.float64,
-        device=device or generator.device,
-    )
+    device = device or generator.device
+    if isinstance(generator, OsRandom):
+        x = generator.normal(shape).to(device)
+    else:
+        x = torch.randn(shape, generator=generator, dtype=torch.float64, device=device)
     return (x * (alpha * _TWO32)).to(torch.int32)
 
 
-def uniform_torus(generator: torch.Generator, shape, device=None) -> torch.Tensor:
+def uniform_torus(generator: torch.Generator | OsRandom, shape, device=None) -> torch.Tensor:
     """Uniform 32-bit mask coefficients (reference: rng.gen::<u32>())."""
+    device = device or generator.device
+    if isinstance(generator, OsRandom):
+        return generator.words(shape).to(device)
     return torch.randint(
-        -(1 << 31), 1 << 31, shape, generator=generator, dtype=torch.int32,
-        device=device or generator.device,
+        -(1 << 31), 1 << 31, shape, generator=generator, dtype=torch.int32, device=device,
     )
+
+
+def uniform_bits(generator: torch.Generator | OsRandom, n: int) -> torch.Tensor:
+    """n uniform bits as int32 {0, 1} on the generator's device (secret keys)."""
+    if isinstance(generator, OsRandom):
+        return (generator.words((n,)) & 1).to(generator.device)
+    return torch.randint(0, 2, (n,), generator=generator, dtype=torch.int32, device=generator.device)
 
 
 # ---------------------------------------------------------------------------

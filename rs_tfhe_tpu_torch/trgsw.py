@@ -62,3 +62,12 @@ def cmux(
     cond: TRGSW int32 [2L, 2, N]; c0/c1: TRLWE int32 [..., 2, N].
     """
     return c0 + external_product(cond, c1 - c0, params)
+
+
+def batch_blind_rotate(ct, testvec, bsk, params):
+    """Parity alias for the reference's batch_blind_rotate (trgsw.rs:289-305;
+    rs_tfhe_tpu/trgsw.py:75-80): blind rotation is batch-first, so the batch
+    API is `ops.blind_rotate.blind_rotate` itself (with the standard key)."""
+    from .ops.blind_rotate import blind_rotate
+
+    return blind_rotate(ct, testvec, bsk, params)

@@ -15,7 +15,16 @@ reproduce bit for bit:
                                         outputs of the circuit path: the
                                         netlist evaluator on a 4-bit
                                         ripple-carry adder, add_kogge_stone,
-                                        mul_csa and multi_value_bootstrap.
+                                        mul_csa and multi_value_bootstrap;
+  tests/vectors/torch_port_tiny_radix.npz
+                                        a standard and a multi-bit key,
+                                        radix ciphertexts and the outputs of
+                                        radix arithmetic (add_radix both
+                                        ways, sub_radix, mul_radix,
+                                        compare_radix, select_radix, the
+                                        bit casts, sort_radix) and of one
+                                        FheUintRadix and one FheUint
+                                        expression.
 
 The files let a machine without JAX (the one with the GPU) hold the port
 against the reference: `chip_smoke.py` loads the keys and ciphertexts into
@@ -38,12 +47,12 @@ jax.config.update("jax_platforms", "cpu")  # TEST_TINY is bit-exact on every bac
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from rs_tfhe_tpu import bit_utils, gates  # noqa: E402
+from rs_tfhe_tpu import bit_utils, fhe, gates  # noqa: E402
 from rs_tfhe_tpu.bootstrap import bootstrap_with_testvec  # noqa: E402
 from rs_tfhe_tpu.key import CloudKey, SecretKey  # noqa: E402
 from rs_tfhe_tpu.lut.generator import Generator  # noqa: E402
 from rs_tfhe_tpu.lut.multi_value import factor_test_vectors, multi_value_bootstrap  # noqa: E402
-from rs_tfhe_tpu.models import circuits, netlist  # noqa: E402
+from rs_tfhe_tpu.models import arithmetic, circuits, netlist, sort  # noqa: E402
 from rs_tfhe_tpu.ops.blind_rotate import blind_rotate, blind_rotate_mb  # noqa: E402
 from rs_tfhe_tpu.ops.extract import sample_extract  # noqa: E402
 from rs_tfhe_tpu.ops.keyswitch import identity_key_switch  # noqa: E402
@@ -54,6 +63,12 @@ VECTORS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests"
 OUT = os.path.join(VECTORS, "torch_port_tiny.npz")
 OUT_MB = os.path.join(VECTORS, "torch_port_tiny_mb.npz")
 OUT_CIRCUITS = os.path.join(VECTORS, "torch_port_tiny_circuits.npz")
+OUT_RADIX = os.path.join(VECTORS, "torch_port_tiny_radix.npz")
+#: digit base and operands of the radix fixture (two base-4 digits)
+RADIX_BASE_BITS = 2
+RADIX_X, RADIX_Y = (13, 6), (9, 11)
+RADIX_SORT = (1, 3)
+UINT_WIDTH = 3
 #: bit width, operand pairs and LUT family of the circuit fixture
 CIRCUIT_WIDTH = 4
 CIRCUIT_PAIRS = ((11, 6), (5, 13))
@@ -163,8 +178,67 @@ def make_vectors_circuits() -> dict:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+def make_vectors_radix() -> dict:
+    """The radix fixture's arrays as numpy, from fixed seeds. One secret key;
+    a multi-bit cloud key whose `bsk` and `ksk_limbs` are also the standard
+    key (the JAX package draws them first, so they equal those of a
+    standard key from the same seed). The multi-bit outputs (add_radix,
+    mul_radix, select_radix, sort_radix, the FheUintRadix expression) mix
+    batches of at most 4 ciphertexts, which take the multi-bit rotation,
+    with larger ones. The radix calls run under jax.jit, their LUT caches
+    filled first; the FheUint expression runs eagerly (its gates are jitted).
+    TEST_TINY's N=64 ring is too small for the comparison and product LUTs'
+    margins, so those outputs are held bit for bit, not decrypted."""
+    p, bb = TEST_TINY, RADIX_BASE_BITS
+    sk = SecretKey.generate(jax.random.key(5024), p)
+    ck_mb = CloudKey.generate(jax.random.key(5025), sk, multibit=True)
+    ck = CloudKey(testvec=ck_mb.testvec, ksk_limbs=ck_mb.ksk_limbs, bsk=ck_mb.bsk, params=p)
+    for fill in (arithmetic._add_mv, arithmetic._cmp_luts, arithmetic._sel_luts, arithmetic._cast_luts):
+        fill(bb, p)
+    keys = jax.random.split(jax.random.key(5026), 6)
+    x = arithmetic.encrypt_radix(keys[0], sk.lv0, np.asarray(RADIX_X), 2, p, bb)
+    y = arithmetic.encrypt_radix(keys[1], sk.lv0, np.asarray(RADIX_Y), 2, p, bb)
+    sel_bits = np.array([True, False])
+    sel = lwe_encrypt_bool(keys[2], sk.lv0, jnp.asarray(sel_bits), p.tlwe_lv0.alpha)
+    srt = arithmetic.encrypt_radix(keys[3], sk.lv0, np.asarray(RADIX_SORT), 1, p, bb)
+    u = fhe.FheUint.encrypt(keys[4], sk.lv0, np.asarray(RADIX_X) % (1 << UINT_WIDTH), UINT_WIDTH, ck)
+    v = fhe.FheUint.encrypt(keys[5], sk.lv0, np.asarray(RADIX_Y) % (1 << UINT_WIDTH), UINT_WIDTH, ck)
+
+    def with_std(a, b, ck):
+        bits = arithmetic.radix_to_bits(a, ck, bb)
+        return {
+            "add_radix_mv": arithmetic.add_radix(a, b, ck, bb, multi_value=True),
+            "sub_radix": arithmetic.sub_radix(a, b, ck, bb),
+            "compare_radix": jnp.stack(arithmetic.compare_radix(a, b, ck, bb)),
+            "radix_to_bits": bits,
+            "bits_to_radix": arithmetic.bits_to_radix(bits, ck, bb),
+        }
+
+    def with_mb(a, b, s, srt, ck):
+        xr, yr = fhe.FheUintRadix(a, bb, ck), fhe.FheUintRadix(b, bb, ck)
+        return {
+            "add_radix": arithmetic.add_radix(a, b, ck, bb),
+            "mul_radix": arithmetic.mul_radix(a, b, ck, bb),
+            "select_radix": arithmetic.select_radix(s, a, b, ck, bb),
+            "sort_radix": sort.sort_radix(srt, ck, bb, descending=True),
+            "fhe_radix_expr": (xr + yr).max(xr).digits,
+        }
+
+    out = {
+        "sk_lv0": sk.lv0, "sk_lv1": sk.lv1, "testvec": ck_mb.testvec, "bsk": ck_mb.bsk,
+        "ksk_limbs": ck_mb.ksk_limbs, "bsk_mb": ck_mb.bsk_mb,
+        "x": np.asarray(RADIX_X), "y": np.asarray(RADIX_Y), "sel_bits": sel_bits, "sort_vals": np.asarray(RADIX_SORT),
+        "ct_x": x, "ct_y": y, "ct_sel": sel, "ct_sort": srt, "ct_u": u.bits, "ct_v": v.bits,
+        **jax.jit(with_std)(x, y, ck),
+        **jax.jit(with_mb)(x, y, sel, srt, ck_mb),
+        "fhe_uint_expr": ((u + v) ^ v).bits,
+    }
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def main():
-    for path, make in ((OUT, make_vectors), (OUT_MB, make_vectors_mb), (OUT_CIRCUITS, make_vectors_circuits)):
+    for path, make in ((OUT, make_vectors), (OUT_MB, make_vectors_mb), (OUT_CIRCUITS, make_vectors_circuits),
+                       (OUT_RADIX, make_vectors_radix)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.normpath(path)} ({os.path.getsize(path)} bytes)")
 

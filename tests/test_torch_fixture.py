@@ -1,6 +1,7 @@
 """PyTorch port: the committed JAX fixtures (tests/vectors/torch_port_tiny.npz,
-torch_port_tiny_mb.npz and torch_port_tiny_circuits.npz) that hold the port
-against the reference on machines without JAX.
+torch_port_tiny_mb.npz, torch_port_tiny_circuits.npz and
+torch_port_tiny_radix.npz) that hold the port against the reference on
+machines without JAX.
 
 Each fixture is regenerated with JAX and compared with its file, so it cannot
 drift; the port reproduces every stored output word for word from the stored
@@ -18,8 +19,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from rs_tfhe_tpu_torch import bit_utils, bootstrap, gates, key, lut  # noqa: E402
-from rs_tfhe_tpu_torch.models import circuits, netlist  # noqa: E402
+from rs_tfhe_tpu_torch import bit_utils, bootstrap, fhe, gates, key, lut  # noqa: E402
+from rs_tfhe_tpu_torch.models import arithmetic, circuits, netlist, sort  # noqa: E402
 from rs_tfhe_tpu_torch.ops.blind_rotate import (  # noqa: E402
     blind_rotate,
     blind_rotate_mb_plain,
@@ -31,10 +32,23 @@ from rs_tfhe_tpu_torch.params import TEST_TINY  # noqa: E402
 from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool, lwe_decrypt_message  # noqa: E402
 from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port: the suite runs six workers on the
+    machine's cores, and torch's default of a thread a core oversubscribes
+    them (the JAX side keeps its own pool)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VEC = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny.npz")
 VEC_MB = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_mb.npz")
 VEC_CIRCUITS = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_circuits.npz")
+VEC_RADIX = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_radix.npz")
 
 
 def _load_generator():
@@ -70,6 +84,51 @@ def test_circuit_fixture_matches_jax_regeneration():
     for name, arr in fresh.items():
         assert stored[name].dtype == arr.dtype, name
         np.testing.assert_array_equal(stored[name], arr, err_msg=name)
+
+
+def test_radix_fixture_matches_jax_regeneration():
+    stored = np.load(VEC_RADIX)
+    fresh = _load_generator().make_vectors_radix()
+    assert sorted(stored.files) == sorted(fresh)
+    for name, arr in fresh.items():
+        assert stored[name].dtype == arr.dtype, name
+        np.testing.assert_array_equal(stored[name], arr, err_msg=name)
+
+
+def test_port_reproduces_radix_fixture():
+    """add_radix (with the multi-bit key, and multi-value with the standard
+    one), sub_radix, mul_radix, compare_radix, select_radix, the bit casts,
+    sort_radix and the two typed expressions, from the stored JAX keys and
+    ciphertexts; the additions decrypt to their sums (the other outputs need
+    margins TEST_TINY's N=64 ring does not have: they are held bit for bit)."""
+    v = np.load(VEC_RADIX)
+    bb = _load_generator().RADIX_BASE_BITS
+    sk = key.secret_key_from_numpy({"lv0": v["sk_lv0"], "lv1": v["sk_lv1"]}, TEST_TINY, "cpu")
+    ck_mb = key.cloud_key_from_numpy(v, TEST_TINY, "cpu")
+    ck = key.cloud_key_from_numpy({k: v[k] for k in ("testvec", "bsk", "ksk_limbs")}, TEST_TINY, "cpu")
+    assert ck_mb.bsk_mb is not None and ck.bsk_mb is None
+    x, y, sel, srt, u, w = (to_torch(v[n], "cpu") for n in ("ct_x", "ct_y", "ct_sel", "ct_sort", "ct_u", "ct_v"))
+    bits = arithmetic.radix_to_bits(x, ck, bb)
+    xr, yr = fhe.FheUintRadix(x, bb, ck_mb), fhe.FheUintRadix(y, bb, ck_mb)
+    fu, fw = fhe.FheUint(u, ck), fhe.FheUint(w, ck)
+    outputs = {
+        "add_radix_mv": arithmetic.add_radix(x, y, ck, bb, multi_value=True),
+        "sub_radix": arithmetic.sub_radix(x, y, ck, bb),
+        "compare_radix": torch.stack(arithmetic.compare_radix(x, y, ck, bb)),
+        "radix_to_bits": bits,
+        "bits_to_radix": arithmetic.bits_to_radix(bits, ck, bb),
+        "add_radix": arithmetic.add_radix(x, y, ck_mb, bb),
+        "mul_radix": arithmetic.mul_radix(x, y, ck_mb, bb),
+        "select_radix": arithmetic.select_radix(sel, x, y, ck_mb, bb),
+        "sort_radix": sort.sort_radix(srt, ck_mb, bb, descending=True),
+        "fhe_radix_expr": (xr + yr).max(xr).digits,
+        "fhe_uint_expr": ((fu + fw) ^ fw).bits,
+    }
+    for name, out in outputs.items():
+        np.testing.assert_array_equal(to_numpy(out), v[name], err_msg=name)
+    total = (v["x"] + v["y"]) % (1 << (2 * bb))
+    for name in ("add_radix", "add_radix_mv"):
+        np.testing.assert_array_equal(arithmetic.decrypt_radix(outputs[name], sk.lv0, bb), total, err_msg=name)
 
 
 def test_port_reproduces_circuit_fixture():
@@ -191,18 +250,20 @@ def test_port_reproduces_golden_tiny():
 
 
 def test_port_runs_with_jax_blocked():
-    """`import rs_tfhe_tpu_torch`, every module of the circuit path, the
-    probe wrappers, the probe and bench scripts and chip_smoke.py, and one
-    TEST_TINY NAND, with `jax` blocked from import (the GPU machine has no
-    JAX)."""
+    """`import rs_tfhe_tpu_torch`, every module of the circuit, radix, sort
+    and typed-API paths, the probe wrappers, the probe and bench scripts and
+    chip_smoke.py, and one TEST_TINY NAND, with `jax` and the JAX package
+    `rs_tfhe_tpu` blocked from import (the GPU machine has no JAX, and the
+    port keeps its own copy of what it needs)."""
     code = """
 import runpy, sys
 sys.modules["jax"] = None
+sys.modules["rs_tfhe_tpu"] = None
 import torch
 import rs_tfhe_tpu_torch as pt
-from rs_tfhe_tpu_torch import bit_utils, gates, key, lut, models, tlwe
+from rs_tfhe_tpu_torch import bit_utils, fhe, gates, key, lut, models, tlwe
 from rs_tfhe_tpu_torch.lut import multi_value
-from rs_tfhe_tpu_torch.models import circuits, netlist
+from rs_tfhe_tpu_torch.models import arithmetic, circuits, netlist, sort
 from rs_tfhe_tpu_torch.ops import cuda_probes
 for script in ("scripts/probe_hopper.py", "scripts/bench_hopper_prims.py", "scripts/bench_hopper_rotation.py",
                "chip_smoke.py"):

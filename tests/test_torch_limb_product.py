@@ -24,6 +24,18 @@ from rs_tfhe_tpu_torch.ops import cuda_step as CS  # noqa: E402
 from rs_tfhe_tpu_torch.ops.poly import polymul_small_by_torus  # noqa: E402
 from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port: the suite runs six workers on the
+    machine's cores, and torch's default of a thread a core oversubscribes
+    them (the JAX side keeps its own pool)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _SETS = {**P.ALL_SECURITY_SETS, "TEST_TINY": P.TEST_TINY}
 
 

@@ -50,6 +50,18 @@ from rs_tfhe_tpu_torch.trlwe import trlwe_phase  # noqa: E402
 from rs_tfhe_tpu_torch.torus import f64_to_torus, to_numpy, to_torch  # noqa: E402
 from rs_tfhe_tpu_torch.utils.noise import estimate, measure_phase_noise  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port: the suite runs six workers on the
+    machine's cores, and torch's default of a thread a core oversubscribes
+    them (the JAX side keeps its own pool)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 #: the smallest K4-eligible set of tests/test_pallas_kernels.py (N = 128)
 KP = JP.TfheParams(
     security_bits=0,

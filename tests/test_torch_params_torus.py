@@ -19,6 +19,18 @@ import rs_tfhe_tpu_torch.params as PP  # noqa: E402
 import rs_tfhe_tpu_torch.tlwe as PT  # noqa: E402
 import rs_tfhe_tpu_torch.torus as PTo  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port: the suite runs six workers on the
+    machine's cores, and torch's default of a thread a core oversubscribes
+    them (the JAX side keeps its own pool)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _DERIVED = (
     "n0", "n1", "ks_base", "ksk_alpha", "bsk_alpha", "decomposition_offset",
     "decomposition_round_bit", "digit_limbs",

@@ -26,6 +26,18 @@ from rs_tfhe_tpu_torch.ops import poly as PPo  # noqa: E402
 from rs_tfhe_tpu_torch.params import params_from  # noqa: E402
 from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port: the suite runs six workers on the
+    machine's cores, and torch's default of a thread a core oversubscribes
+    them (the JAX side keeps its own pool)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = JP.TEST_TINY
 _EDGES = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFF], dtype=np.uint32)
 

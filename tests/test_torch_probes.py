@@ -28,6 +28,18 @@ from jax.experimental import pallas as pl  # noqa: E402
 
 from rs_tfhe_tpu_torch.ops import cuda_probes as CP  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port: the suite runs six workers on the
+    machine's cores, and torch's default of a thread a core oversubscribes
+    them (the JAX side keeps its own pool)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CACHE_OPTIONS = (
     "jax_compilation_cache_dir",

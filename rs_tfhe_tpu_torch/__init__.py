@@ -6,7 +6,8 @@ same modules at the same relative paths, the same parameter sets, and the
 same exact arithmetic mod 2^32, carried as two's-complement int32 tensors.
 The blind rotations run in hand-written kernels (csrc/*.cu) on a CUDA tensor
 and in plain PyTorch versions on a CPU tensor; everything else is plain
-PyTorch. This package never imports JAX.
+PyTorch, apart from the native C++ client (`native`, built with g++ from the
+repository's csrc/ at first use). This package never imports JAX.
 """
 
 __version__ = "0.4.0"
@@ -33,7 +34,7 @@ from .params import (  # noqa: F401
     security_info,
 )
 
-from . import bit_utils, bootstrap, gates, lut, models, tlwe, trgsw, trlwe, utils  # noqa: F401,E402
+from . import bit_utils, bootstrap, gates, lut, models, proxy_reenc, tlwe, trgsw, trlwe, utils  # noqa: F401,E402
 from .bootstrap import LutBootstrap, VanillaBootstrap, default_bootstrap  # noqa: F401,E402
 from .fhe import FheBool, FheInt, FheUint, FheUintRadix  # noqa: F401,E402
 from .gates import Gates  # noqa: F401,E402

@@ -13,8 +13,9 @@ Plaintext operands (Python ints and bools, numpy arrays) become trivial
 and `x + 7` work; the result is still a real ciphertext. Client-side
 `encrypt` takes a `torch.Generator` (or `torus.OsRandom`), as the port's
 `tlwe` functions do, and `decrypt` returns numpy arrays. The seeded
-constructors of the JAX API (`encrypt_seeded`, `expand_seeded`) wait for the
-port's threefry.
+constructors (`encrypt_seeded` on the client, `expand_seeded` on the server)
+ship one word a ciphertext: the masks are the threefry stream of a mask key
+(tlwe.lwe_encrypt_torus_seeded).
 """
 
 from __future__ import annotations
@@ -25,7 +26,14 @@ import torch
 from . import gates
 from .key import CloudKey
 from .models import arithmetic, circuits
-from .tlwe import lwe_decrypt_bool, lwe_encrypt_bool, lwe_trivial_bool, lwe_trivial_message
+from .tlwe import (
+    lwe_decrypt_bool,
+    lwe_encrypt_bool,
+    lwe_encrypt_bool_seeded,
+    lwe_expand_seeded,
+    lwe_trivial_bool,
+    lwe_trivial_message,
+)
 
 
 def _bits_of(vals, width: int) -> np.ndarray:
@@ -57,6 +65,20 @@ class FheBool:
     def encrypt(cls, generator, sk_lv0: torch.Tensor, values, ck: CloudKey) -> "FheBool":
         """Encrypt a bool or an array of bools under the lv0 secret key."""
         return cls(lwe_encrypt_bool(generator, sk_lv0, np.asarray(values, dtype=bool), ck.params.tlwe_lv0.alpha), ck)
+
+    @classmethod
+    def encrypt_seeded(cls, generator, mask_key, sk_lv0: torch.Tensor, values, params):
+        """Compressed client-side encryption (rs_tfhe_tpu/fhe.py:67-78):
+        (seed int32 [2], bodies int32 [B]), one word a ciphertext on the
+        wire. The server rebuilds with `FheBool.expand_seeded`."""
+        return lwe_encrypt_bool_seeded(
+            generator, mask_key, sk_lv0, np.asarray(values, dtype=bool), params.tlwe_lv0.alpha
+        )
+
+    @classmethod
+    def expand_seeded(cls, seed, bodies: torch.Tensor, ck: CloudKey) -> "FheBool":
+        """Server side: an `encrypt_seeded` wire batch as an FheBool."""
+        return cls(lwe_expand_seeded(seed, bodies, ck.params.tlwe_lv0.n), ck)
 
     @classmethod
     def trivial(cls, values, ck: CloudKey) -> "FheBool":
@@ -329,6 +351,20 @@ class FheUintRadix:
                 base_bits: int = 3, multi_value: bool = False):
         ct = arithmetic.encrypt_radix(generator, sk_lv0, values, num_digits, ck.params, base_bits)
         return cls(ct, base_bits, ck, multi_value)
+
+    @classmethod
+    def encrypt_seeded(cls, generator, mask_key, sk_lv0: torch.Tensor, values, num_digits: int, params,
+                       base_bits: int = 3):
+        """Compressed client-side encryption, one word a digit on the wire
+        (models.arithmetic.encrypt_radix_seeded; rs_tfhe_tpu/fhe.py:425-433).
+        The server rebuilds with `FheUintRadix.expand_seeded`."""
+        return arithmetic.encrypt_radix_seeded(generator, mask_key, sk_lv0, values, num_digits, params, base_bits)
+
+    @classmethod
+    def expand_seeded(cls, seed, bodies: torch.Tensor, ck: CloudKey, base_bits: int = 3,
+                      multi_value: bool = False) -> "FheUintRadix":
+        """Server side: an `encrypt_seeded` wire batch as an FheUintRadix."""
+        return cls(arithmetic.expand_radix_seeded(seed, bodies, ck.params.tlwe_lv0.n), base_bits, ck, multi_value)
 
     @classmethod
     def trivial(cls, values, num_digits: int, ck: CloudKey, base_bits: int = 3):

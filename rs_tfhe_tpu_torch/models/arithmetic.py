@@ -17,7 +17,7 @@ which gives the same batch sizes and the same order within a batch.
 The LUT families are built on the host once per (base_bits, parameter set)
 and moved to each device once (`_cached_tables`); everything else runs on
 the inputs' device. The seeded transport (`encrypt_radix_seeded`,
-`expand_radix_seeded`) waits for the port's threefry.
+`expand_radix_seeded`) ships one word a digit.
 """
 
 from __future__ import annotations
@@ -32,7 +32,14 @@ from ..bootstrap import bootstrap, bootstrap_with_testvec
 from ..key import CloudKey
 from ..lut.generator import Generator
 from ..lut.multi_value import MultiValueLuts, factor_test_vectors, multi_value_bootstrap
-from ..tlwe import lwe_decrypt_message, lwe_encrypt_message, lwe_trivial_message
+from ..tlwe import (
+    lwe_decrypt_message,
+    lwe_encrypt_message,
+    lwe_encrypt_torus_seeded,
+    lwe_expand_seeded,
+    lwe_trivial_message,
+    message_mu,
+)
 from ..torus import f64_to_torus, i32
 
 
@@ -52,6 +59,25 @@ def encrypt_radix(generator, sk_lv0: torch.Tensor, val, num_digits: int, params,
     return lwe_encrypt_message(
         generator, sk_lv0, _digits_of(val, num_digits, base_bits), modulus, params.tlwe_lv0.alpha
     )
+
+
+def encrypt_radix_seeded(
+    generator, mask_key, sk_lv0: torch.Tensor, val, num_digits: int, params, base_bits: int = 3
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded (compressed) radix encryption, one word a digit on the wire
+    (rs_tfhe_tpu/models/arithmetic.py:53-83): the digits of `encrypt_radix`,
+    flattened row-major onto the mask stream of `mask_key` (digit d of value
+    i is stream row i*D+d, the native client's `lwe_expand_seeded` layout),
+    the noise from `generator`. Returns (seed int32 [2], bodies int32
+    [..., num_digits]); the server expands with `expand_radix_seeded`."""
+    mu = message_mu(_digits_of(val, num_digits, base_bits), 1 << (base_bits + 1), sk_lv0.device)
+    seed, bodies = lwe_encrypt_torus_seeded(generator, mask_key, sk_lv0, mu.reshape(-1), params.tlwe_lv0.alpha)
+    return seed, bodies.reshape(mu.shape)
+
+
+def expand_radix_seeded(seed, bodies: torch.Tensor, n: int) -> torch.Tensor:
+    """Server side: (seed, bodies [..., D]) -> digit vectors [..., D, n+1]."""
+    return lwe_expand_seeded(seed, bodies.reshape(-1), n).reshape(*bodies.shape, n + 1)
 
 
 def decrypt_radix(ct: torch.Tensor, sk_lv0: torch.Tensor, base_bits: int = 3) -> np.ndarray:

@@ -7,14 +7,15 @@ reference evaluates its 80-gate adder with 80 sequential bootstraps
 (examples/add_two_numbers.rs:60-97); here the same netlist runs in ~2*W plan
 groups whose gathers and scatters are static index maps.
 
-The scheduler is `plan_python`. The JAX package also has a native C++
-planner (`plan_native`, csrc/circuit_scheduler.cpp through ctypes) with
-identical semantics; the port gets it with its own copy of the ctypes
-bindings, so `plan` is `plan_python` here.
+Two schedulers with identical semantics: `plan_python`, and `plan_native`,
+the C++ planner (csrc/circuit_scheduler.cpp through the port's own ctypes
+bindings, `rs_tfhe_tpu_torch.native`). `plan` takes the native one where its
+library builds and loads, as the JAX package's `plan` does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -157,10 +158,39 @@ def plan_python(circuit: Circuit) -> Plan:
                 groups=groups, n_levels=n_levels)
 
 
+def plan_native(circuit: Circuit) -> Plan:
+    """Schedule through the C++ planner (csrc/circuit_scheduler.cpp;
+    rs_tfhe_tpu/models/netlist.py:168-204)."""
+    from .. import native
+
+    lib = native.load()
+    op, a, b, c, outw = circuit._arrays()
+    n = len(op)
+    levels = np.zeros(n, np.int32)
+    order = np.zeros(n, np.int32)
+    max_groups = 13 * (n + 1)
+    gs, go, gl = (np.zeros(max_groups, np.int32) for _ in range(3))
+    i32p = ctypes.POINTER(ctypes.c_int32)
+
+    def p(x):
+        return x.ctypes.data_as(i32p)
+
+    ng = lib.circuit_plan(p(op), p(a), p(b), p(c), p(outw), n, circuit.n_wires, circuit.n_inputs,
+                          p(levels), p(order), p(gs), p(go), p(gl), max_groups)
+    if ng < 0:
+        raise ValueError(f"circuit_plan failed: code {ng}")
+    groups = [(int(gs[i]), int(gs[i + 1]) if i + 1 < ng else n, _CODE_TO_NAME[int(go[i])], int(gl[i]))
+              for i in range(ng)]
+    n_levels = int(levels.max()) + 1 if n else 0
+    return Plan(levels=levels, order=order, groups=groups, n_levels=n_levels)
+
+
 def plan(circuit: Circuit) -> Plan:
-    """The circuit's execution plan: `plan_python` (the native planner is
-    not ported yet, see the module docstring)."""
-    return plan_python(circuit)
+    """The circuit's execution plan: `plan_native` where the native library
+    is available, else `plan_python` (rs_tfhe_tpu/models/netlist.py:206-209)."""
+    from .. import native
+
+    return (plan_native if native.available() else plan_python)(circuit)
 
 
 def _run_group(wires: torch.Tensor, opname: str, ai, bi, ci, outi, ck: CloudKey) -> None:

@@ -17,27 +17,14 @@ import torch
 
 from ..params import TORUS_BITS, TfheParams
 from ..torus import i32, recombine_planar
-
-#: `torch._int_mm` on the card needs more than 16 rows and K, N multiples of 8
-_INT_MM_MIN_ROWS = 17
-
-
-def _int8_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """int8 [M, K] x int8 [K, W] -> exact int32 [M, W]; pads M to the card's
-    minimum and raises on a K or W the card's product does not take."""
-    m, k = lhs.shape
-    if k % 8 or rhs.shape[1] % 8:
-        raise ValueError(f"int8 product needs K and W multiples of 8, got {k}, {rhs.shape[1]}")
-    pad = max(0, _INT_MM_MIN_ROWS - m)
-    if pad:
-        lhs = torch.nn.functional.pad(lhs, (0, 0, 0, pad))
-    return torch._int_mm(lhs, rhs)[:m]
+from .poly import exact_dot_i8
 
 
 def digit_select_sum(
     a: torch.Tensor, table_limbs: torch.Tensor, t: int, basebit: int, out_width: int
 ) -> torch.Tensor:
-    """Sum of the table rows selected by the digits of `a` (exact mod 2^32).
+    """Sum of the table rows selected by the digits of `a` (exact mod 2^32),
+    the one-hot product through `ops.poly.exact_dot_i8`.
 
     a:           int32 [..., n_in] mask coefficients to decompose
     table_limbs: int8 [n_in * t * 2^basebit, 4 * W] planar limbs
@@ -55,8 +42,8 @@ def digit_select_sum(
     # basebit <= 32 - shift_j
     digits = (a_bar.unsqueeze(-1) >> shifts) & (base - 1)  # [..., n_in, t]
     onehot = digits.unsqueeze(-1) == torch.arange(base, device=a.device, dtype=torch.int32)
-    lhs = onehot.to(torch.int8).reshape(-1, n_in * t * base)
-    acc = _int8_matmul(lhs, table_limbs)  # [M, 4*W] int32
+    lhs = onehot.to(torch.int8).reshape(*lead, n_in * t * base)
+    acc = exact_dot_i8(lhs, table_limbs)  # [..., 4*W] int32
     return recombine_planar(acc.reshape(*lead, 4, w))[..., :out_width]
 
 

@@ -27,6 +27,36 @@ import torch
 from ..torus import neg_torus, wrap_i32
 
 _F64_EXACT = 1 << 53
+#: `torch._int_mm` on the card needs more than 16 rows and K, N multiples of 8
+_INT_MM_MIN_ROWS = 17
+_INT_MM_MULTIPLE = 8
+
+
+def exact_dot_i8(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Exact int8 contraction: [..., K] x [K, M] -> int32 [..., M]
+    (rs_tfhe_tpu/ops/poly.py:46), on the CPU and on the card alike.
+
+    `torch._int_mm` accumulates s8 x s8 products in int32: exact while each
+    output's sum of |products| stays below 2^31, which holds for any K below
+    2^17 and, for the one-hot and +/-1 selections of the key switch and the
+    public-key encryption, for any K below 2^24. Operands the card's product
+    does not take are padded with zeros, which add nothing: the rows to 17,
+    K and M to multiples of 8; shapes that already fit are not copied.
+    """
+    lead, k = lhs.shape[:-1], lhs.shape[-1]
+    if rhs.shape[0] != k or lhs.dtype != torch.int8 or rhs.dtype != torch.int8:
+        raise ValueError(f"expected int8 [..., {k}] x [{k}, M], got {lhs.dtype} {tuple(lhs.shape)} "
+                         f"x {rhs.dtype} {tuple(rhs.shape)}")
+    m = rhs.shape[1]
+    a = lhs.reshape(-1, k)
+    rows = a.shape[0]
+    pad_k, pad_m = -k % _INT_MM_MULTIPLE, -m % _INT_MM_MULTIPLE
+    pad_rows = max(0, _INT_MM_MIN_ROWS - rows)
+    if pad_k or pad_rows:
+        a = torch.nn.functional.pad(a, (0, pad_k, 0, pad_rows))
+    if pad_k or pad_m:
+        rhs = torch.nn.functional.pad(rhs, (0, pad_m, 0, pad_k))
+    return torch._int_mm(a, rhs)[:rows, :m].reshape(*lead, m)
 
 
 def negacyclic_extend(t: torch.Tensor) -> torch.Tensor:

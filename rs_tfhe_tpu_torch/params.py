@@ -333,10 +333,10 @@ def security_info(params: TfheParams) -> str:
     return f"Security level: {params.security_bits} bits ({params.description})"
 
 
-def params_from(p) -> TfheParams:
-    """This module's TfheParams for any parameter-set dataclass with the same
-    fields, such as one of the JAX package's sets."""
-    d = dataclasses.asdict(p)
+def params_from_dict(d: dict) -> TfheParams:
+    """A parameter set from its fields as a dict (`dataclasses.asdict`, or a
+    key file's params JSON, where `bsk_round_bits` is absent in version-1
+    files and taken as 0)."""
     return TfheParams(
         security_bits=d["security_bits"],
         description=d["description"],
@@ -344,5 +344,11 @@ def params_from(p) -> TfheParams:
         tlwe_lv1=TlweParams(**d["tlwe_lv1"]),
         trlwe_lv1=TrlweParams(**d["trlwe_lv1"]),
         trgsw_lv1=TrgswParams(**d["trgsw_lv1"]),
-        bsk_round_bits=d["bsk_round_bits"],
+        bsk_round_bits=d.get("bsk_round_bits", 0),
     )
+
+
+def params_from(p) -> TfheParams:
+    """This module's TfheParams for any parameter-set dataclass with the same
+    fields, such as one of the JAX package's sets."""
+    return params_from_dict(dataclasses.asdict(p))

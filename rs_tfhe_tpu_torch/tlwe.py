@@ -17,8 +17,11 @@ from .torus import (
     f64_to_torus,
     gaussian_torus,
     i32,
+    key_tensor,
     neg_torus,
+    planar_limbs,
     resolve_device,
+    threefry2x32_bits,
     to_numpy,
     uniform_torus,
     wrap_i32,
@@ -48,13 +51,101 @@ def lwe_encrypt_torus(
     return torch.cat([a, b.unsqueeze(-1)], dim=-1)
 
 
+def bool_mu(msg, device) -> torch.Tensor:
+    """The torus words of booleans: +1/8 for True, -1/8 for False, int32 on
+    `device` (reference tlwe.rs:55-58)."""
+    msg = torch.as_tensor(msg, dtype=torch.bool, device=device)
+    return torch.where(msg, _MU_TRUE, _MU_FALSE).to(TORUS_DTYPE)
+
+
 def lwe_encrypt_bool(
     generator: torch.Generator, s: torch.Tensor, msg, alpha: float
 ) -> torch.Tensor:
     """Boolean +/- 1/8 encoding (reference tlwe.rs:55-58)."""
-    msg = torch.as_tensor(msg, dtype=torch.bool, device=s.device)
-    mu = torch.where(msg, _MU_TRUE, _MU_FALSE).to(TORUS_DTYPE)
-    return lwe_encrypt_torus(generator, s, mu, alpha)
+    return lwe_encrypt_torus(generator, s, bool_mu(msg, s.device), alpha)
+
+
+def lwe_encrypt_torus_seeded(
+    generator: torch.Generator, mask_key, s: torch.Tensor, mu: torch.Tensor, alpha: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded (compressed) LWE encryption: one word a ciphertext on the wire
+    (rs_tfhe_tpu/tlwe.py:45-74).
+
+    Mask row r is the threefry stream of `mask_key` over the counters
+    [r*n, (r+1)*n) (`torus.threefry2x32_bits`), so only (seed, bodies)
+    travel and any runtime (`lwe_expand_seeded` here or in the JAX package,
+    the native client's `lwe_expand_seeded`) rebuilds the masks bit for bit.
+    The noise comes from `generator` (a `torch.Generator` or
+    `torus.OsRandom`), never from the seed, which is public. Use a mask key
+    for ONE batch only, like any nonce.
+
+    mask_key: two words (`torus.key_data`, `torus.split`, `torus.random_key`);
+    mu: int32 [B]. Returns (seed int32 [2] on the host, bodies int32 [B] on
+    s's device).
+    """
+    n = s.shape[0]
+    (batch,) = mu.shape
+    seed = key_tensor(mask_key)
+    a = threefry2x32_bits(seed, 0, batch * n, s.device).reshape(batch, n)
+    noise = gaussian_torus(generator, alpha, mu.shape, device=s.device)
+    return seed, mu + noise + _dot_key(a, s)
+
+
+def lwe_expand_seeded(seed, bodies: torch.Tensor, n: int) -> torch.Tensor:
+    """(seed [2], bodies int32 [B]) -> the full LWE batch int32 [B, n+1] on
+    the bodies' device."""
+    (batch,) = bodies.shape
+    a = threefry2x32_bits(seed, 0, batch * n, bodies.device).reshape(batch, n)
+    return torch.cat([a, bodies.unsqueeze(-1)], dim=-1)
+
+
+def lwe_encrypt_bool_seeded(
+    generator: torch.Generator, mask_key, s: torch.Tensor, msg, alpha: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded variant of `lwe_encrypt_bool` (+/- 1/8 encoding)."""
+    return lwe_encrypt_torus_seeded(generator, mask_key, s, bool_mu(msg, s.device), alpha)
+
+
+def _rows_from_masks(a: torch.Tensor, body: torch.Tensor, zero_mask) -> torch.Tensor:
+    """Rows [R, n+1] of masks and bodies as a planar limb table, the rows
+    where `zero_mask` is set zeroed."""
+    rows = torch.cat([a, body.unsqueeze(-1)], dim=-1)
+    if zero_mask is not None:
+        rows[torch.as_tensor(zero_mask, device=rows.device)] = 0
+    return planar_limbs(rows)
+
+
+def lwe_encrypt_rows_limbs(
+    generator: torch.Generator, mask_key, s: torch.Tensor, mu: torch.Tensor,
+    alpha: float, zero_mask=None,
+) -> torch.Tensor:
+    """Encrypt a 1-D batch of torus messages into a planar limb table
+    (rs_tfhe_tpu/tlwe.py:87-158), in the port's layout.
+
+    Returns int8 [R, 4*W], W = n+1 rounded up to 8 (`torus.planar_limbs`,
+    `key.ksk_width`): column q*W + c holds limb q of coefficient c (masks at
+    c < n, the body at c = n, zeros above). Row r's mask is the threefry
+    stream of `mask_key` over the counters [r*n, (r+1)*n), as in the JAX
+    package, whose mask key is the first split of the key it is called with;
+    the noise comes from `generator`. Rows where `zero_mask` (bool [R]) is
+    set are zero. Serves the key-switching key (key.gen_key_switching_key)
+    and proxy re-keys (proxy_reenc.new_symmetric).
+    """
+    n = s.shape[0]
+    (rows,) = mu.shape
+    a = threefry2x32_bits(mask_key, 0, rows * n, s.device).reshape(rows, n)
+    noise = gaussian_torus(generator, alpha, (rows,), device=s.device)
+    return _rows_from_masks(a, mu + noise + _dot_key(a, s), zero_mask)
+
+
+def lwe_rows_limbs_from_bodies(mask_key, bodies: torch.Tensor, n: int, zero_mask=None) -> torch.Tensor:
+    """Rebuild an `lwe_encrypt_rows_limbs` table from its mask key and bodies
+    (rs_tfhe_tpu/tlwe.py:161-195), in the port's layout, on the bodies'
+    device: the masks are the key's public stream, the bodies hold
+    mu + noise + <a, s> already, so no secret is needed."""
+    (rows,) = bodies.shape
+    a = threefry2x32_bits(mask_key, 0, rows * n, bodies.device).reshape(rows, n)
+    return _rows_from_masks(a, bodies, zero_mask)
 
 
 def lwe_phase(ct: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -68,8 +159,9 @@ def lwe_decrypt_bool(ct: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return lwe_phase(ct, s) >= 0
 
 
-def _message_mu(msg, message_modulus: int, device) -> torch.Tensor:
-    """msg mod modulus times the torus word of 1/(2*modulus), mod 2^32."""
+def message_mu(msg, message_modulus: int, device) -> torch.Tensor:
+    """msg mod modulus times the torus word of 1/(2*modulus), mod 2^32:
+    int32 on `device`."""
     msg = torch.remainder(torch.as_tensor(msg, dtype=torch.int64, device=device), message_modulus)
     return wrap_i32(msg * int(f64_to_torus(1.0 / (2.0 * message_modulus))))
 
@@ -79,7 +171,7 @@ def lwe_encrypt_message(
 ) -> torch.Tensor:
     """LWE message encoding msg/(2*modulus) for programmable bootstrapping
     (reference tlwe.rs:84-98; rs_tfhe_tpu/tlwe.py:216-230)."""
-    return lwe_encrypt_torus(generator, s, _message_mu(msg, message_modulus, s.device), alpha)
+    return lwe_encrypt_torus(generator, s, message_mu(msg, message_modulus, s.device), alpha)
 
 
 def lwe_decrypt_message(ct: torch.Tensor, s: torch.Tensor, message_modulus: int) -> np.ndarray:
@@ -94,7 +186,7 @@ def lwe_trivial_message(msg, message_modulus: int, n: int, device=None) -> torch
     """Noiseless maskless ciphertexts under the msg/(2*modulus) encoding
     (lwe_encrypt_message with zero mask and zero noise), on `device` (None:
     the card, torus.resolve_device)."""
-    mu = _message_mu(msg, message_modulus, resolve_device(device))
+    mu = message_mu(msg, message_modulus, resolve_device(device))
     ct = torch.zeros((*mu.shape, n + 1), dtype=TORUS_DTYPE, device=mu.device)
     ct[..., -1] = mu
     return ct

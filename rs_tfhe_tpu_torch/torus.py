@@ -13,7 +13,9 @@ Host-side conversions stay numpy (`f64_to_torus`, `torus_to_f64`), and
 `to_torch`/`to_numpy` move uint32 arrays in and out without changing a bit.
 Randomness comes from an explicit `torch.Generator` on the tensor's device,
 or from `OsRandom`, which draws every word from the operating system's CSPRNG
-(the `generate_secure` keys).
+(the `generate_secure` keys). Public mask streams, which seeded ciphertexts
+and key files replay, come from threefry-2x32 under JAX's key derivation
+(`key_data`, `split`, `fold_in`, `random_bits`), bit for bit.
 """
 
 from __future__ import annotations
@@ -158,11 +160,127 @@ def uniform_torus(generator: torch.Generator | OsRandom, shape, device=None) -> 
     )
 
 
+def random_key(generator: torch.Generator | OsRandom) -> torch.Tensor:
+    """A fresh threefry key: two uniform words from `generator`, int32 [2] on
+    the host. It seeds public masks only (`threefry2x32_bits`)."""
+    return uniform_torus(generator, (2,)).cpu()
+
+
 def uniform_bits(generator: torch.Generator | OsRandom, n: int) -> torch.Tensor:
     """n uniform bits as int32 {0, 1} on the generator's device (secret keys)."""
     if isinstance(generator, OsRandom):
         return (generator.words((n,)) & 1).to(generator.device)
     return torch.randint(0, 2, (n,), generator=generator, dtype=torch.int32, device=generator.device)
+
+
+# ---------------------------------------------------------------------------
+# Threefry-2x32 and JAX's key derivation (public mask streams)
+# ---------------------------------------------------------------------------
+
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_MASK32 = 0xFFFFFFFF
+
+
+def _key_words(key) -> tuple[int, int]:
+    """A threefry key given as two 32-bit words (an int32 tensor, a uint32
+    numpy array or a pair of ints) -> the two words as unsigned Python ints."""
+    if isinstance(key, torch.Tensor):
+        key = key.tolist()
+    words = [int(w) & _MASK32 for w in np.asarray(key, dtype=np.int64).reshape(-1)]
+    if len(words) != 2:
+        raise ValueError(f"a threefry key is two 32-bit words, got {len(words)}")
+    return words[0], words[1]
+
+
+def key_tensor(key) -> torch.Tensor:
+    """A threefry key (two words, in any form `_key_words` takes) as the
+    int32 [2] host tensor the port keeps and ships: JAX's uint32 key data,
+    bit for bit."""
+    return torch.tensor([i32(w) for w in _key_words(key)], dtype=torch.int32)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | logical_rshift(x, TORUS_BITS - r)
+
+
+def _threefry2x32(key, x1: torch.Tensor, x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block (20 rounds; Salmon et al., Random123) of the
+    counters (x1, x2), int32 tensors, under `key`: the two output words."""
+    k1, k2 = _key_words(key)
+    ks = (i32(k1), i32(k2), i32(k1 ^ k2 ^ 0x1BD11BDA))
+    x1, x2 = x1 + ks[0], x2 + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x1 = x1 + x2
+            x2 = _rotl(x2, r) ^ x1
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + i32(ks[(i + 2) % 3] + i + 1)
+    return x1, x2
+
+
+def _counters(start: int, count: int, device) -> torch.Tensor:
+    """Low counter words start .. start+count-1 as int32; raises past 2^32
+    (the high word stays 0, as in JAX for streams below 2^32 words)."""
+    if start < 0 or start + count > 1 << TORUS_BITS:
+        raise ValueError(
+            f"counters [{start}, {start + count}) leave the 32-bit threefry counter range"
+        )
+    return wrap_i32(torch.arange(start, start + count, dtype=torch.int64, device=device))
+
+
+def threefry2x32_bits(key, start: int, count: int, device=None) -> torch.Tensor:
+    """Random words for the flat counters [start, start+count): int32
+    [count] on `device` (None: the card, `resolve_device`).
+
+    Bit for bit `jax.random.bits(k, shape, uint32).ravel()[start:start+count]`
+    under JAX's default partitionable threefry, whose counter for element i is
+    (0, i) and whose word is o1 ^ o2 of the block
+    (rs_tfhe_tpu/torus.py:77-119), and the native client's `threefry_bits`.
+    `key`: two words, as `_key_words` takes them.
+    """
+    x2 = _counters(start, count, resolve_device(device))
+    o1, o2 = _threefry2x32(key, torch.zeros_like(x2), x2)
+    return o1 ^ o2
+
+
+def threefry2x32_bits_raw(k1: int, k2: int, start: int, count: int, device=None) -> torch.Tensor:
+    """`threefry2x32_bits` from the key's two words, as a seeded ciphertext
+    ships them (rs_tfhe_tpu/torus.py:103-119)."""
+    return threefry2x32_bits((k1, k2), start, count, device)
+
+
+def key_data(seed: int) -> torch.Tensor:
+    """`jax.random.key_data(jax.random.key(seed))` as int32 [2] on the host.
+
+    JAX takes a Python int seed as int64 and, in its default 32-bit mode,
+    keeps its low 32 bits: the key is (0, seed mod 2^32), for negative seeds
+    too (`rs_tfhe_tpu.key.secure_prng_key` draws signed 64-bit seeds)."""
+    if not -(1 << 63) <= int(seed) < 1 << 63:
+        raise ValueError(f"seed {seed} does not fit in 64 bits")
+    return torch.tensor([0, i32(int(seed) & _MASK32)], dtype=torch.int32)
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """`jax.random.split(key, num)` as int32 [num, 2] on the host. Under
+    partitionable threefry new key i is both output words of the block at
+    counter (0, i), not their XOR."""
+    o1, o2 = _threefry2x32(key, torch.zeros(num, dtype=torch.int32), _counters(0, num, "cpu"))
+    return torch.stack([o1, o2], dim=-1)
+
+
+def fold_in(key, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)` as int32 [2] on the host: both words of
+    the block at counter (0, data mod 2^32)."""
+    x2 = torch.tensor([i32(int(data) & _MASK32)], dtype=torch.int32)
+    o1, o2 = _threefry2x32(key, torch.zeros_like(x2), x2)
+    return torch.cat([o1, o2])
+
+
+def random_bits(key, shape, device=None) -> torch.Tensor:
+    """`jax.random.bits(key, shape, uint32)` as int32 `shape` on `device`
+    (None: the card): the flat-counter stream, o1 ^ o2."""
+    count = int(np.prod(shape, dtype=np.int64))
+    return threefry2x32_bits(key, 0, count, device).reshape(tuple(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +313,32 @@ def recombine_planar(acc: torch.Tensor) -> torch.Tensor:
     for q in range(1, 4):
         out = out + (acc[..., q, :] << (8 * q))
     return out
+
+
+def limb_width(width: int, lanes: int = 8) -> int:
+    """Columns per limb plane of a planar table of rows `width` wide: width
+    rounded up to `lanes` (8, the port's int8 product; 128, the JAX
+    package's TPU lanes, `rs_tfhe_tpu.torus.lane_pad`)."""
+    return -(-width // lanes) * lanes
+
+
+def planar_limbs(rows: torch.Tensor, lanes: int = 8) -> torch.Tensor:
+    """Torus rows int32 [R, W] -> planar limb table int8 [R, 4*P], P =
+    limb_width(W, lanes): column q*P + c holds limb q of coefficient c, and
+    the padding columns are zero."""
+    r, w = rows.shape
+    padded = torch.nn.functional.pad(rows, (0, limb_width(w, lanes) - w))
+    return split_u32_limbs_planar(padded).reshape(r, -1)
+
+
+def rows_from_planar_limbs(limbs: torch.Tensor, width: int) -> torch.Tensor:
+    """Planar limb table int8 [R, 4*P] (either layout) -> torus rows int32
+    [R, width]: the planes recombined mod 2^32, the padding dropped."""
+    r, cols = limbs.shape
+    if limbs.dtype != torch.int8 or cols % 4 or cols // 4 < width:
+        raise ValueError(f"expected an int8 planar table of at least 4*{width} columns, "
+                         f"got {limbs.dtype} {tuple(limbs.shape)}")
+    return recombine_planar(limbs.reshape(r, 4, cols // 4))[:, :width]
 
 
 def neg_torus(x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ from .trlwe import trlwe_encrypt_torus
 def trgsw_encrypt_torus(
     generator: torch.Generator, s1: torch.Tensor, p: torch.Tensor,
     alpha: float, params: TfheParams, mask_grid_bits: int = 0,
+    mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Encrypt small-integer messages p (int32 [...]) as TRGSW.
 
@@ -29,13 +30,16 @@ def trgsw_encrypt_torus(
     mask_grid_bits: reduced-modulus rows for the rounded BSK (see
     trlwe_encrypt_torus). The smallest gadget constant must sit on the grid
     (32 - L*bgbit >= mask_grid_bits) so planting it keeps the low bits zero.
+
+    mask: the rows' mask words int32 [..., 2L, N] before the grid is applied
+    (see trlwe_encrypt_torus); None draws them from `generator`.
     """
     g = params.trgsw_lv1
     n, l = params.n1, g.l
     if mask_grid_bits > 0 and TORUS_BITS - l * g.bgbit < mask_grid_bits:
         raise ValueError("gadget constant below the BSK grid; lower bsk_round_bits")
     zeros = torch.zeros((*p.shape, 2 * l, n), dtype=torch.int32, device=s1.device)
-    ct = trlwe_encrypt_torus(generator, s1, zeros, alpha, mask_grid_bits)
+    ct = trlwe_encrypt_torus(generator, s1, zeros, alpha, mask_grid_bits, mask)
     for i in range(l):
         scaled = p * (1 << (TORUS_BITS - (i + 1) * g.bgbit))  # p small: no wrap
         ct[..., i, 0, 0] += scaled

@@ -17,11 +17,15 @@ _MU_FALSE = i32(int(f64_to_torus(-0.125)))
 
 def trlwe_encrypt_torus(
     generator: torch.Generator, s1: torch.Tensor, mu: torch.Tensor,
-    alpha: float, mask_grid_bits: int = 0,
+    alpha: float, mask_grid_bits: int = 0, mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Encrypt torus polynomials. s1: int32 [N] binary; mu: int32 [..., N].
 
     Reference: trlwe.rs:30-52 (b = mu + noise + a (*) s).
+
+    mask: the uniform mask words int32 [..., N] (a key's public threefry
+    stream, key.CloudKey.generate); None draws them from `generator`. The
+    noise always comes from `generator`.
 
     mask_grid_bits = g > 0 produces a reduced-modulus sample (the rounded
     bootstrapping key, params.bsk_round_bits), as `rs_tfhe_tpu.trlwe` does:
@@ -30,7 +34,7 @@ def trlwe_encrypt_torus(
     to nearest afterwards.
     """
     n = s1.shape[0]
-    a = uniform_torus(generator, (*mu.shape[:-1], n), device=s1.device)
+    a = uniform_torus(generator, (*mu.shape[:-1], n), device=s1.device) if mask is None else mask
     low = (1 << mask_grid_bits) - 1
     if mask_grid_bits > 0:
         # (a >> g) << g of the uint32 reference: clearing the low g bits

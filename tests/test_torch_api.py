@@ -156,9 +156,10 @@ def test_generate_no_ksk_shapes_and_zeros():
 
 def test_generate_secure_keys_work(monkeypatch):
     """Two draws differ; each key pair encrypts, decrypts and evaluates a
-    gate; every key bit, mask and noise word is read from the OS CSPRNG
-    (the bytes asked of os.urandom cover them), and seeding torch's own
-    generator does not repeat a key."""
+    gate; every key bit, noise word and the cloud key's gen_seed (which
+    seeds its masks) is read from the OS CSPRNG (the bytes asked of
+    os.urandom cover them), and seeding torch's own generator does not
+    repeat a key."""
     asked = []
     urandom = PTo.os.urandom
     monkeypatch.setattr(PTo.os, "urandom", lambda n: asked.append(n) or urandom(n))
@@ -173,8 +174,9 @@ def test_generate_secure_keys_work(monkeypatch):
     ck1 = PK.CloudKey.generate_secure(sk1, multibit=True)
     g = PP.trgsw_lv1
     ksk_rows, bsk_rows, mb_rows = PP.n1 * g.iks_t * PP.ks_base, PP.n0 * 2 * g.l, PP.n0 // 2 * 4 * 2 * g.l
-    # masks 4 bytes a word, noise 16 bytes a sample (two 64-bit uniforms)
-    assert sum(asked) == ksk_rows * (4 * PP.n0 + 16) + (bsk_rows + mb_rows) * (4 + 16) * PP.n1
+    # gen_seed 8 bytes (its threefry streams make every mask word), noise 16
+    # bytes a sample (two 64-bit uniforms)
+    assert sum(asked) == 8 + ksk_rows * 16 + (bsk_rows + mb_rows) * 16 * PP.n1
     ck2 = PK.CloudKey.generate_secure(sk1)
     assert not torch.equal(ck1.bsk, ck2.bsk) and not torch.equal(ck1.ksk_limbs, ck2.ksk_limbs)
     gen = PTo.OsRandom("cpu")

@@ -42,7 +42,10 @@ the last line):
           "fused_small_mb" gives large batches;
        3c the external-product step at FAST B = 2048 and 8, strict B = 512
           and 8, RADIX B = 64 and UINT4 B = 8 (s8 limb products on the tensor
-          cores for single-limb digits, the CUDA cores for UINT4);
+          cores for single-limb digits, the CUDA cores for UINT4), all 2L
+          gadget rows; and at the J = 2L/tp rows of phase 16's
+          tensor-parallel shards: FAST B = 1 and 8 at J = 1 and 2, strict
+          B = 1 and 8 at J = 3, TEST_TINY B = 4 at J = 3 (the dry run);
        3d the crossover at B = 1, 2, 4 and 8 of FAST, strict and RADIX: the
           multi-bit kernel's cluster and single-block instances and the
           whole-rotation kernel, beside the rotation `auto` gives a
@@ -66,7 +69,12 @@ the last line):
           and by 1000, the bitcast and the unpack on the FAST cloud key's bsk
           as [5600,1024], each input rotating through copies that span three
           times the L2; torch.roll, view, a clone and the int16 view's
-          permute(2, 0, 1).contiguous() are their library times;
+          permute(2, 0, 1).contiguous() are their library times; and the
+          s16 dot as the Nussbaumer route calls it (ops/nussbaumer.py
+          pointwise_dot, counted apart as nussbaumer_dot): [B, 512] x
+          [512, 1024] for each of 16 DFT points at FAST, B = 1 and 8, and
+          [8, 768] x [768, 1024] at strict, beside a float64 torch.bmm over
+          the 16 points;
      every case with its bound: the least time the card could take, the
      larger of bytes over the memory rate and operations over the peak rate
      (for 32-bit multiply-adds the better of the CUDA cores and of s8 limb
@@ -76,7 +84,11 @@ the last line):
      at B = 5 above the multi-bit route's cap, which must take the
      whole-rotation kernel), torch_port_tiny_circuits.npz and
      torch_port_tiny_radix.npz (radix arithmetic, sort_radix and the typed
-     API with a standard and a multi-bit key) (TEST_TINY, bit for bit);
+     API with a standard and a multi-bit key) and torch_port_tiny_parallel.npz
+     (JAX's multi-device outputs on 8 virtual CPU devices, replayed on meshes
+     of the card repeated: data-parallel NAND, XOR, MUX, LUT and the
+     multi-bit key's local-batch routing, tensor-parallel AND, OR and LUT,
+     and a NAND under step_impl="nussbaumer") (TEST_TINY, bit for bit);
   5. the gate path at full width, SECURITY_128_BIT_FAST: keygen on the card,
      4096 encrypted bit pairs through batch_gate("nand"), decrypted 100%
      correct, gates/s, and B = 1 latency as the slope between chains of 5
@@ -142,12 +154,27 @@ the last line):
      every ciphertext uses basebit 6, t = 3); and utils.profiling's Timer and
      gate_throughput on that path. Its times are host clock to the
      synchronise, warm unless marked cold, each line with the card's name and
-     power limit.
-Each path of phases 5-15 is driven with the kernels' launch counts set to 0
+     power limit;
+ 16. the multi-device paths (rs_tfhe_tpu_torch.parallel) and the Nussbaumer
+     route at full width, SECURITY_128_BIT_FAST (keys made on the card) on a
+     virtual mesh of the card: data-parallel NAND B = 4096 on 4 shards
+     (bit-equal to the single-device batch; gates/s of both), the multi-bit
+     key's data-parallel NAND B = 8 (every 2-row shard on the multi-bit
+     kernel), data-parallel MUX B = 1024; tensor-parallel NAND at B = 1 and 8
+     with tp = 2 (the step kernel at J = 2), B = 8 with tp = 4 (J = 1) and at
+     SECURITY_128_BIT with tp = 2 (J = 3), and the tensor-parallel LUT at
+     B = 8, each bit-equal to the single device; NAND B = 8 under
+     step_impl="nussbaumer" at FAST and strict, bit-equal to the default
+     route; dryrun_multichip on 4 shards; where two or more cards are
+     visible, the data- and tensor-parallel NAND again over distinct cards.
+     Every output decrypted; times host clock to the synchronise, with the
+     card's name and power limit.
+Each path of phases 5-16 is driven with the kernels' launch counts set to 0
 just before it and read just after; every kernel of a path must have
 launched, and every instance a path launched (the whole key: ring size,
-tile, cluster, unit) must be one that phase 3 held against the plain
-version. The line before the last is a JSON object of the kernels (launches,
+tile, cluster, unit, and the step kernel's gadget row count J) and every
+shape it gave the Nussbaumer dot must be one that phase 3 held against the
+plain version. The line before the last is a JSON object of the kernels (launches,
 max error against the plain version, times); the last line is the contract
 JSON with the device.
 """
@@ -169,6 +196,9 @@ FIXTURE = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny.npz")
 FIXTURE_MB = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_mb.npz")
 FIXTURE_CIRCUITS = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_circuits.npz")
 FIXTURE_RADIX = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_radix.npz")
+FIXTURE_PARALLEL = os.path.join(ROOT, "tests", "vectors", "torch_port_tiny_parallel.npz")
+#: the parallel fixture's data- and tensor-parallel LUTs (message modulus 4; scripts/gen_torch_port_vectors.py)
+FIXTURE_PARALLEL_LUTS = (lambda x: (3 * x) % 4, lambda x: (x + 2) % 4)
 #: The radix fixture's digit base (scripts/gen_torch_port_vectors.py RADIX_BASE_BITS).
 FIXTURE_RADIX_BASE_BITS = 2
 #: The batches phase 13 gives the whole-rotation kernel at RADIX (B = 64:
@@ -463,7 +493,8 @@ def _rnd(g, dev):
 def _name(p) -> str:
     from rs_tfhe_tpu_torch import params as P
 
-    return {v: k for k, v in P.ALL_SECURITY_SETS.items()}[p].removeprefix("SECURITY_")
+    names = {v: k for k, v in P.ALL_SECURITY_SETS.items()}
+    return "TEST_TINY" if p == P.TEST_TINY else names[p].removeprefix("SECURITY_")
 
 
 def phase_kernel_vs_plain(dev) -> dict:
@@ -524,8 +555,14 @@ def phase_kernel_vs_plain(dev) -> dict:
         by_instance[instance_of(fast, batch, fast_bsk)] = batch
     cases += [(fast, fast_bsk, batch, False, False) for inst, batch in sorted(by_instance.items()) if inst not in held]
     held.update(by_instance)
-    # the instances of the radix phases' batches, each at the smallest batch that takes it
-    for p, bsk, batches in ((p_radix, radix_bsk, RADIX_BATCHES), (p_nibble, nibble_bsk, NIBBLE_BATCHES)):
+    # the instances of the radix phases' batches and of phase 16's (the data-parallel shards of FAST
+    # B = 4096 on four shards and on the visible cards, the strict references at B = 8, the dry run's
+    # TEST_TINY shards), each at the smallest batch that takes it
+    tiny = P.TEST_TINY
+    tiny_bsk = rnd((tiny.n0, 2 * tiny.trgsw_lv1.l, 2, tiny.n1))
+    parallel_fast = (4096 // 4, 4096 // max(1, torch.cuda.device_count()))
+    for p, bsk, batches in ((p_radix, radix_bsk, RADIX_BATCHES), (p_nibble, nibble_bsk, NIBBLE_BATCHES),
+                            (fast, fast_bsk, parallel_fast), (p_strict, strict_bsk, (8,)), (tiny, tiny_bsk, (2,))):
         for batch in batches:
             inst = instance_of(p, batch, bsk)
             if inst not in held:
@@ -648,12 +685,18 @@ def phase_step_kernel_vs_plain(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     rnd = _rnd(g, dev)
     max_err, rows, tiles = 0, {}, set()
-    plan = ((P.SECURITY_128_BIT_FAST, 2048), (P.SECURITY_128_BIT_FAST, 8), (P.SECURITY_128_BIT, 512),
-            (P.SECURITY_128_BIT, 8), (P.SECURITY_128_BIT_RADIX, 64), (P.SECURITY_UINT4, 8))
-    for p, batch in plan:
+    fast, strict = P.SECURITY_128_BIT_FAST, P.SECURITY_128_BIT
+    # (set, batch, gadget rows J; None: all 2L, the per-step route's); then the tensor-parallel shards'
+    # J = 2L/tp of phase 16 (FAST tp = 4 and 2, strict tp = 2) and of its dry run (TEST_TINY tp = 2)
+    plan = ((fast, 2048, None), (fast, 8, None), (strict, 512, None), (strict, 8, None),
+            (P.SECURITY_128_BIT_RADIX, 64, None), (P.SECURITY_UINT4, 8, None),
+            (fast, 1, 1), (fast, 8, 1), (fast, 1, 2), (fast, 8, 2), (strict, 1, 3), (strict, 8, 3),
+            (P.TEST_TINY, 4, 3))
+    for p, batch, j in plan:
         gp, n = p.trgsw_lv1, p.n1
-        digits = rnd((batch, 2 * gp.l, n), -gp.half_bg, gp.half_bg)
-        trgsw = rnd((2 * gp.l, 2, n))
+        j = 2 * gp.l if j is None else j
+        digits = rnd((batch, j, n), -gp.half_bg, gp.half_bg)
+        trgsw = rnd((j, 2, n))
         digits[0, :, ::3], digits[-1, :, 1::2] = -gp.half_bg, gp.half_bg - 1  # the digit range's ends
         trgsw[0, 0, ::2], trgsw[-1, 1, ::3] = -(1 << 31), -1  # 0x80000000 and 0xFFFFFFFF
         out, tile = launched_tile(cuda_step, lambda: external_product_kernel(digits, trgsw, p))
@@ -670,20 +713,20 @@ def phase_step_kernel_vs_plain(dev) -> dict:
         lhs, circ = digits.reshape(batch, -1).to(torch.float64), _step_circulant(trgsw)
         lib_ms = cuda_ms(lambda: torch.matmul(lhs, circ), 5)
         del lhs, circ
-        macs = batch * 2 * gp.l * 2 * n * n
+        macs = batch * j * 2 * n * n
         limbs = 4 * -(-gp.bgbit // 8)
         bnd = {"macs": macs, **bound(4 * (digits.numel() + trgsw.numel() + out.numel()), macs, limbs)}
         name = _name(p)
-        print(f"[3c] external_product {name} B={batch} (N={tile[0]}, unit {tile[1]}, {tile[2]} rows a block, "
-              f"columns split {tile[3]} ways): "
+        case = f"{name} B={batch}" + ("" if j == 2 * gp.l else f" J={j}")
+        print(f"[3c] external_product {case} (J={j} of 2L={2 * gp.l}; N={tile[0]}, unit {tile[1]}, "
+              f"{tile[2]} rows a block, columns split {tile[3]} ways): "
               f"equal={torch.equal(out, ref)} max_abs_err={err} "
-              f"kernel {k_ms:.3f} ms{show_earlier('external_product', f'{name} B={batch}')}, plain {p_ms:.3f} ms, "
-              f"float64 torch.matmul {lib_ms:.3f} ms, {show_bound(bnd)}")
-        check(torch.equal(out, ref), f"step kernel == plain at {name} B={batch}")
-        rows[(name, batch)] = {**case_row(f"{name} B={batch}", k_ms, p_ms, bnd, tile),
-                               "library_ms": lib_ms}
+              f"kernel {k_ms:.4f} ms{show_earlier('external_product', case)}, plain {p_ms:.3f} ms, "
+              f"float64 torch.matmul {lib_ms:.4f} ms, {show_bound(bnd)}")
+        check(torch.equal(out, ref), f"step kernel == plain at {case}")
+        rows[(name, batch, j)] = {**case_row(case, k_ms, p_ms, bnd, tile), "library_ms": lib_ms, "j_rows": j}
     print(f"[3c] done {elapsed()}")
-    return {"max_abs_err": max_err, **rows[("128_BIT_FAST", 2048)], "cases": list(rows.values()),
+    return {"max_abs_err": max_err, **rows[("128_BIT_FAST", 2048, 4)], "cases": list(rows.values()),
             "tiles_compared": tile_list(tiles)}
 
 
@@ -730,7 +773,7 @@ def phase_fixture(dev) -> None:
     from rs_tfhe_tpu_torch.bootstrap import bootstrap_with_testvec
     from rs_tfhe_tpu_torch.lut import factor_test_vectors, multi_value_bootstrap
     from rs_tfhe_tpu_torch.models import circuits, netlist
-    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate
+    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_step
     from rs_tfhe_tpu_torch.ops.blind_rotate import blind_rotate, rotation_exponents
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate_mb import blind_rotate_mb_kernel
     from rs_tfhe_tpu_torch.ops.extract import sample_extract
@@ -807,7 +850,48 @@ def phase_fixture(dev) -> None:
     compare(radix_fixture_outputs(v, dev), v, os.path.basename(FIXTURE_RADIX))
     now = rotation_launches()
     check(now[0] > before[0] and now[1] > before[1], "the radix fixture ran on both rotation kernels")
+
+    v = np.load(FIXTURE_PARALLEL)
+    before = rotation_launches()
+    k5_before = cuda_step.launches
+    compare(parallel_fixture_outputs(v, dev), v, os.path.basename(FIXTURE_PARALLEL))
+    now = rotation_launches()
+    check(now[0] > before[0] and now[1] > before[1] and cuda_step.launches > k5_before,
+          "the parallel fixture ran on both rotation kernels and the step kernel")
     print(f"[4] done {elapsed()}")
+
+
+def parallel_fixture_outputs(v, dev) -> dict:
+    """The port's outputs for the parallel fixture's stored JAX outputs
+    (JAX's 8 virtual CPU devices), on meshes of `dev` repeated (as
+    tests/test_torch_parallel.py replays them on CPU devices)."""
+    from rs_tfhe_tpu_torch import config, gates, key, parallel
+    from rs_tfhe_tpu_torch.params import TEST_TINY
+    from rs_tfhe_tpu_torch.torus import to_torch
+
+    ck_mb = key.cloud_key_from_numpy(v, TEST_TINY, dev)
+    ck = key.cloud_key_from_numpy({k: v[k] for k in ("testvec", "bsk", "ksk_limbs")}, TEST_TINY, dev)
+    a, b, c, m3, m2 = (to_torch(v[n], dev) for n in ("ct_a", "ct_b", "ct_c", "ct_m3", "ct_m2"))
+    mesh8, mesh4 = (parallel.make_mesh(n, devices=[dev] * n) for n in (8, 4))
+    mesh_tp = parallel.make_mesh(8, tp=2, devices=[dev] * 8)
+    dp_lut, tp_lut = FIXTURE_PARALLEL_LUTS
+    out = {
+        "dp_nand_b11_on8": parallel.data_parallel_gate("nand", a[:11], b[:11], ck, mesh8),
+        "dp_xor_b8_on4": parallel.data_parallel_gate("xor", a[:8], b[:8], ck, mesh4),
+        "dp_mux_b8_on4": parallel.data_parallel_mux(a[:8], b[:8], c[:8], ck, mesh4),
+        "dp_lut_b8_on4": parallel.data_parallel_lut_bootstrap(m3, dp_lut, 4, ck, mesh4),
+        "dp_nand_mb_b16_on4": parallel.data_parallel_gate("nand", a, b, ck_mb, mesh4),
+        "tp_and_b8_on4x2": parallel.tensor_parallel_gate("and", a[:8], b[:8], ck, mesh_tp),
+        "tp_or_b8_on4x2": parallel.tensor_parallel_gate("or", a[:8], b[:8], ck, mesh_tp),
+        "tp_lut_b8_on4x2": parallel.tensor_parallel_lut_bootstrap(m2, tp_lut, 4, ck, mesh_tp),
+    }
+    saved = config.config.step_impl
+    config.config.step_impl = "nussbaumer"
+    try:
+        out["nand_nussbaumer_b4"] = gates.nand(a[:4], b[:4], ck)
+    finally:
+        config.config.step_impl = saved
+    return out
 
 
 def radix_fixture_outputs(v, dev) -> dict:
@@ -1348,6 +1432,61 @@ def phase_probes_vs_plain(dev) -> dict:
     }
 
 
+def phase_nussbaumer_dot_vs_plain(dev) -> dict:
+    """P1's s16 unit at the Nussbaumer step's shapes (step_impl="nussbaumer"):
+    [B, 2L*m] x [2L*m, 8m] for each of the 2r = 16 DFT points, [B, 512] x
+    [512, 1024] at SECURITY_128_BIT_FAST (B = 1 and 8) and [8, 768] x
+    [768, 1024] at SECURITY_128_BIT (phase 16 drives both at B = 8), through
+    the route's wrapper (`nussbaumer.pointwise_dot`, 16 launches a call)
+    against the plain dot point by point; the library call is a float64
+    torch.bmm over the 16 points wrapped to int32 (exact: K 2^30 < 2^53).
+    Full-range operands with the extremes planted (the route's own are below
+    2^11 in magnitude). Returns the (B, K, M) shapes held, for the check that
+    phase 16 launched no other."""
+    from rs_tfhe_tpu_torch import params as P
+    from rs_tfhe_tpu_torch.ops import cuda_probes as CP
+    from rs_tfhe_tpu_torch.ops import nussbaumer as NU
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 80)
+    cases, shapes = [], set()
+    for p, batch in ((P.SECURITY_128_BIT_FAST, 1), (P.SECURITY_128_BIT_FAST, 8), (P.SECURITY_128_BIT, 8)):
+        m = p.n1 // NU.R
+        pts, k, n = 2 * NU.R, 2 * p.trgsw_lv1.l * m, 8 * m
+        lhs = torch.randint(-(1 << 15), 1 << 15, (pts, batch, k), generator=g, dtype=torch.int16, device=dev)
+        bop = torch.randint(-(1 << 15), 1 << 15, (pts, k, n), generator=g, dtype=torch.int16, device=dev)
+        lhs[:, 0, :3] = torch.tensor([-(1 << 15), (1 << 15) - 1, -1], dtype=torch.int16)
+        bop[:, :3, -1] = torch.tensor([-(1 << 15), (1 << 15) - 1, -1], dtype=torch.int16)
+
+        def kernel():
+            return NU.pointwise_dot(lhs, bop)
+
+        def plain():
+            return torch.stack([CP.dot_plain(lhs[t], bop[t]) for t in range(pts)])
+
+        def library():
+            return torch.bmm(lhs.to(torch.float64), bop.to(torch.float64)).to(torch.int64).to(torch.int32)
+
+        before, shapes_before = CP.launches[NU.DOT_NAME], NU.launched_shapes.copy()
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        check(CP.launches[NU.DOT_NAME] - before == pts, f"the pointwise dot launched {pts} times a call")
+        shapes.update(NU.launched_shapes - shapes_before)
+        err = max_abs_err(out, ref)
+        k_ms, p_ms, lib_ms = cuda_ms(kernel, 10), cuda_ms(plain, 10), cuda_ms(library, 10)
+        nbytes = 2 * (lhs.numel() + bop.numel()) + 4 * out.numel()
+        bnd = bound(nbytes, pts * batch * k * n, len(CP.limb_pairs(2)))
+        case = f"int16 [{batch},{k}]x[{k},{n}] x {pts} points ({_name(p)} Nussbaumer step)"
+        print(f"[3e] {NU.DOT_NAME} {case} on the {CP.dot_unit(torch.int16)}: equal={torch.equal(out, ref)} "
+              f"max_abs_err={err} kernel {k_ms:.4f} ms ({k_ms / pts:.4f} ms a point), plain {p_ms:.4f} ms, "
+              f"float64 torch.bmm {lib_ms:.4f} ms, {show_bound(bnd)}")
+        check(torch.equal(out, ref), f"the Nussbaumer pointwise dot == plain at {case}")
+        cases.append({**case_row(case, k_ms, p_ms, bnd), "library_ms": lib_ms, "max_abs_err": err})
+    print(f"[3e] Nussbaumer dot done {elapsed()}")
+    main = cases[1]
+    return {**{k_: v for k_, v in main.items() if k_ != "case"}, "case": main["case"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases, "shapes_compared": tile_list(shapes)}
+
+
 def run_probe_scripts(dev) -> dict:
     """The probes' own path: the two probe scripts, as a user runs them."""
     ok = _load_script("probe_hopper").main(dev)
@@ -1795,6 +1934,174 @@ def run_deployment(p, dev, label: str, smi: str) -> dict:
     return res
 
 
+def run_parallel(dev, label: str, smi: str) -> dict:
+    """The multi-device paths at full width (SECURITY_128_BIT_FAST unless
+    marked) on a virtual mesh of the card, and over distinct cards where
+    there are two or more: data-parallel NAND B = 4096 on four shards against
+    the single-device batch (the whole-rotation kernel in every shard), the
+    multi-bit key's data-parallel NAND B = 8 (2-row shards, each on the
+    multi-bit kernel), data-parallel MUX B = 1024; tensor-parallel NAND B = 1
+    and 8 at tp = 2 (the step kernel at J = 2, n0 launches a shard), B = 8 at
+    tp = 4 (J = 1) and at strict tp = 2 (J = 3), and the tensor-parallel LUT
+    B = 8, each against its single-device output; NAND B = 8 under
+    step_impl="nussbaumer" at FAST and strict against the default route (P1's
+    s16 unit, 2r launches a step); the dry run on four shards. Times are host
+    clock to the synchronise, warm."""
+    from rs_tfhe_tpu_torch import config, gates, parallel
+    from rs_tfhe_tpu_torch import params as P
+    from rs_tfhe_tpu_torch.bootstrap import LutBootstrap
+    from rs_tfhe_tpu_torch.key import CloudKey
+    from rs_tfhe_tpu_torch.ops import cuda_probes, cuda_step
+    from rs_tfhe_tpu_torch.ops import nussbaumer as NU
+    from rs_tfhe_tpu_torch.parallel.dryrun import dryrun_multichip
+    from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool, lwe_decrypt_message, lwe_encrypt_bool, lwe_encrypt_message
+
+    card = f"({smi})"
+    fast, strict = P.SECURITY_128_BIT_FAST, P.SECURITY_128_BIT
+    res = {}
+    sk, ck_mb, g, keygen_ms = _keygen(fast, dev, SEED + 160, multibit=True)
+    ck = CloudKey(ck_mb.testvec, ck_mb.bsk, ck_mb.ksk_limbs, fast)  # the standard key: the same bsk and ksk
+    sk_s, ck_s, g_s, _ = _keygen(strict, dev, SEED + 161)
+    rng = np.random.default_rng(SEED + 162)
+
+    def enc(p, sk_, g_, n):
+        bits = rng.integers(0, 2, n).astype(bool)
+        return bits, lwe_encrypt_bool(g_, sk_.lv0, bits, p.tlwe_lv0.alpha)
+
+    def correct(out, sk_, truth):
+        return float((lwe_decrypt_bool(out, sk_.lv0).cpu().numpy() == truth).mean())
+
+    def best_ms(fn, reps=2):
+        """(fn(), the least host-clock ms of `reps` warm calls)."""
+        fn()
+        outs = [_host_ms(fn) for _ in range(reps)]
+        return outs[-1][0], min(ms for _, ms in outs)
+
+    virtual4 = parallel.make_mesh(4, devices=[dev] * 4)
+    print(f"[{label}] keys on the card: FAST multi-bit (its bsk and ksk also the standard key) and strict; "
+          f"FAST keygen {keygen_ms:.1f} ms {card}")
+
+    # data parallel: NAND B = 4096 on four shards (B = 1024 each) against one batch
+    bits_a, a = enc(fast, sk, g, 4096)
+    bits_b, b = enc(fast, sk, g, 4096)
+    single, single_ms = best_ms(lambda: gates.batch_gate("nand", a, b, ck))
+    launches = rotation_launches()[0]
+    dp, dp_ms = best_ms(lambda: parallel.data_parallel_gate("nand", a, b, ck, virtual4))
+    check(rotation_launches()[0] - launches == 3 * 4, f"{label}: each data-parallel call launched the whole-rotation "
+                                                      f"kernel once a shard")
+    check(torch.equal(dp, single), f"{label}: data-parallel NAND B=4096 equals the single-device batch bit for bit")
+    check(correct(dp, sk, ~(bits_a & bits_b)) == 1.0, f"{label}: every data-parallel NAND decrypts correctly")
+    res["dp_nand_b4096"] = {"gates_per_s": 4096 / dp_ms * 1e3, "single_gates_per_s": 4096 / single_ms * 1e3,
+                            "ms": dp_ms, "single_ms": single_ms}
+    print(f"[{label}] data-parallel NAND B=4096 on 4 shards of the card: {4096 / dp_ms * 1e3:.1f} gates/s "
+          f"({dp_ms:.1f} ms), single device {4096 / single_ms * 1e3:.1f} gates/s ({single_ms:.1f} ms); "
+          f"bit-equal, 100% correct {card}")
+
+    # the multi-bit key at B = 8 on four shards: 2-row shards, each at the cap, on the multi-bit kernel
+    before = rotation_launches()
+    dp_mb, mb_ms = _host_ms(lambda: parallel.data_parallel_gate("nand", a[:8], b[:8], ck_mb, virtual4))
+    now = rotation_launches()
+    check(now[1] - before[1] == 4 and now[0] == before[0], f"{label}: the multi-bit key's 2-row shards each took "
+                                                           f"the multi-bit kernel (launches {now[1] - before[1]})")
+    check(all(t[2] > 1 for t in (now[2] - before[2])), f"{label}: the multi-bit kernel ran as a cluster")
+    want = torch.cat([gates.nand(a[i:i + 2], b[i:i + 2], ck_mb) for i in range(0, 8, 2)])
+    check(torch.equal(dp_mb, want), f"{label}: the multi-bit shards equal single-device NANDs of their 2 rows")
+    check(correct(dp_mb, sk, ~(bits_a[:8] & bits_b[:8])) == 1.0, f"{label}: multi-bit DP NAND decrypts")
+    res["dp_nand_mb_b8_ms"] = mb_ms
+    print(f"[{label}] data-parallel NAND B=8, multi-bit key, 4 shards of 2 rows: multi-bit kernel launches 4, "
+          f"whole-rotation 0; {mb_ms:.2f} ms; equal to the shards' single-device NANDs, 100% correct {card}")
+
+    # MUX B = 1024 on four shards
+    mux_single, mux_single_ms = best_ms(lambda: gates.mux(a[:1024], b[:1024], a[1024:2048], ck), reps=1)
+    mux, mux_ms = best_ms(lambda: parallel.data_parallel_mux(a[:1024], b[:1024], a[1024:2048], ck, virtual4), reps=1)
+    check(torch.equal(mux, mux_single), f"{label}: data-parallel MUX B=1024 equals the single-device MUX")
+    check(correct(mux, sk, np.where(bits_a[:1024], bits_b[:1024], bits_a[1024:2048])) == 1.0,
+          f"{label}: every data-parallel MUX decrypts correctly")
+    res["dp_mux_b1024"] = {"mux_per_s": 1024 / mux_ms * 1e3, "single_mux_per_s": 1024 / mux_single_ms * 1e3}
+    print(f"[{label}] data-parallel MUX B=1024 on 4 shards: {1024 / mux_ms * 1e3:.1f} MUX/s ({mux_ms:.1f} ms), "
+          f"single device {1024 / mux_single_ms * 1e3:.1f} MUX/s ({mux_single_ms:.1f} ms); bit-equal, 100% correct "
+          f"{card}")
+
+    # tensor parallel on one card's virtual mesh: (1, tp)
+    def tp_case(p, sk_, ck_, a_, b_, bits_a_, bits_b_, tp, what):
+        mesh = parallel.make_mesh(tp, tp=tp, devices=[dev] * tp)
+        ref = gates.nand(a_, b_, ck_)
+        parallel.tensor_parallel_gate("nand", a_, b_, ck_, mesh)  # warm
+        k5, tiles_before = cuda_step.launches, cuda_step.launched_tiles.copy()
+        out, ms = _host_ms(lambda: parallel.tensor_parallel_gate("nand", a_, b_, ck_, mesh))
+        j = 2 * p.trgsw_lv1.l // tp
+        check(cuda_step.launches - k5 == tp * p.n0, f"{label}: {what}: the step kernel launched n0 times a shard")
+        check({key[-1] for key in cuda_step.launched_tiles - tiles_before} == {j}, f"{label}: {what}: J = {j}")
+        check(torch.equal(out, ref), f"{label}: {what} equals the single-device NAND bit for bit")
+        check(correct(out, sk_, ~(bits_a_ & bits_b_)) == 1.0, f"{label}: {what} decrypts correctly")
+        batch = a_.shape[0]
+        print(f"[{label}] tensor-parallel NAND {_name(p)} B={batch} tp={tp} (J={j}, {tp * p.n0} step-kernel "
+              f"launches): {ms:.1f} ms, {ms / batch:.2f} ms a gate; bit-equal to the single device, 100% correct "
+              f"{card}")
+        return {"ms": ms, "ms_per_gate": ms / batch, "j_rows": j, "step_launches": tp * p.n0}
+
+    res["tp_nand_fast_b1_tp2"] = tp_case(fast, sk, ck, a[:1], b[:1], bits_a[:1], bits_b[:1], 2, "TP B=1 tp=2")
+    res["tp_nand_fast_b8_tp2"] = tp_case(fast, sk, ck, a[:8], b[:8], bits_a[:8], bits_b[:8], 2, "TP B=8 tp=2")
+    res["tp_nand_fast_b8_tp4"] = tp_case(fast, sk, ck, a[:8], b[:8], bits_a[:8], bits_b[:8], 4, "TP B=8 tp=4")
+    sbits_a, sa = enc(strict, sk_s, g_s, 8)
+    sbits_b, sb = enc(strict, sk_s, g_s, 8)
+    res["tp_nand_strict_b8_tp2"] = tp_case(strict, sk_s, ck_s, sa, sb, sbits_a, sbits_b, 2, "strict TP B=8 tp=2")
+
+    # the tensor-parallel LUT, (x + 1) mod 4 on B = 8
+    msgs = np.arange(8) % 4
+    m = lwe_encrypt_message(g, sk.lv0, msgs, 4, fast.tlwe_lv0.alpha)
+    f = lambda x: (x + 1) % 4  # noqa: E731
+    mesh2 = parallel.make_mesh(2, tp=2, devices=[dev] * 2)
+    lut_ref = LutBootstrap().bootstrap_func(m, f, 4, ck)
+    lut, lut_ms = _host_ms(lambda: parallel.tensor_parallel_lut_bootstrap(m, f, 4, ck, mesh2))
+    check(torch.equal(lut, lut_ref), f"{label}: the tensor-parallel LUT equals the single-device LUT bootstrap")
+    check(bool((lwe_decrypt_message(lut, sk.lv0, 4) == (msgs + 1) % 4).all()), f"{label}: the TP LUT decrypts")
+    res["tp_lut_fast_b8_tp2_ms"] = lut_ms
+    print(f"[{label}] tensor-parallel LUT (x+1) mod 4, FAST B=8 tp=2: {lut_ms:.1f} ms; bit-equal to "
+          f"LutBootstrap, decrypts {card}")
+
+    # step_impl="nussbaumer" against the default route
+    for p, sk_, ck_, a_, b_, ba, bb in ((fast, sk, ck, a[:8], b[:8], bits_a[:8], bits_b[:8]),
+                                        (strict, sk_s, ck_s, sa, sb, sbits_a, sbits_b)):
+        default, default_ms = best_ms(lambda: gates.nand(a_, b_, ck_), reps=1)
+        saved = config.config.step_impl
+        config.config.step_impl = "nussbaumer"
+        try:
+            before = cuda_probes.launches[NU.DOT_NAME]
+            out, ms = _host_ms(lambda: gates.nand(a_, b_, ck_))
+            launched = cuda_probes.launches[NU.DOT_NAME] - before
+        finally:
+            config.config.step_impl = saved
+        check(launched == 2 * NU.R * p.n0, f"{label}: the Nussbaumer route launched P1's s16 unit 2r times a step")
+        check(torch.equal(out, default), f"{label}: step_impl='nussbaumer' equals the default route at {_name(p)}")
+        check(correct(out, sk_, ~(ba & bb)) == 1.0, f"{label}: the Nussbaumer NAND decrypts correctly")
+        res[f"nussbaumer_nand_{_name(p)}_b8"] = {"ms": ms, "ms_per_gate": ms / 8, "default_ms": default_ms,
+                                                 "dot_launches": launched}
+        print(f"[{label}] step_impl='nussbaumer' NAND {_name(p)} B=8: {ms:.1f} ms ({ms / 8:.1f} ms a gate, "
+              f"{launched} launches of the s16 dot), default route {default_ms:.1f} ms; bit-equal, 100% correct "
+              f"{card}")
+
+    _, dry_ms = _host_ms(lambda: dryrun_multichip(4, [dev] * 4))
+    print(f"[{label}] dryrun_multichip(4) on 4 shards of the card: OK, {dry_ms:.0f} ms")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        devs = [torch.device("cuda", i) for i in range(cards)]
+        out, ms = best_ms(lambda: parallel.data_parallel_gate("nand", a, b, ck, parallel.make_mesh(devices=devs)))
+        check(torch.equal(out, single), f"{label}: data-parallel NAND over {cards} cards equals the single device")
+        out_tp, tp_ms = _host_ms(lambda: parallel.tensor_parallel_gate(
+            "nand", a[:8], b[:8], ck, parallel.make_mesh(2, tp=2, devices=devs[:2])))
+        check(torch.equal(out_tp, gates.nand(a[:8], b[:8], ck)), f"{label}: TP NAND over 2 cards equals the single device")
+        res["cards"] = {"count": cards, "dp_gates_per_s": 4096 / ms * 1e3, "tp_b8_ms": tp_ms}
+        print(f"[{label}] over {cards} cards: data-parallel NAND B=4096 {4096 / ms * 1e3:.1f} gates/s; "
+              f"tensor-parallel NAND B=8 tp=2 {tp_ms:.1f} ms {card}")
+    else:
+        print(f"[{label}] one visible card: every multi-device path above ran on one card's virtual mesh "
+              f"(the cross-card copies of reduce_sum and of the key, and the overlap of cards, are not measured) {card}")
+    print(f"[{label}] done {elapsed()}")
+    return res
+
+
 #: kernels-line name -> (source, file:line of the TPU kernel it replaces, others it also replaces)
 SOURCES = {
     "blind_rotate": ("rs_tfhe_tpu_torch/csrc/blind_rotate.cu", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:929",
@@ -1808,6 +2115,8 @@ SOURCES = {
     "probe_dot_correct_s16": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/probe_mosaic.py:96", []),
     "chain_dot": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/bench_kernel_prims.py:46", []),
     "chain_roll_add": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/bench_kernel_prims.py:120", []),
+    # P1's s16 unit as the Nussbaumer route calls it (ops/nussbaumer.pointwise_dot), counted apart
+    "nussbaumer_dot": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/probe_mosaic.py:33", []),
 }
 
 
@@ -1816,12 +2125,14 @@ def main() -> int:
     import rs_tfhe_tpu_torch  # noqa: F401  (fails outside a checkout)
     from rs_tfhe_tpu_torch import params as P
     from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_probes, cuda_step
+    from rs_tfhe_tpu_torch.ops import nussbaumer as NU
 
     modules = {"blind_rotate": cuda_blind_rotate, "blind_rotate_mb": cuda_blind_rotate_mb,
                "external_product": cuda_step}
     probe_names = [k for k in SOURCES if k not in modules]
 
     path_tiles = {k: set() for k in modules}
+    path_dot_shapes = set()  # the Nussbaumer dot's (B, K, M) on the paths
     roll_add_instances = collections.Counter()
 
     def drive(path, fn, *args):
@@ -1830,6 +2141,7 @@ def main() -> int:
         for m in modules.values():
             m.launches = 0
             m.launched_tiles.clear()
+        NU.launched_shapes.clear()
         cuda_probes.launches.clear()
         cuda_probes.roll_add_launches.clear()
         out = fn(*args)
@@ -1839,6 +2151,7 @@ def main() -> int:
         tiles = {k: tile_list(m.launched_tiles) for k, m in modules.items()}
         for k, m in modules.items():
             path_tiles[k].update(m.launched_tiles)
+        path_dot_shapes.update(NU.launched_shapes)
         print(f"[{path}] kernel launches on this path: { {k: v for k, v in counts.items() if v} }; "
               f"instances launched: {tiles}")
         return out, counts
@@ -1853,6 +2166,7 @@ def main() -> int:
     }
     crossover = phase_crossover(dev)
     compare.update(phase_probes_vs_plain(dev))
+    compare["nussbaumer_dot"] = phase_nussbaumer_dot_vs_plain(dev)
     phase_fixture(dev)
 
     def gate_path():
@@ -1877,7 +2191,8 @@ def main() -> int:
     check(paths["pallas"]["external_product"] > 0, "the per-step route launched the step kernel")
     results["probes"], paths["probes"] = drive("10", run_probe_scripts, dev)
     for name in probe_names:
-        check(paths["probes"][name] > 0, f"the probe scripts launched {name}")
+        if name != "nussbaumer_dot":  # the Nussbaumer route's count (phase 16)
+            check(paths["probes"][name] > 0, f"the probe scripts launched {name}")
     fast = P.SECURITY_128_BIT_FAST
     results["circuits_std"], paths["circuits_std"] = drive("11", run_circuits, fast, dev, "11", False)
     check(paths["circuits_std"]["blind_rotate"] > 0, "circuits with a standard key launched the blind-rotation kernel")
@@ -1896,12 +2211,24 @@ def main() -> int:
     results["deployment"], paths["deployment"] = drive("15", run_deployment, fast, dev, "15", smi)
     check(paths["deployment"]["blind_rotate"] > 0, "the deployment path launched the whole-rotation kernel")
     check(paths["deployment"]["blind_rotate_mb"] > 0, "the deployment path launched the multi-bit kernel")
-    print(f"[5-15] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+    results["parallel"], paths["parallel"] = drive("16", run_parallel, dev, "16", smi)
+    check(paths["parallel"]["blind_rotate"] > 0, "the data-parallel paths launched the whole-rotation kernel")
+    check(paths["parallel"]["blind_rotate_mb"] > 0, "the multi-bit key's data-parallel shards launched the multi-bit "
+                                                    "kernel")
+    check(paths["parallel"]["external_product"] > 0, "the tensor-parallel paths launched the step kernel")
+    check(paths["parallel"]["nussbaumer_dot"] > 0, "the Nussbaumer route launched P1's s16 unit")
+    print(f"[5-16] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"total {elapsed()}")
+    shapes_compared = {tuple(t) for t in compare["nussbaumer_dot"]["shapes_compared"]}
+    print(f"[5-16] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
+          f"version in phase 3e: {tile_list(shapes_compared)}")
+    check(not path_dot_shapes - shapes_compared,
+          f"every shape of the Nussbaumer dot the paths launched was held against the plain version "
+          f"(missing: {tile_list(path_dot_shapes - shapes_compared)})")
     for name in modules:
         compared = {tuple(t) for t in compare[name]["tiles_compared"]}
         missing = path_tiles[name] - compared
-        print(f"[5-15] {name}: instances on the paths {tile_list(path_tiles[name])}, "
+        print(f"[5-16] {name}: instances on the paths {tile_list(path_tiles[name])}, "
               f"held against the plain version in phase 3: {tile_list(compared)}")
         check(not missing, f"every {name} instantiation the paths launched was held against the plain "
                            f"version (missing: {tile_list(missing)})")
@@ -1916,6 +2243,8 @@ def main() -> int:
         }
         if name in modules:
             entry["tiles_on_path"] = tile_list(path_tiles[name])
+        if name == "nussbaumer_dot":
+            entry["shapes_on_path"] = tile_list(path_dot_shapes)
         if name == "chain_roll_add":
             entry["launches_by_instance"] = {roll_add_instance(w): n for w, n in sorted(roll_add_instances.items())}
         if also:

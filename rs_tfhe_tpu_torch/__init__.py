@@ -34,7 +34,7 @@ from .params import (  # noqa: F401
     security_info,
 )
 
-from . import bit_utils, bootstrap, gates, lut, models, proxy_reenc, tlwe, trgsw, trlwe, utils  # noqa: F401,E402
+from . import bit_utils, bootstrap, gates, lut, models, parallel, proxy_reenc, tlwe, trgsw, trlwe, utils  # noqa: F401,E402
 from .bootstrap import LutBootstrap, VanillaBootstrap, default_bootstrap  # noqa: F401,E402
 from .fhe import FheBool, FheInt, FheUint, FheUintRadix  # noqa: F401,E402
 from .gates import Gates  # noqa: F401,E402

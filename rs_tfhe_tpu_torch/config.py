@@ -16,10 +16,17 @@ Environment override: RS_TFHE_STEP_IMPL (read once, at import, as
   - "pallas"         — the per-step route: per CMUX step, rotate and
                        decompose in PyTorch, then one external-product kernel
                        launch (csrc/external_product.cu) on the card, the
-                       plain product on the CPU.
-The JAX package's other values ("xla", "nussbaumer", "fused", "fused_small",
-"fused_wide", "fused_tile") select TPU schedules or modules not ported; they
-raise ValueError when a rotation reads them.
+                       plain product on the CPU;
+  - "nussbaumer"     — the per-step route with the Nussbaumer transform
+                       product (ops/nussbaumer.py): its pointwise s16 dots on
+                       the probe dot's byte-limb unit (csrc/probes.cu) on the
+                       card, their plain version on the CPU; raises where
+                       `ops.nussbaumer.check_bounds` fails (the Uint, RADIX
+                       and NIBBLE sets). "auto" never takes it (the JAX
+                       package's auto takes it only on a TPU).
+The JAX package's other values ("xla", "fused", "fused_small", "fused_wide",
+"fused_tile") select TPU schedules; they raise ValueError when a rotation
+reads them.
 """
 
 from __future__ import annotations
@@ -27,8 +34,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
-STEP_IMPLS = ("auto", "fused_small_mb", "pallas")
-_NOT_PORTED = ("xla", "nussbaumer", "fused", "fused_small", "fused_wide", "fused_tile")
+STEP_IMPLS = ("auto", "fused_small_mb", "pallas", "nussbaumer")
+_NOT_PORTED = ("xla", "fused", "fused_small", "fused_wide", "fused_tile")
 
 
 @dataclasses.dataclass

@@ -2,9 +2,11 @@
 //
 // Replaces the TPU kernel fused_external_product (_step_kernel) of
 // rs_tfhe_tpu/ops/pallas_step.py, the per-step product behind
-// step_impl="pallas" and the tensor-parallel rotation. Inputs are the gadget
-// digits int32 [F, 2L, N] (already decomposed) and one step's TRGSW as raw
-// torus words int32 [2L, 2, N]; the output is int32 [F, 2, N].
+// step_impl="pallas" and the tensor-parallel rotation. Inputs are J gadget
+// rows of digits int32 [F, J, N] (already decomposed) and the matching rows of
+// one step's TRGSW as raw torus words int32 [J, 2, N]; the output is int32
+// [F, 2, N]. J is any count from 1 to 2L, as the TPU kernel takes: 2L for the
+// per-step rotation, 2L/tp for a shard of the tensor-parallel one.
 //
 // Two instances, chosen by the wrapper from the parameters:
 //
@@ -19,14 +21,14 @@
 //    rows by 64 output columns of one polynomial: the grid splits the 2N
 //    columns 2N/64 ways, so a handful of rows still starts 2N/64 blocks. The
 //    key never leaves shared memory: the block stages the reversed byte
-//    window of its 64 columns for all 2L gadget rows once ((N + 80) bytes per
+//    window of its 64 columns for all J gadget rows once ((N + 80) bytes per
 //    row and limb, 17 KB at SECURITY_128_BIT_FAST), and only the digits
 //    stream, in 64-digit chunks through a four-stage cp.async ring. Warp
 //    (wr, wc) owns rows 64 wr .. 64 wr + 63 and columns 16 wc .. 16 wc + 15
 //    with all four limb accumulators in registers (128 a thread), so an A
 //    fragment serves 8 mma and a B fragment 4, and the limbs fold into the
 //    32-bit result in registers.
-//    Bound: 4 * 2 * 2L * N^2 s8 multiply-adds per row against the tensor
+//    Bound: 4 * 2 * J * N^2 s8 multiply-adds per row against the tensor
 //    cores' rate; measured times are in PERF.md.
 //
 // 2. CUDA cores (digits wider than 8 bits, the SECURITY_UINT sets): whole
@@ -62,10 +64,10 @@ constexpr int max_tile(int n) { return n <= 1024 ? 8 : 8192 / n; }
 
 template <int LOG_N, int T, int CS>
 __global__ void __launch_bounds__((1 << LOG_N) / 4)
-external_product_kernel(const uint32_t* __restrict__ digits,  // [F, 2L, N]
-                        const uint32_t* __restrict__ trgsw,   // [2L, 2, N]
+external_product_kernel(const uint32_t* __restrict__ digits,  // [F, J, N]
+                        const uint32_t* __restrict__ trgsw,   // [J, 2, N]
                         uint32_t* __restrict__ out,           // [F, 2, N]
-                        int rows, int l) {
+                        int rows, int j_rows) {
   constexpr int N = 1 << LOG_N;
   constexpr int THREADS = 2 * N / kR;
   constexpr int H = N / kR;   // threads per output polynomial
@@ -79,7 +81,6 @@ external_product_kernel(const uint32_t* __restrict__ digits,  // [F, 2L, N]
   const int o = tid / H;
   const int c0 = tid % H + blockIdx.y * R * H;  // first of this block's R coefficients
   const int f0 = blockIdx.x * T;
-  const int j_rows = 2 * l;
 
   uint32_t acc[T][R];
 #pragma unroll
@@ -139,7 +140,7 @@ external_product_kernel(const uint32_t* __restrict__ digits,  // [F, 2L, N]
 }
 
 template <int LOG_N, int T, int CS>
-int launch(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int rows, int l,
+int launch(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int rows, int j_rows,
            cudaStream_t stream) {
   constexpr int N = 1 << LOG_N;
   constexpr size_t smem = smem_bytes(N, T);
@@ -152,29 +153,29 @@ int launch(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int row
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((rows + T - 1) / T, CS);
-    kern<<<grid, 2 * N / kR, smem, stream>>>(digits, trgsw, out, rows, l);
+    kern<<<grid, 2 * N / kR, smem, stream>>>(digits, trgsw, out, rows, j_rows);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
 template <int LOG_N, int CS>
-int launch_tile(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int rows, int l,
+int launch_tile(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int rows, int j_rows,
                 int tile, cudaStream_t stream) {
   switch (tile) {
-    case 1: return launch<LOG_N, 1, CS>(digits, trgsw, out, rows, l, stream);
-    case 2: return launch<LOG_N, 2, CS>(digits, trgsw, out, rows, l, stream);
-    case 4: return launch<LOG_N, 4, CS>(digits, trgsw, out, rows, l, stream);
-    case 8: return launch<LOG_N, 8, CS>(digits, trgsw, out, rows, l, stream);
+    case 1: return launch<LOG_N, 1, CS>(digits, trgsw, out, rows, j_rows, stream);
+    case 2: return launch<LOG_N, 2, CS>(digits, trgsw, out, rows, j_rows, stream);
+    case 4: return launch<LOG_N, 4, CS>(digits, trgsw, out, rows, j_rows, stream);
+    case 8: return launch<LOG_N, 8, CS>(digits, trgsw, out, rows, j_rows, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <int LOG_N>
-int launch_split(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int rows, int l,
+int launch_split(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int rows, int j_rows,
                  int tile, int split, cudaStream_t stream) {
   switch (split) {
-    case 1: return launch_tile<LOG_N, 1>(digits, trgsw, out, rows, l, tile, stream);
-    case kR: return launch_tile<LOG_N, kR>(digits, trgsw, out, rows, l, tile, stream);
+    case 1: return launch_tile<LOG_N, 1>(digits, trgsw, out, rows, j_rows, tile, stream);
+    case kR: return launch_tile<LOG_N, kR>(digits, trgsw, out, rows, j_rows, tile, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -191,8 +192,8 @@ constexpr int kMmaStages = 4;     // digit chunks in flight
 constexpr int kMS = 4;            // m16 sub-tiles a warp (64 rows)
 constexpr int kNS = 2;            // n8 sub-tiles a warp (16 columns)
 
-constexpr size_t mma_smem_bytes(int n, int l) {
-  return static_cast<size_t>(2 * l) * nm::kLimbs * nm::rev_bytes(n) +
+constexpr size_t mma_smem_bytes(int n, int j_rows) {
+  return static_cast<size_t>(j_rows) * nm::kLimbs * nm::rev_bytes(n) +
          static_cast<size_t>(kMmaStages) * kMmaRows * nm::kChunk;
 }
 
@@ -208,18 +209,18 @@ __global__ void pack_digits_s8_kernel(const int4* __restrict__ digits, uint32_t*
 
 template <int LOG_N>
 __global__ void __launch_bounds__(kMmaThreads, 1)
-external_product_mma_kernel(const int8_t* __restrict__ dig8,     // [F, 2L * N]
-                            const uint32_t* __restrict__ trgsw,  // [2L, 2, N]
+external_product_mma_kernel(const int8_t* __restrict__ dig8,     // [F, J * N]
+                            const uint32_t* __restrict__ trgsw,  // [J, 2, N]
                             uint32_t* __restrict__ out,          // [F, 2, N]
-                            int rows, int l) {
+                            int rows, int j_rows) {
   constexpr int N = 1 << LOG_N;
   constexpr int REV_WORDS = nm::rev_bytes(N) / 4;
   constexpr int CHUNKS_PER_ROW = N / nm::kChunk;
   constexpr int STAGE_QUADS = kMmaRows * nm::kChunk / 16;  // 16-byte pieces a stage
 
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* rev_s = smem;  // [2L][4][REV_WORDS]
-  uint4* dig_s = reinterpret_cast<uint4*>(rev_s + 2 * l * nm::kLimbs * REV_WORDS);  // [stages][128][4]
+  uint32_t* rev_s = smem;  // [J][4][REV_WORDS]
+  uint4* dig_s = reinterpret_cast<uint4*>(rev_s + j_rows * nm::kLimbs * REV_WORDS);  // [stages][128][4]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -227,8 +228,8 @@ external_product_mma_kernel(const int8_t* __restrict__ dig8,     // [F, 2L * N]
   const int o = col0 / N;
   const int c0 = col0 % N;
   const int f0 = blockIdx.y * kMmaRows;
-  const int k_total = 2 * l * N;
-  const int chunks = 2 * l * CHUNKS_PER_ROW;
+  const int k_total = j_rows * N;
+  const int chunks = j_rows * CHUNKS_PER_ROW;
 
   auto fetch = [&](int chunk) {
     if (chunk < chunks) {
@@ -249,7 +250,7 @@ external_product_mma_kernel(const int8_t* __restrict__ dig8,     // [F, 2L * N]
 #pragma unroll
   for (int s = 0; s < kMmaStages - 1; ++s) fetch(s);
 
-  for (int j = 0; j < 2 * l; ++j)
+  for (int j = 0; j < j_rows; ++j)
     nm::stage_rev_window<N>(trgsw + (static_cast<size_t>(j) * 2 + o) * N, c0,
                             rev_s + j * nm::kLimbs * REV_WORDS, tid, kMmaThreads);
 
@@ -297,11 +298,11 @@ external_product_mma_kernel(const int8_t* __restrict__ dig8,     // [F, 2L * N]
 
 template <int LOG_N>
 int launch_mma(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int8_t* scratch,
-               int rows, int l, cudaStream_t stream) {
+               int rows, int j_rows, cudaStream_t stream) {
   constexpr int N = 1 << LOG_N;
-  const size_t smem = mma_smem_bytes(N, l);
+  const size_t smem = mma_smem_bytes(N, j_rows);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const long long quads = static_cast<long long>(rows) * 2 * l * N / 4;
+  const long long quads = static_cast<long long>(rows) * j_rows * N / 4;
   pack_digits_s8_kernel<<<static_cast<unsigned>((quads + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const int4*>(digits), reinterpret_cast<uint32_t*>(scratch), quads);
   cudaError_t err = cudaGetLastError();
@@ -311,7 +312,7 @@ int launch_mma(const uint32_t* digits, const uint32_t* trgsw, uint32_t* out, int
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(2 * N / nm::kColsPerBlock, (rows + kMmaRows - 1) / kMmaRows);
-  kern<<<grid, kMmaThreads, smem, stream>>>(scratch, trgsw, out, rows, l);
+  kern<<<grid, kMmaThreads, smem, stream>>>(scratch, trgsw, out, rows, j_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -326,10 +327,12 @@ extern "C" {
 //           coefficients split `split` ways (1 or 8) over the grid;
 //   unit 1: the tensor-core instance (single-limb digits only; the caller
 //           has checked the accumulator bound), 128 rows by 64 columns a
-//           block; `scratch` holds rows * 2L * N bytes for the packed digits.
+//           block; `scratch` holds rows * J * N bytes for the packed digits.
+// `j_rows` is J, the gadget rows of digits and TRGSW (1 <= J <= 2L).
 int tfhe_external_product(const void* digits, const void* trgsw, void* out, void* scratch,
-                          int rows, int log_n, int l, int unit, int tile, int split,
+                          int rows, int log_n, int j_rows, int unit, int tile, int split,
                           void* stream) {
+  if (rows < 1 || j_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto* d = static_cast<const uint32_t*>(digits);
   const auto* t = static_cast<const uint32_t*>(trgsw);
   auto* o = static_cast<uint32_t*>(out);
@@ -337,8 +340,8 @@ int tfhe_external_product(const void* digits, const void* trgsw, void* out, void
   auto s = static_cast<cudaStream_t>(stream);
 #define TFHE_STEP_CASE(LOG_N)                                                  \
   case LOG_N:                                                                  \
-    return unit == 1 ? launch_mma<LOG_N>(d, t, o, sc, rows, l, s)              \
-                     : launch_split<LOG_N>(d, t, o, rows, l, tile, split, s);
+    return unit == 1 ? launch_mma<LOG_N>(d, t, o, sc, rows, j_rows, s)         \
+                     : launch_split<LOG_N>(d, t, o, rows, j_rows, tile, split, s);
   switch (log_n) {
     TFHE_STEP_CASE(6)
     TFHE_STEP_CASE(7)

@@ -26,6 +26,11 @@ its input, as rs_tfhe_tpu/ops/blind_rotate.py:242-249 does:
   - "pallas": the per-step route, one external-product kernel launch per
     step (ops/cuda_step.py) on CUDA, the plain product on the CPU; it
     ignores a multi-bit key, as the JAX package does;
+  - "nussbaumer": the per-step route with the Nussbaumer transform product
+    (ops/nussbaumer.py; rs_tfhe_tpu/ops/blind_rotate.py:386-427), its
+    pointwise dots on the probe dot's s16 unit on CUDA, their plain version
+    on the CPU; it ignores a multi-bit key and raises ValueError where the
+    parameters break `nussbaumer.check_bounds`;
   - otherwise, with or without a multi-bit key (which also carries the
     standard `bsk`), the whole-rotation kernel (ops/cuda_blind_rotate.py) on
     CUDA, `blind_rotate_plain` on the CPU.
@@ -42,7 +47,7 @@ import torch
 from ..config import step_impl
 from ..params import TORUS_BITS, TfheParams
 from ..torus import logical_rshift
-from . import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_step
+from . import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_step, nussbaumer
 from .decompose import gadget_decompose
 from .poly import monomial_rotate, polymul_small_by_torus
 
@@ -80,8 +85,9 @@ def rotation_exponents(ct: torch.Tensor, params: TfheParams):
 
 
 def _rotate_steps(b_til, a_til, testvec, bsk, params, product) -> torch.Tensor:
-    """The CMUX chain with `product(digits [B, 2L, N], bsk_i [2L, 2, N])`
-    as each step's external product."""
+    """The CMUX chain with `product(digits [B, 2L, N], bsk[i])` as step i's
+    external product: bsk[i] is a whole step's key [2L, 2, N] here, each
+    tensor-parallel shard's rows of it in parallel/sharded.py."""
     batch, n1 = b_til.shape[0], params.n1
     acc = monomial_rotate(testvec.expand(batch, 2, n1), b_til.unsqueeze(-1))
     for i in range(params.n0):
@@ -165,6 +171,14 @@ def blind_rotate(
         return blind_rotate_mb_plain(b_til, a_til, testvec, bsk_mb, params)
     if impl == "pallas":
         product = functools.partial(cuda_step.external_product, params=params)
+        return _rotate_steps(b_til, a_til, testvec, bsk, params, product)
+    if impl == "nussbaumer":
+        if not nussbaumer.check_bounds(params):
+            raise ValueError("nussbaumer step: parameter bounds not satisfied")
+
+        def product(digits, bsk_i):
+            return nussbaumer.external_product_step(digits, nussbaumer.prepare_bsk_step(bsk_i, params), params)
+
         return _rotate_steps(b_til, a_til, testvec, bsk, params, product)
     if on_card:
         return cuda_blind_rotate.blind_rotate_kernel(b_til, a_til, testvec, bsk, params)

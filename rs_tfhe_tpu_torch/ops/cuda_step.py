@@ -5,10 +5,13 @@ dispatches on the device.
 The kernel (`csrc/external_product.cu`) replaces the TPU kernel
 `fused_external_product` of rs_tfhe_tpu/ops/pallas_step.py; its plain
 PyTorch version is `ops.poly.polymul_small_by_torus`. It serves the per-step
-rotation (`config.step_impl="pallas"`, ops/blind_rotate.py). Unlike the TPU
-kernel it takes any batch, ring size up to 4096 and digit width: the TPU's
-eligibility (single-limb digits, N and batch multiples of 128) is a Mosaic
-layout rule with no counterpart here.
+rotation (`config.step_impl="pallas"`, ops/blind_rotate.py) with all 2L
+gadget rows, and each shard of the tensor-parallel rotation
+(parallel/sharded.py) with its 2L/tp rows: like the TPU kernel it takes any
+count J of gadget rows from 1 to 2L. Unlike the TPU kernel it takes any
+batch, ring size up to 4096 and digit width: the TPU's eligibility
+(single-limb digits, N and batch multiples of 128) is a Mosaic layout rule
+with no counterpart here.
 
 Two instances (`step_instance`): single-limb digits (bgbit <= 8) go to the
 tensor cores as s8 digits against the four u8 limbs of the extended key
@@ -39,8 +42,8 @@ from .poly import polymul_small_by_torus
 #: Launches of the kernel in this process (the wrapper adds one per launch).
 launches = 0
 
-#: Launches by instance (ring size N, unit, rows a block, column split) in
-#: this process, beside `launches`.
+#: Launches by instance (ring size N, unit, rows a block, column split) and
+#: gadget row count J, (*instance, J), in this process, beside `launches`.
 launched_tiles: collections.Counter = collections.Counter()
 
 #: Rows and output columns a block of the tensor-core instance owns.
@@ -122,10 +125,11 @@ def external_product_kernel(
 ) -> torch.Tensor:
     """sum_j digits[:, j] (x) trgsw[j, o] mod 2^32 on the card.
 
-    digits: int32 [F, 2L, N] gadget digits in [-Bg/2, Bg/2); trgsw: int32
-    [2L, 2, N] raw torus words. Returns int32 [F, 2, N], launched on the
-    current stream without synchronising. The instance comes from
-    `step_instance`.
+    digits: int32 [F, J, N] gadget digits in [-Bg/2, Bg/2); trgsw: int32
+    [J, 2, N] raw torus words, for any J from 1 to 2L (2L: a whole step; a
+    tensor-parallel shard passes its 2L/tp rows). Returns int32 [F, 2, N],
+    launched on the current stream without synchronising. The instance comes
+    from `step_instance`.
 
     The digit range is a contract, not checked here (a check would read the
     digits and synchronise at every step of a rotation): the tensor-core
@@ -144,8 +148,11 @@ def external_product_kernel(
     check_shapes(params)
     dev = digits.device
     rows = digits.shape[0]
-    check_tensor("digits", digits, (rows, 2 * g.l, n), dev)
-    check_tensor("trgsw", trgsw, (2 * g.l, 2, n), dev)
+    j_rows = trgsw.shape[0] if trgsw.dim() == 3 else -1
+    if not 1 <= j_rows <= 2 * g.l:
+        raise ValueError(f"trgsw: shape {tuple(trgsw.shape)}, expected [J, 2, {n}] with 1 <= J <= 2L = {2 * g.l}")
+    check_tensor("digits", digits, (rows, j_rows, n), dev)
+    check_tensor("trgsw", trgsw, (j_rows, 2, n), dev)
     out = torch.empty((rows, 2, n), dtype=torch.int32, device=dev)
     if rows == 0:
         return out
@@ -158,25 +165,26 @@ def external_product_kernel(
     _, unit, tile, split = instance
     scratch = None
     if unit == "mma_s8":
-        scratch = torch.empty((rows, 2 * g.l * n), dtype=torch.int8, device=dev)
+        scratch = torch.empty((rows, j_rows * n), dtype=torch.int8, device=dev)
     with on_device(index):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tfhe_external_product(
             digits.data_ptr(), trgsw.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            rows, n.bit_length() - 1, g.l, int(unit == "mma_s8"), tile, split, stream,
+            rows, n.bit_length() - 1, j_rows, int(unit == "mma_s8"), tile, split, stream,
         )
     if err != 0:
         msg = lib.tfhe_cuda_error_string(err).decode()
         raise RuntimeError(f"external_product kernel launch failed (instance={instance}): {msg} ({err})")
     launches += 1
-    launched_tiles[instance] += 1
+    launched_tiles[(*instance, j_rows)] += 1
     return out
 
 
 def external_product(digits: torch.Tensor, trgsw: torch.Tensor, params: TfheParams) -> torch.Tensor:
-    """One step's product, int32 [F, 2L, N] x [2L, 2, N] -> [F, 2, N]: the
-    kernel on a CUDA tensor, the plain product on a CPU tensor."""
+    """One step's product over J gadget rows, int32 [F, J, N] x [J, 2, N] ->
+    [F, 2, N] (J = 2L for a whole step): the kernel on a CUDA tensor, the
+    plain product on a CPU tensor."""
     if digits.device.type == "cuda":
         return external_product_kernel(digits.contiguous(), trgsw.contiguous(), params)
     if digits.device.type != "cpu":

@@ -87,6 +87,27 @@ def _circulant_index(n: int, device) -> torch.Tensor:
     return torch.remainder(m[None, :] - m[:, None], 2 * n)
 
 
+def circulant_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """C[..., m, c] = x[..., (c - m) mod 2N]: [..., 2N] -> [..., N, N], the
+    rows of a negacyclic circulant from an extended polynomial
+    (rs_tfhe_tpu/ops/poly.py:98, there built from static slices for the TPU;
+    here one gather)."""
+    if x.shape[-1] != 2 * n:
+        raise ValueError(f"expected [..., {2 * n}], got {tuple(x.shape)}")
+    return x[..., _circulant_index(n, x.device)]
+
+
+def negacyclic_static_roll(t: torch.Tensor, s: int) -> torch.Tensor:
+    """X^s * t for a static s (taken mod 2N): two slices and a negation, as
+    rs_tfhe_tpu/ops/poly.py:227. Any integer dtype; the negation wraps."""
+    n = t.shape[-1]
+    s = s % (2 * n)
+    neg = s >= n
+    s = s % n
+    rolled = torch.cat([neg_torus(t[..., n - s:]), t[..., : n - s]], dim=-1) if s else t
+    return neg_torus(rolled) if neg else rolled
+
+
 def _f64_exact(terms: int, max_small: int, word_bits: int) -> bool:
     """A float64 sum of `terms` products |small| <= max_small times a word of
     magnitude <= 2^word_bits is exact while terms * max_small * 2^word_bits
@@ -107,8 +128,7 @@ def _step_circulant(t: torch.Tensor) -> torch.Tensor:
     C[j*N + m, o*N + c] = ext(t[j, o])[(c - m) mod 2N] (signed word values),
     so that (d.reshape(-1, J*N) @ C)[:, o*N + c] = sum_j (d_j * t_{j,o})[c]."""
     j, o, n = t.shape
-    ext = negacyclic_extend(t).to(torch.float64)  # [J, O, 2N]
-    c = ext[:, :, _circulant_index(n, t.device)]  # [J, O, N(m), N(c)]
+    c = circulant_rows(negacyclic_extend(t).to(torch.float64), n)  # [J, O, N(m), N(c)]
     return c.permute(0, 2, 1, 3).reshape(j * n, o * n)
 
 
@@ -151,7 +171,6 @@ def polymul_torus_by_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """
     n = s.shape[-1]
     _check_f64_exact(n, 1, 31, "polymul_torus_by_binary")
-    ext = negacyclic_extend(s).to(torch.float64)
-    circ = ext[_circulant_index(n, s.device)]  # [N(m), N(c)]
+    circ = circulant_rows(negacyclic_extend(s).to(torch.float64), n)  # [N(m), N(c)]
     out = a.to(torch.float64) @ circ
     return wrap_i32(out.to(torch.int64))

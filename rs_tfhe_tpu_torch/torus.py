@@ -305,6 +305,13 @@ def split_u32_limbs_planar(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(limbs, dim=-2).to(torch.int8)
 
 
+def split_u32_limbs(x: torch.Tensor) -> torch.Tensor:
+    """int32 [...] -> int8 [..., 4] balanced base-256 limbs, interleaved: the
+    limbs of `split_u32_limbs_planar` on a new minor axis, bit-equal to
+    `rs_tfhe_tpu.torus.split_u32_limbs`."""
+    return split_u32_limbs_planar(x.unsqueeze(-1)).squeeze(-1)
+
+
 def recombine_planar(acc: torch.Tensor) -> torch.Tensor:
     """int32 [..., 4, W] planar limb sums -> int32 [..., W] mod 2^32:
     sum_q acc[..., q, :] * 2^(8q), wrapping."""

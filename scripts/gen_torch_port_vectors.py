@@ -24,7 +24,21 @@ reproduce bit for bit:
                                         compare_radix, select_radix, the
                                         bit casts, sort_radix) and of one
                                         FheUintRadix and one FheUint
-                                        expression.
+                                        expression;
+  tests/vectors/torch_port_tiny_parallel.npz
+                                        a multi-bit key (whose bsk and
+                                        ksk_limbs are also the standard key),
+                                        ciphertexts and the multi-device
+                                        paths' outputs on JAX's virtual CPU
+                                        devices: data-parallel NAND (B=11 on
+                                        8 devices, padded), XOR, MUX and LUT
+                                        (B=8 on 4), the multi-bit key's
+                                        data-parallel NAND (B=16 on 4: 4-row
+                                        shards, each on the multi-bit
+                                        rotation), tensor-parallel AND, OR
+                                        and LUT (B=8 on a (4, 2) mesh), and a
+                                        NAND at B=4 under
+                                        step_impl="nussbaumer".
 
 The files let a machine without JAX (the one with the GPU) hold the port
 against the reference: `chip_smoke.py` loads the keys and ciphertexts into
@@ -40,6 +54,12 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+# the parallel fixture runs on 8 virtual CPU devices; XLA reads the flag once,
+# before jax is first imported (tests/conftest.py sets it for the tests)
+_flags = os.environ.get("XLA_FLAGS", "")
+if "host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (_flags + " --xla_force_host_platform_device_count=8").strip()
+
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")  # TEST_TINY is bit-exact on every backend
@@ -47,7 +67,7 @@ jax.config.update("jax_platforms", "cpu")  # TEST_TINY is bit-exact on every bac
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from rs_tfhe_tpu import bit_utils, fhe, gates  # noqa: E402
+from rs_tfhe_tpu import bit_utils, config, fhe, gates, parallel  # noqa: E402
 from rs_tfhe_tpu.bootstrap import bootstrap_with_testvec  # noqa: E402
 from rs_tfhe_tpu.key import CloudKey, SecretKey  # noqa: E402
 from rs_tfhe_tpu.lut.generator import Generator  # noqa: E402
@@ -64,6 +84,7 @@ OUT = os.path.join(VECTORS, "torch_port_tiny.npz")
 OUT_MB = os.path.join(VECTORS, "torch_port_tiny_mb.npz")
 OUT_CIRCUITS = os.path.join(VECTORS, "torch_port_tiny_circuits.npz")
 OUT_RADIX = os.path.join(VECTORS, "torch_port_tiny_radix.npz")
+OUT_PARALLEL = os.path.join(VECTORS, "torch_port_tiny_parallel.npz")
 #: digit base and operands of the radix fixture (two base-4 digits)
 RADIX_BASE_BITS = 2
 RADIX_X, RADIX_Y = (13, 6), (9, 11)
@@ -236,9 +257,63 @@ def make_vectors_radix() -> dict:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+def PARALLEL_DP_LUT(x):
+    """The parallel fixture's data-parallel LUT (message modulus 4)."""
+    return (3 * x) % 4
+
+
+def PARALLEL_TP_LUT(x):
+    """The parallel fixture's tensor-parallel LUT (message modulus 4)."""
+    return (x + 2) % 4
+
+
+def make_vectors_parallel() -> dict:
+    """The parallel fixture's arrays as numpy, from fixed seeds, the cases of
+    tests/test_parallel.py on the 8 virtual CPU devices: mesh sizes 8 and 4
+    (data parallel) and 8 with tp = 2 (tensor parallel). The multi-bit key's
+    NAND at B=16 on 4 devices runs each 4-row shard on the multi-bit rotation
+    (4 <= mb_route_batch_cap at TEST_TINY), where one device at B=16 takes the
+    standard one. The Nussbaumer NAND runs on one device."""
+    p = TEST_TINY
+    sk = SecretKey.generate(jax.random.key(6024), p)
+    ck_mb = CloudKey.generate(jax.random.key(6025), sk, multibit=True)
+    ck = CloudKey(testvec=ck_mb.testvec, ksk_limbs=ck_mb.ksk_limbs, bsk=ck_mb.bsk, params=p)
+    rng = np.random.default_rng(6026)
+    bits = rng.integers(0, 2, (3, 16)).astype(bool)
+    k = jax.random.split(jax.random.key(6027), 5)
+    a = lwe_encrypt_bool(k[0], sk.lv0, jnp.asarray(bits[0]), p.tlwe_lv0.alpha)
+    b = lwe_encrypt_bool(k[1], sk.lv0, jnp.asarray(bits[1]), p.tlwe_lv0.alpha)
+    c = lwe_encrypt_bool(k[2], sk.lv0, jnp.asarray(bits[2]), p.tlwe_lv0.alpha)
+    msgs = np.arange(8, dtype=np.uint32) % 4
+    m3 = lwe_encrypt_message(k[3], sk.lv0, jnp.asarray(msgs), 4, p.tlwe_lv0.alpha)
+    m2 = lwe_encrypt_message(k[4], sk.lv0, jnp.asarray(msgs), 4, p.tlwe_lv0.alpha)
+    mesh8, mesh4, mesh_tp = parallel.make_mesh(8), parallel.make_mesh(4), parallel.make_mesh(8, tp=2)
+    saved = config.config.step_impl
+    config.config.step_impl = "nussbaumer"
+    try:
+        nand_nussbaumer = gates.nand(a[:4], b[:4], ck)
+    finally:
+        config.config.step_impl = saved
+    out = {
+        "sk_lv0": sk.lv0, "sk_lv1": sk.lv1, "testvec": ck_mb.testvec, "bsk": ck_mb.bsk,
+        "ksk_limbs": ck_mb.ksk_limbs, "bsk_mb": ck_mb.bsk_mb,
+        "bits": bits, "msgs": msgs, "ct_a": a, "ct_b": b, "ct_c": c, "ct_m3": m3, "ct_m2": m2,
+        "dp_nand_b11_on8": parallel.data_parallel_gate("nand", a[:11], b[:11], ck, mesh8),
+        "dp_xor_b8_on4": parallel.data_parallel_gate("xor", a[:8], b[:8], ck, mesh4),
+        "dp_mux_b8_on4": parallel.data_parallel_mux(a[:8], b[:8], c[:8], ck, mesh4),
+        "dp_lut_b8_on4": parallel.data_parallel_lut_bootstrap(m3, PARALLEL_DP_LUT, 4, ck, mesh4),
+        "dp_nand_mb_b16_on4": parallel.data_parallel_gate("nand", a, b, ck_mb, mesh4),
+        "tp_and_b8_on4x2": parallel.tensor_parallel_gate("and", a[:8], b[:8], ck, mesh_tp),
+        "tp_or_b8_on4x2": parallel.tensor_parallel_gate("or", a[:8], b[:8], ck, mesh_tp),
+        "tp_lut_b8_on4x2": parallel.tensor_parallel_lut_bootstrap(m2, PARALLEL_TP_LUT, 4, ck, mesh_tp),
+        "nand_nussbaumer_b4": nand_nussbaumer,
+    }
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def main():
     for path, make in ((OUT, make_vectors), (OUT_MB, make_vectors_mb), (OUT_CIRCUITS, make_vectors_circuits),
-                       (OUT_RADIX, make_vectors_radix)):
+                       (OUT_RADIX, make_vectors_radix), (OUT_PARALLEL, make_vectors_parallel)):
         np.savez_compressed(path, **make())
         print(f"wrote {os.path.normpath(path)} ({os.path.getsize(path)} bytes)")
 

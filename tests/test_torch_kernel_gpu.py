@@ -417,7 +417,7 @@ def test_step_kernel_matches_plain_every_tile(dev, tile, split):
     before = CS.launched_tiles.copy()
     out = CS.external_product_kernel(d, t, P.TEST_TINY, tile=tile, split=split)
     torch.cuda.synchronize()
-    assert CS.launched_tiles - before == {(P.TEST_TINY.n1, "imad", tile, split): 1}
+    assert CS.launched_tiles - before == {(P.TEST_TINY.n1, "imad", tile, split, 2 * P.TEST_TINY.trgsw_lv1.l): 1}
     assert torch.equal(out, polymul_small_by_torus(d, t, P.TEST_TINY.trgsw_lv1.half_bg))
 
 
@@ -435,7 +435,8 @@ def test_step_kernel_on_tensor_cores_matches_plain(dev, name, rows):
     before = CS.launched_tiles.copy()
     out = CS.external_product_kernel(d, t, p)
     torch.cuda.synchronize()
-    assert CS.launched_tiles - before == {(p.n1, "mma_s8", CS.MMA_ROWS, 2 * p.n1 // CS.MMA_COLS): 1}
+    instance = (p.n1, "mma_s8", CS.MMA_ROWS, 2 * p.n1 // CS.MMA_COLS, 2 * p.trgsw_lv1.l)
+    assert CS.launched_tiles - before == {instance: 1}
     assert torch.equal(out, polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
     if p.n1 <= 64:
         assert torch.equal(out, CS.limb_product_plain(d, t))
@@ -453,7 +454,7 @@ def test_step_kernel_wide_digits_stay_on_cuda_cores(dev, name, rows):
     before = CS.launched_tiles.copy()
     out = CS.external_product_kernel(d, t, p)
     torch.cuda.synchronize()
-    assert CS.launched_tiles - before == {instance: 1}
+    assert CS.launched_tiles - before == {(*instance, 2 * p.trgsw_lv1.l): 1}
     assert torch.equal(out, polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
 
 
@@ -512,6 +513,98 @@ def test_step_kernel_digit_contract(dev):
     d[3, 1, 7] = -p.trgsw_lv1.half_bg - 1
     with pytest.raises(ValueError, match="outside"):
         CS.check_digit_range(d, p)
+
+
+@pytest.mark.parametrize(
+    "name,rows",
+    [("TEST_TINY", 11), ("SECURITY_128_BIT_FAST", 1), ("SECURITY_128_BIT_FAST", 8), ("SECURITY_128_BIT", 8),
+     ("SECURITY_128_BIT_RADIX", 16), ("SECURITY_UINT4", 8)],
+)
+def test_step_kernel_every_gadget_row_count(dev, name, rows):
+    """K5 at every J from 1 to 2L (a tensor-parallel shard's 2L/tp rows, odd
+    J included): the kernel equals the plain product on the first J rows,
+    on both units, and counts its J."""
+    p = getattr(P, name)
+    d, t = _extremes(p, *_step_inputs(dev, p, rows, seed=90 + rows))
+    for j in range(1, 2 * p.trgsw_lv1.l + 1):
+        dj, tj = d[:, :j].contiguous(), t[:j].contiguous()
+        before = CS.launched_tiles.copy()
+        out = CS.external_product_kernel(dj, tj, p)
+        torch.cuda.synchronize()
+        (key,) = (CS.launched_tiles - before).keys()
+        assert key[-1] == j
+        assert torch.equal(out, polymul_small_by_torus(dj, tj, p.trgsw_lv1.half_bg)), j
+
+
+def test_step_kernel_refuses_row_counts_outside_1_to_2l(dev):
+    p = P.TEST_TINY
+    d, t = _step_inputs(dev, p, 4, seed=97)
+    with pytest.raises(ValueError, match="1 <= J"):
+        CS.external_product_kernel(d[:, :0].contiguous(), t[:0].contiguous(), p)
+    with pytest.raises(ValueError, match="1 <= J"):
+        CS.external_product_kernel(torch.cat([d, d[:, :1]], 1), torch.cat([t, t[:1]]), p)
+    with pytest.raises(ValueError, match="shape"):  # digits and key disagree on J
+        CS.external_product_kernel(d[:, :2].contiguous(), t[:3].contiguous(), p)
+
+
+def _nussbaumer_dot_case(dev, batch, k):
+    """P1's s16 unit at a Nussbaumer shape, [B, K] x [K, 1024] for each of 16
+    DFT points: counted under its own name and its shape, equal to the plain
+    dot."""
+    from rs_tfhe_tpu_torch.ops import nussbaumer as NU
+
+    lhs = _plant_extremes(_rand(dev, (16, batch, k), torch.int16, 98))
+    bop = _plant_extremes(_rand(dev, (16, k, 1024), torch.int16, 99))
+    before, shapes = CP.launches[NU.DOT_NAME], NU.launched_shapes.copy()
+    out = NU.pointwise_dot(lhs, bop)
+    torch.cuda.synchronize()
+    assert CP.launches[NU.DOT_NAME] == before + 16
+    assert NU.launched_shapes - shapes == {(batch, k, 1024): 16}
+    assert torch.equal(out, torch.stack([CP.dot_plain(lhs[t], bop[t]) for t in range(16)]))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_nussbaumer_pointwise_dot_at_fast_shape(dev, batch):
+    """SECURITY_128_BIT_FAST: [B, 512] x [512, 1024] a point."""
+    _nussbaumer_dot_case(dev, batch, 512)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_nussbaumer_pointwise_dot_at_strict_shape(dev, batch):
+    """SECURITY_128_BIT (2L = 6): [B, 768] x [768, 1024] a point."""
+    _nussbaumer_dot_case(dev, batch, 768)
+
+
+def test_nussbaumer_step_and_parallel_paths_on_the_card(dev):
+    """TEST_TINY on the card: the Nussbaumer step equals the plain product;
+    a NAND under step_impl="nussbaumer", the data-parallel NAND on a mesh of
+    the card repeated and the tensor-parallel NAND (J = 3 a shard) equal the
+    single-device NAND."""
+    from rs_tfhe_tpu_torch import gates, key, parallel, tlwe
+    from rs_tfhe_tpu_torch.ops import nussbaumer as NU
+
+    p = P.TEST_TINY
+    d, t = _extremes(p, *_step_inputs(dev, p, 5, seed=100))
+    out = NU.external_product_step(d, NU.prepare_bsk_step(t, p), p)
+    assert torch.equal(out, polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
+    g = torch.Generator(device=dev).manual_seed(101)
+    sk = key.SecretKey.generate(p, g)
+    ck = key.CloudKey.generate(sk, g)
+    a = tlwe.lwe_encrypt_bool(g, sk.lv0, [True, False, True, False], p.tlwe_lv0.alpha)
+    b = tlwe.lwe_encrypt_bool(g, sk.lv0, [True, True, False, False], p.tlwe_lv0.alpha)
+    single = gates.nand(a, b, ck)
+    saved = PC.config.step_impl
+    PC.config.step_impl = "nussbaumer"
+    try:
+        assert torch.equal(gates.nand(a, b, ck), single)
+    finally:
+        PC.config.step_impl = saved
+    assert torch.equal(parallel.data_parallel_gate("nand", a, b, ck, parallel.make_mesh(2, devices=[dev] * 2)),
+                       single)
+    before = CS.launches
+    mesh = parallel.make_mesh(2, tp=2, devices=[dev] * 2)
+    assert torch.equal(parallel.tensor_parallel_gate("nand", a, b, ck, mesh), single)
+    assert CS.launches == before + 2 * p.n0
 
 
 # ---------------------------------------------------------------------------

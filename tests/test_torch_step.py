@@ -88,6 +88,30 @@ def test_plain_product_matches_k5_fused_external_product():
     np.testing.assert_array_equal(to_numpy(port), np.asarray(ref))
 
 
+@pytest.mark.parametrize("j", [1, 2, 3])
+def test_plain_product_matches_k5_at_j_gadget_rows(j):
+    """K5 takes any number J of gadget rows (a tensor-parallel shard passes
+    2L/tp: J = 1 at FAST with tp = 4, 2 at FAST with tp = 2, 3 at strict and
+    TEST_TINY with tp = 2); the plain product reads J from the key's shape
+    and equals the TPU kernel in interpret mode at each J."""
+    rng = np.random.default_rng(110 + j)
+    o, n, f = 2, 128, 128
+    t = rng.integers(0, 1 << 32, (j, o, n), dtype=np.uint32)
+    t[0, 0, :3] = [0x80000000, 0xFFFFFFFF, 0]
+    d = rng.integers(-32, 32, (f, j, n)).astype(np.int32)
+    d[0, :, ::2], d[-1, :, 1::2] = -32, 31
+    xl = jnp.transpose(split_u32_limbs(negacyclic_extend(jnp.asarray(t))), (1, 3, 0, 2))
+    k5 = fused_external_product(jnp.asarray(d).astype(jnp.int8).reshape(f, j * n), xl, 2, interpret=True)
+    port = polymul_small_by_torus(torch.from_numpy(d), to_torch(t, "cpu"), 32)
+    np.testing.assert_array_equal(to_numpy(port), np.asarray(k5))
+    if j < 3:  # the shard's product is the whole step's restricted to its rows
+        full_t = np.concatenate([t, rng.integers(0, 1 << 32, (3 - j, o, n), dtype=np.uint32)])
+        full_d = np.concatenate([d, np.zeros((f, 3 - j, n), np.int32)], axis=1)
+        whole = polymul_small_by_torus(torch.from_numpy(full_d), to_torch(full_t, "cpu"), 32)
+        assert torch.equal(port, whole)
+    assert torch.equal(CS.external_product(torch.from_numpy(d), to_torch(t, "cpu"), params_from(JP.TEST_TINY)), port)
+
+
 @pytest.mark.parametrize("name", _UINT)
 def test_plain_product_exact_for_wide_digits(name):
     """The Uint sets (bgbit 10-23, digit_limbs 2-3) at their real N: the

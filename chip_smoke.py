@@ -30,14 +30,20 @@ the last line):
           (tile, cluster) instance the wrapper picks for a batch up to 128 at
           FAST (the batches circuits launch) and for the batches phases 13
           and 14 give it at RADIX and NIBBLE (RADIX_BATCHES,
-          NIBBLE_BATCHES), each at the smallest batch that takes the
-          instance, compared without timing;
+          NIBBLE_BATCHES) and phase 17's examples at TEST_TINY, the N=512
+          demo set, strict, FAST, RADIX and NIBBLE (EXAMPLE_BATCHES), each
+          at the smallest batch that takes the instance, compared without
+          timing; for phase 17 also UINT4 B=16 and the N=512 demo set B=16
+          (timed), UINT1-3 and UINT5-8 at the batch
+          lut_uint_parameters_demo gives each (2, 4, 8, 16, 16, 16, 16) and
+          the 80- and 110-bit sets at B=4 (untimed);
        3b the multi-bit rotation at the batches `auto` sends it (at most
           `mb_route_batch_cap`: 2 at FAST, 4 at L = 3), each on the cluster
           instance: FAST B = 1 and 2 (shared and per-ciphertext test vectors,
           a grid-sampled multi-bit key), strict B = 1 and 4,
           SECURITY_128_BIT_RADIX B = 1 and 2, SECURITY_128_BIT_NIBBLE B = 1
-          (random keys with 0x80000000 and 0xFFFFFFFF words); and FAST
+          (random keys with 0x80000000 and 0xFFFFFFFF words), TEST_TINY
+          B = 1 (phase 17's low_latency_gates at its default set); and FAST
           B = 1024 on the single-block instance, which step_impl=
           "fused_small_mb" gives large batches;
        3c the external-product step at FAST B = 2048 and 8, strict B = 512
@@ -168,8 +174,23 @@ the last line):
      route; dryrun_multichip on 4 shards; where two or more cards are
      visible, the data- and tensor-parallel NAND again over distinct cards.
      Every output decrypted; times host clock to the synchronise, with the
-     card's name and power limit.
-Each path of phases 5-16 is driven with the kernels' launch counts set to 0
+     card's name and power limit;
+ 17. the examples (examples/torch/, the users' entry points), each run in
+     this process through its main() on the card: all twenty at their
+     defaults (TEST_TINY, or the N=512 demo sets of radix_integers and
+     ciphertext_multiply), then each at the parameter set and flags its JAX
+     counterpart's docstring names for a production run (EXAMPLE_PRODUCTION_RUNS:
+     batch_gates, low_latency_gates, keygen_speed, add_two_numbers,
+     lut_bootstrapping and encrypted_max at SECURITY_128_BIT, keygen_speed,
+     encrypted_sort, typed_api and multi_chip_scaling at FAST,
+     lut_add_two_numbers and the 16-bit ciphertext_multiply at NIBBLE,
+     radix_integers at RADIX, lut_uint_parameters_demo at all eight Uint
+     sets, gates_with_strategies at the 80- and 110-bit sets). A run fails
+     on an exception (its asserts included) and unless it ends on its last
+     result line (EXAMPLE_DONE; an example that skips does not); each
+     run's output and wall time are printed with the card's name and power
+     limit.
+Each path of phases 5-17 is driven with the kernels' launch counts set to 0
 just before it and read just after; every kernel of a path must have
 launched, and every instance a path launched (the whole key: ring size,
 tile, cluster, unit, and the step kernel's gadget row count J) and every
@@ -211,6 +232,16 @@ FIXTURE_RADIX_BASE_BITS = 2
 #: instance of each against the plain version.
 RADIX_BATCHES = (8, 12, 16, 32, 48, 64, 128, 144, 192, 384, 512)
 NIBBLE_BATCHES = (16, 32, 128, 256, 512)
+#: The batches phase 17's examples give the whole-rotation kernel, by set (the N=512 demo sets of
+#: radix_integers and ciphertext_multiply as N512_DEMO); the Uint and 80/110-bit runs are cases of their own
+EXAMPLE_BATCHES = {
+    "TEST_TINY": (1, 2, 4, 6, 8, 16, 32, 64, 256, 1024),
+    "N512_DEMO": (1, 2, 4, 8, 12, 16, 32, 128),
+    "128_BIT": (1, 8, 16, 64, 256, 1024),
+    "128_BIT_FAST": (2, 4, 6, 8, 16, 32, 64, 128, 1024),
+    "128_BIT_RADIX": (4, 8, 12, 16, 32, 128),
+    "128_BIT_NIBBLE": (1, 2, 4, 6, 16, 128),
+}
 #: The circuit fixture's LUT family (scripts/gen_torch_port_vectors.py MV_FUNCTIONS, MV_MODULUS).
 FIXTURE_MV_MODULUS = 4
 FIXTURE_MV_FUNCTIONS = (lambda x: (x + 1) % 4, lambda x: (3 * x) % 4)
@@ -494,7 +525,9 @@ def _name(p) -> str:
     from rs_tfhe_tpu_torch import params as P
 
     names = {v: k for k, v in P.ALL_SECURITY_SETS.items()}
-    return "TEST_TINY" if p == P.TEST_TINY else names[p].removeprefix("SECURITY_")
+    if p in names:
+        return names[p].removeprefix("SECURITY_")
+    return "TEST_TINY" if p == P.TEST_TINY else f"N{p.n1}_DEMO"  # the radix examples' N=512 sets
 
 
 def phase_kernel_vs_plain(dev) -> dict:
@@ -515,6 +548,11 @@ def phase_kernel_vs_plain(dev) -> dict:
     p_nibble = P.SECURITY_128_BIT_NIBBLE
     nibble_bsk = rnd((p_nibble.n0, 2 * p_nibble.trgsw_lv1.l, 2, p_nibble.n1))
     fast = P.SECURITY_128_BIT_FAST
+    demo = load_example("radix_integers.py").DEMO  # N = 512; ciphertext_multiply's TINY_MUL is the same ring
+    demo_bsk = rnd((demo.n0, 2 * demo.trgsw_lv1.l, 2, demo.n1))
+
+    def random_bsk(p):
+        return rnd((p.n0, 2 * p.trgsw_lv1.l, 2, p.n1))
 
     def instance_of(p, batch, bsk):
         """The instance the wrapper picks: tile and cluster from the batch and the clusters the
@@ -547,7 +585,16 @@ def phase_kernel_vs_plain(dev) -> dict:
         (p_radix, radix_bsk, 528, False, True),  # N = 2048
         (p_radix, radix_bsk, radix_batch, False, True),
         (p_nibble, nibble_bsk, 1, False, True),  # N = 4096
+        (p_uint4, uint4_bsk, 16, False, True),  # lut_uint_parameters_demo's batch
+        (demo, demo_bsk, 16, False, True),  # N = 512: the radix examples' digit batches
     ]
+    # phase 17's Uint runs at the batch lut_uint_parameters_demo gives each set (the message modulus,
+    # 2 to 16), and gates_with_strategies at the 80- and 110-bit sets (B = 4)
+    for k, batch in zip(range(1, 9), (2, 4, 8, 16, 16, 16, 16, 16)):
+        if k != 4:  # UINT4's is timed above
+            p_uint = getattr(P, f"SECURITY_UINT{k}")
+            cases.append((p_uint, random_bsk(p_uint), batch, False, False))
+    cases += [(p, random_bsk(p), 4, False, False) for p in (P.SECURITY_80_BIT, P.SECURITY_110_BIT)]
     # every other instance a circuit's batches (1..128 rows) can take: the largest batch of each
     held = {instance_of(p, batch, bsk) for p, bsk, batch, _, _ in cases}
     by_instance = {}
@@ -562,7 +609,10 @@ def phase_kernel_vs_plain(dev) -> dict:
     tiny_bsk = rnd((tiny.n0, 2 * tiny.trgsw_lv1.l, 2, tiny.n1))
     parallel_fast = (4096 // 4, 4096 // max(1, torch.cuda.device_count()))
     for p, bsk, batches in ((p_radix, radix_bsk, RADIX_BATCHES), (p_nibble, nibble_bsk, NIBBLE_BATCHES),
-                            (fast, fast_bsk, parallel_fast), (p_strict, strict_bsk, (8,)), (tiny, tiny_bsk, (2,))):
+                            (fast, fast_bsk, parallel_fast), (p_strict, strict_bsk, (8,)), (tiny, tiny_bsk, (2,)),
+                            *((p, bsk, EXAMPLE_BATCHES[_name(p)]) for p, bsk in (
+                                (tiny, tiny_bsk), (demo, demo_bsk), (p_strict, strict_bsk), (fast, fast_bsk),
+                                (p_radix, radix_bsk), (p_nibble, nibble_bsk)))):
         for batch in batches:
             inst = instance_of(p, batch, bsk)
             if inst not in held:
@@ -640,6 +690,7 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         (radix, radix_mb, 1, False), (radix, radix_mb, 2, False),
         (nibble, random_key(nibble), 1, False),
         (fast, fast_mb, 1024, False),
+        (P.TEST_TINY, random_key(P.TEST_TINY), 1, False),  # low_latency_gates at its default set
     ]
     max_err, rows, tiles = 0, {}, set()
     for p, key, batch, per_ct in cases:
@@ -2102,6 +2153,100 @@ def run_parallel(dev, label: str, smi: str) -> dict:
     return res
 
 
+EXAMPLES_DIR = os.path.join(ROOT, "examples", "torch")
+
+#: Phase 17 runs each example of examples/torch/ once with its defaults (TEST_TINY, or the N=512 demo sets of
+#: radix_integers and ciphertext_multiply), then these: each at the parameter set its JAX counterpart's
+#: docstring names for a production run, with the flags of that line; lut_uint_parameters_demo at each of the
+#: eight Uint sets its --params takes, keygen_speed at FAST too, and gates_with_strategies at the 80- and
+#: 110-bit sets.
+EXAMPLE_PRODUCTION_RUNS = [
+    ("batch_gates.py", ["--params", "SECURITY_128_BIT"]),
+    ("low_latency_gates.py", ["--params", "SECURITY_128_BIT"]),
+    ("keygen_speed.py", ["--params", "SECURITY_128_BIT"]),
+    ("keygen_speed.py", ["--params", "SECURITY_128_BIT_FAST"]),
+    ("add_two_numbers.py", ["--params", "SECURITY_128_BIT", "--x", "4059", "--y", "27063"]),
+    ("lut_bootstrapping.py", ["--params", "SECURITY_128_BIT"]),
+    ("lut_add_two_numbers.py", ["--params", "SECURITY_128_BIT_NIBBLE", "--x", "137", "--y", "205"]),
+    *[("lut_uint_parameters_demo.py", ["--params", f"SECURITY_UINT{k}"]) for k in range(1, 9)],
+    ("encrypted_max.py", ["--params", "SECURITY_128_BIT"]),
+    ("encrypted_sort.py", ["--params", "SECURITY_128_BIT_FAST"]),
+    ("radix_integers.py", ["--params", "SECURITY_128_BIT_RADIX"]),
+    ("ciphertext_multiply.py", ["--params", "SECURITY_128_BIT_NIBBLE", "--x", "40590", "--y", "27063",
+                                "--bits", "16"]),
+    ("typed_api.py", ["--params", "SECURITY_128_BIT_FAST"]),
+    ("multi_chip_scaling.py", ["--params", "SECURITY_128_BIT_FAST", "--batch", "1024"]),
+    ("gates_with_strategies.py", ["--params", "SECURITY_80_BIT"]),
+    ("gates_with_strategies.py", ["--params", "SECURITY_110_BIT"]),
+]
+
+#: The line that ends each example's run when every assert of it held (its last result line).
+EXAMPLE_DONE = {
+    "security_levels.py": r"^ +-> Security level: 8 bits \(Uint8",
+    "gates_with_strategies.py": r"^default: vanilla$",
+    "batch_gates.py": r"^ +1024 ",
+    "low_latency_gates.py": r"^\[speedup\] ",
+    "keygen_speed.py": r"^full CloudKey: \d+ ms \(warm\)$",
+    "lut_bootstrapping.py": r"^ threshold>2: f\(\[0\.\.\d\]\) = .*  OK$",
+    "key_serialization.py": r"^reloaded keys evaluate correctly: OK$",
+    "compressed_transport.py": r"^64 XOR \+ 64 AND evaluated on expanded ciphertexts: OK$",
+    "proxy_reenc_with_bootstrap.py": r"^chain OK$",
+}
+
+
+def load_example(name: str):
+    """A fresh module of examples/torch/<name> (its helper, _torch_common, found beside it)."""
+    import importlib.util
+
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    spec = importlib.util.spec_from_file_location(f"_example_{name[:-3]}", os.path.join(EXAMPLES_DIR, name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(label: str, smi: str) -> dict:
+    """Every example of examples/torch/ at its defaults, then every run of
+    EXAMPLE_PRODUCTION_RUNS, on the card and in this process (so that the
+    kernels' launch counts see it): each example's main() with its argv and
+    no --cpu, its output captured and then printed under the label. A run
+    fails on any exception (an assert of the example, a kernel or build
+    error), and where its last line is not the one EXAMPLE_DONE (else "OK")
+    gives, which is also the case for an example that skipped."""
+    import contextlib
+    import io
+    import re
+
+    card = f"({smi})"
+    names = sorted(f for f in os.listdir(EXAMPLES_DIR) if f.endswith(".py") and not f.startswith("_"))
+    runs = [(name, []) for name in names] + EXAMPLE_PRODUCTION_RUNS
+    res = {}
+    for name, argv in runs:
+        run = " ".join([name[:-3], *argv])
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                load_example(name).main(argv)
+            torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t0
+            out = buf.getvalue()
+            for line in out.splitlines():
+                print(f"[{label} {run}] {line}")
+        lines = out.splitlines()
+        check("MISMATCH" not in out, f"example {run}: every LUT output decrypted to its function's value")
+        done = EXAMPLE_DONE.get(name, r"^OK$")
+        check(bool(lines) and re.search(done, lines[-1]) is not None,
+              f"example {run} ended on its last result line ({done!r}), not {lines[-1:]}")
+        print(f"[{label}] example {run}: {wall:.2f} s wall, keygen and warm-up included (host clock) {card}")
+        res[run] = {"wall_s": wall}
+    print(f"[{label}] {len(runs)} runs of the {len(names)} examples, {sum(r['wall_s'] for r in res.values()):.1f} s "
+          f"{card} {elapsed()}")
+    return res
+
+
 #: kernels-line name -> (source, file:line of the TPU kernel it replaces, others it also replaces)
 SOURCES = {
     "blind_rotate": ("rs_tfhe_tpu_torch/csrc/blind_rotate.cu", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:929",
@@ -2217,10 +2362,13 @@ def main() -> int:
                                                     "kernel")
     check(paths["parallel"]["external_product"] > 0, "the tensor-parallel paths launched the step kernel")
     check(paths["parallel"]["nussbaumer_dot"] > 0, "the Nussbaumer route launched P1's s16 unit")
-    print(f"[5-16] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+    results["examples"], paths["examples"] = drive("17", run_examples, "17", smi)
+    check(paths["examples"]["blind_rotate"] > 0, "the examples launched the whole-rotation kernel")
+    check(paths["examples"]["blind_rotate_mb"] > 0, "low_latency_gates' multi-bit key launched the multi-bit kernel")
+    print(f"[5-17] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"total {elapsed()}")
     shapes_compared = {tuple(t) for t in compare["nussbaumer_dot"]["shapes_compared"]}
-    print(f"[5-16] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
+    print(f"[5-17] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
           f"version in phase 3e: {tile_list(shapes_compared)}")
     check(not path_dot_shapes - shapes_compared,
           f"every shape of the Nussbaumer dot the paths launched was held against the plain version "
@@ -2228,7 +2376,7 @@ def main() -> int:
     for name in modules:
         compared = {tuple(t) for t in compare[name]["tiles_compared"]}
         missing = path_tiles[name] - compared
-        print(f"[5-16] {name}: instances on the paths {tile_list(path_tiles[name])}, "
+        print(f"[5-17] {name}: instances on the paths {tile_list(path_tiles[name])}, "
               f"held against the plain version in phase 3: {tile_list(compared)}")
         check(not missing, f"every {name} instantiation the paths launched was held against the plain "
                            f"version (missing: {tile_list(missing)})")

@@ -189,8 +189,19 @@ the last line):
      on an exception (its asserts included) and unless it ends on its last
      result line (EXAMPLE_DONE; an example that skips does not); each
      run's output and wall time are printed with the card's name and power
-     limit.
-Each path of phases 5-17 is driven with the kernels' launch counts set to 0
+     limit;
+ 18. the reliability entry points (scripts/torch/, the users' evidence for
+     the decryption-failure claims), in this process, at short targets
+     (SOAK_SMOKE_TARGETS): the soak's four phases (FAST and strict chained
+     NAND/XOR layers at B = 4096, NIBBLE add_radix on B = 256, FAST with a
+     multi-bit key at B = 2), every output decrypted and sampled rotations
+     held bit for bit against the plain version on the card (under
+     step_impl="xla", and blind_rotate_mb_plain on the multi-bit kernel's
+     own inputs), then measure_mb_noise --quick; it fails on an error, a
+     mismatch, a phase without a spot check or a multi-bit noise ratio
+     outside [0.5, 1.15]. Phase 3a holds the soak's strict and NIBBLE
+     batches (SOAK_STRICT_BATCHES, SOAK_NIBBLE_BATCHES).
+Each path of phases 5-18 is driven with the kernels' launch counts set to 0
 just before it and read just after; every kernel of a path must have
 launched, and every instance a path launched (the whole key: ring size,
 tile, cluster, unit, and the step kernel's gadget row count J) and every
@@ -232,6 +243,10 @@ FIXTURE_RADIX_BASE_BITS = 2
 #: instance of each against the plain version.
 RADIX_BATCHES = (8, 12, 16, 32, 48, 64, 128, 144, 192, 384, 512)
 NIBBLE_BATCHES = (16, 32, 128, 256, 512)
+#: The batches phase 18's soak gives the whole-rotation kernel beyond those of phases 5-17: strict
+#: B = 4096; at NIBBLE the adds of 256 values (512 and 256 rotations) and the warm-up add of 4 (8 and 4)
+SOAK_STRICT_BATCHES = (4096,)
+SOAK_NIBBLE_BATCHES = (4, 8, 256, 512)
 #: The batches phase 17's examples give the whole-rotation kernel, by set (the N=512 demo sets of
 #: radix_integers and ciphertext_multiply as N512_DEMO); the Uint and 80/110-bit runs are cases of their own
 EXAMPLE_BATCHES = {
@@ -602,14 +617,15 @@ def phase_kernel_vs_plain(dev) -> dict:
         by_instance[instance_of(fast, batch, fast_bsk)] = batch
     cases += [(fast, fast_bsk, batch, False, False) for inst, batch in sorted(by_instance.items()) if inst not in held]
     held.update(by_instance)
-    # the instances of the radix phases' batches and of phase 16's (the data-parallel shards of FAST
+    # the instances of the radix phases' batches, of phase 16's (the data-parallel shards of FAST
     # B = 4096 on four shards and on the visible cards, the strict references at B = 8, the dry run's
-    # TEST_TINY shards), each at the smallest batch that takes it
+    # TEST_TINY shards) and of phase 18's soak, each at the smallest batch that takes it
     tiny = P.TEST_TINY
     tiny_bsk = rnd((tiny.n0, 2 * tiny.trgsw_lv1.l, 2, tiny.n1))
     parallel_fast = (4096 // 4, 4096 // max(1, torch.cuda.device_count()))
     for p, bsk, batches in ((p_radix, radix_bsk, RADIX_BATCHES), (p_nibble, nibble_bsk, NIBBLE_BATCHES),
-                            (fast, fast_bsk, parallel_fast), (p_strict, strict_bsk, (8,)), (tiny, tiny_bsk, (2,)),
+                            (fast, fast_bsk, parallel_fast), (p_strict, strict_bsk, (8, *SOAK_STRICT_BATCHES)),
+                            (p_nibble, nibble_bsk, SOAK_NIBBLE_BATCHES), (tiny, tiny_bsk, (2,)),
                             *((p, bsk, EXAMPLE_BATCHES[_name(p)]) for p, bsk in (
                                 (tiny, tiny_bsk), (demo, demo_bsk), (p_strict, strict_bsk), (fast, fast_bsk),
                                 (p_radix, radix_bsk), (p_nibble, nibble_bsk)))):
@@ -2247,6 +2263,47 @@ def run_examples(label: str, smi: str) -> dict:
     return res
 
 
+SOAK_DIR = os.path.join(ROOT, "scripts", "torch")
+#: Phase 18's short soak: the target of each phase of scripts/torch/soak.py (gates; adds at NIBBLE),
+#: whole dispatches of 8 layers (32,768 gates at B = 4096, 16 at B = 2) or of 256 adds
+SOAK_SMOKE_TARGETS = {"fast": 200_000, "strict": 65_000, "nibble": 256, "fast_mb": 2_000}
+
+
+def run_soak(dev, label: str, smi: str) -> dict:
+    """The reliability entry points (scripts/torch/soak.py and
+    measure_mb_noise.py) in this process, so that the kernels' launch counts
+    see them: each soak phase at SOAK_SMOKE_TARGETS, every output decrypted
+    and spot-checked against the plain version on the card, then
+    measure_mb_noise --quick (FAST, K = 256 NANDs at B = 2 with a multi-bit
+    key, 128 with a standard key). Fails on an error, a mismatch, a phase
+    without a spot check, or a multi-bit noise ratio outside the range."""
+    if SOAK_DIR not in sys.path:
+        sys.path.insert(0, SOAK_DIR)
+    import measure_mb_noise
+    import soak
+
+    card = f"({smi})"
+    res = {}
+    for phase, target in SOAK_SMOKE_TARGETS.items():
+        row = soak.run_phase(phase, target, dev)
+        unit = "adds" if phase == "nibble" else "gates"
+        rate = row["adds_per_s"] if phase == "nibble" else row["gates_per_s"]
+        print(f"[{label}] soak {phase}: {row[unit]} {unit}, {row['errors']} errors, {row['spot_checks']} spot "
+              f"checks (every {row['spot_every']} dispatches), {row['mismatches']} mismatches; {rate:.1f} {unit}/s, "
+              f"{row['seconds']:.2f} s host clock {card} {elapsed()}")
+        check(row["errors"] == 0, f"soak {phase}: every output decrypted correctly")
+        check(row["spot_checks"] >= 1, f"soak {phase}: at least one spot check ran")
+        check(row["mismatches"] == 0, f"soak {phase}: every spot check equal to the plain version bit for bit")
+        check(row["device"] == smi.rsplit(",", 1)[0].strip(), f"soak {phase}: the row names the card")
+        res[phase] = row
+    print(f"[{label}] measure_mb_noise --quick {card}")
+    rows = measure_mb_noise.measure(["SECURITY_128_BIT_FAST"], 256, dev)
+    measure_mb_noise.check(rows)
+    res["mb_noise"] = rows
+    print(f"[{label}] done {elapsed()}")
+    return res
+
+
 #: kernels-line name -> (source, file:line of the TPU kernel it replaces, others it also replaces)
 SOURCES = {
     "blind_rotate": ("rs_tfhe_tpu_torch/csrc/blind_rotate.cu", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:929",
@@ -2365,10 +2422,14 @@ def main() -> int:
     results["examples"], paths["examples"] = drive("17", run_examples, "17", smi)
     check(paths["examples"]["blind_rotate"] > 0, "the examples launched the whole-rotation kernel")
     check(paths["examples"]["blind_rotate_mb"] > 0, "low_latency_gates' multi-bit key launched the multi-bit kernel")
-    print(f"[5-17] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+    results["soak"], paths["soak"] = drive("18", run_soak, dev, "18", smi)
+    check(paths["soak"]["blind_rotate"] > 0, "the soak launched the whole-rotation kernel")
+    check(paths["soak"]["blind_rotate_mb"] > 0, "the multi-bit soak and the noise measurement launched the "
+                                                "multi-bit kernel")
+    print(f"[5-18] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"total {elapsed()}")
     shapes_compared = {tuple(t) for t in compare["nussbaumer_dot"]["shapes_compared"]}
-    print(f"[5-17] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
+    print(f"[5-18] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
           f"version in phase 3e: {tile_list(shapes_compared)}")
     check(not path_dot_shapes - shapes_compared,
           f"every shape of the Nussbaumer dot the paths launched was held against the plain version "
@@ -2376,7 +2437,7 @@ def main() -> int:
     for name in modules:
         compared = {tuple(t) for t in compare[name]["tiles_compared"]}
         missing = path_tiles[name] - compared
-        print(f"[5-17] {name}: instances on the paths {tile_list(path_tiles[name])}, "
+        print(f"[5-18] {name}: instances on the paths {tile_list(path_tiles[name])}, "
               f"held against the plain version in phase 3: {tile_list(compared)}")
         check(not missing, f"every {name} instantiation the paths launched was held against the plain "
                            f"version (missing: {tile_list(missing)})")

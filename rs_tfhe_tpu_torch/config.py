@@ -23,8 +23,16 @@ Environment override: RS_TFHE_STEP_IMPL (read once, at import, as
                        card, their plain version on the CPU; raises where
                        `ops.nussbaumer.check_bounds` fails (the Uint, RADIX
                        and NIBBLE sets). "auto" never takes it (the JAX
-                       package's auto takes it only on a TPU).
-The JAX package's other values ("xla", "fused", "fused_small", "fused_wide",
+                       package's auto takes it only on a TPU);
+  - "xla"            — the plain PyTorch rotation
+                       (`ops.blind_rotate.blind_rotate_plain`) on the
+                       ciphertext's device, CPU or CUDA, as the JAX
+                       package's "xla" forces its dot_general path on any
+                       device. A multi-bit key does not change the route
+                       (the JAX package's multi-bit branch is taken under
+                       "fused_small_mb" and "auto" only). "auto" never
+                       takes it.
+The JAX package's other values ("fused", "fused_small", "fused_wide",
 "fused_tile") select TPU schedules; they raise ValueError when a rotation
 reads them.
 """
@@ -34,8 +42,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
-STEP_IMPLS = ("auto", "fused_small_mb", "pallas", "nussbaumer")
-_NOT_PORTED = ("xla", "fused", "fused_small", "fused_wide", "fused_tile")
+STEP_IMPLS = ("auto", "fused_small_mb", "pallas", "nussbaumer", "xla")
+_NOT_PORTED = ("fused", "fused_small", "fused_wide", "fused_tile")
 
 
 @dataclasses.dataclass

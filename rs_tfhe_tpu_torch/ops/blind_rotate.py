@@ -31,6 +31,9 @@ its input, as rs_tfhe_tpu/ops/blind_rotate.py:242-249 does:
     pointwise dots on the probe dot's s16 unit on CUDA, their plain version
     on the CPU; it ignores a multi-bit key and raises ValueError where the
     parameters break `nussbaumer.check_bounds`;
+  - "xla": `blind_rotate_plain` on the ciphertext's device, CPU or CUDA,
+    with or without a multi-bit key, as the JAX package's "xla" forces its
+    dot_general path (rs_tfhe_tpu/config.py:29); "auto" never takes it;
   - otherwise, with or without a multi-bit key (which also carries the
     standard `bsk`), the whole-rotation kernel (ops/cuda_blind_rotate.py) on
     CUDA, `blind_rotate_plain` on the CPU.
@@ -180,6 +183,6 @@ def blind_rotate(
             return nussbaumer.external_product_step(digits, nussbaumer.prepare_bsk_step(bsk_i, params), params)
 
         return _rotate_steps(b_til, a_til, testvec, bsk, params, product)
-    if on_card:
+    if on_card and impl != "xla":
         return cuda_blind_rotate.blind_rotate_kernel(b_til, a_til, testvec, bsk, params)
     return blind_rotate_plain(b_til, a_til, testvec, bsk, params)

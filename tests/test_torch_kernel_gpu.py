@@ -482,6 +482,28 @@ def test_routes_launch_their_kernels_and_count(dev):
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
 
 
+def test_xla_route_runs_the_plain_rotation_on_the_card(dev):
+    """step_impl="xla" runs blind_rotate_plain on a CUDA tensor, with a
+    standard and with a multi-bit key at a batch "auto" sends to the
+    multi-bit kernel, and launches neither rotation kernel."""
+    p = P.TEST_TINY
+    _, _, tv, bsk_mb = _mb_inputs(dev, p, 2, False, seed=60)
+    _, _, _, bsk = _inputs(dev, p, 2, False, seed=61)
+    ct = torch.randint(-(1 << 31), 1 << 31, (2, p.n0 + 1), dtype=torch.int32, device=dev)
+    b_til, a_til = BR.rotation_exponents(ct, p)
+    ref = BR.blind_rotate_plain(b_til, a_til, tv, bsk, p)
+    saved = PC.config.step_impl
+    PC.config.step_impl = "xla"
+    try:
+        before = CBR.launches, CMB.launches
+        outs = [BR.blind_rotate(ct, tv, bsk, p), BR.blind_rotate(ct, tv, bsk, p, bsk_mb=bsk_mb)]
+        torch.cuda.synchronize()
+        assert (CBR.launches, CMB.launches) == before
+    finally:
+        PC.config.step_impl = saved
+    assert all(out.is_cuda and torch.equal(out, ref) for out in outs)
+
+
 def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
     p = P.TEST_TINY
     b_til, a_til, tv, bsk_mb = _mb_inputs(dev, p, 4, False, seed=52)

@@ -175,7 +175,7 @@ def test_mb_kernel_plan_small_batches():
     assert CMB.rotation_instance(3, {1: 132}, 512, 4, 0) == (1, 1)
 
 
-@pytest.mark.parametrize("value", ["xla", "fused", "fused_small", "fused_wide", "fused_tile"])
+@pytest.mark.parametrize("value", ["fused", "fused_small", "fused_wide", "fused_tile"])
 def test_unported_step_impl_raises(impl, value):
     impl(value)
     with pytest.raises(ValueError, match="not ported"):

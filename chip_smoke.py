@@ -200,8 +200,22 @@ the last line):
      own inputs), then measure_mb_noise --quick; it fails on an error, a
      mismatch, a phase without a spot check or a multi-bit noise ratio
      outside [0.5, 1.15]. Phase 3a holds the soak's strict and NIBBLE
-     batches (SOAK_STRICT_BATCHES, SOAK_NIBBLE_BATCHES).
-Each path of phases 5-18 is driven with the kernels' launch counts set to 0
+     batches (SOAK_STRICT_BATCHES, SOAK_NIBBLE_BATCHES);
+ 19. the measurement entry points (scripts/torch/, the counterparts of the
+     JAX repo's benches), in this process: bench.py at its defaults (FAST and
+     strict NAND at B = 4096, 5 chained iterations, the B = 1 slopes with both
+     keys; its line must have BENCH_r05.json's "parsed" fields and no
+     correctness field below 1.0), the suite's main-path cases
+     (SUITE_SMOKE_CASES: keygen warm, the B = 1 latencies, NAND B = 128 and
+     4096, the rotation and key switch at B = 2048, the external-product step
+     on K5), the latency sweep at B = 1, 2 and 8 for auto, auto_mb and
+     fused_small_mb at FAST and strict (each row decrypted and on its
+     route's kernel: K4 for fused_small_mb and for auto_mb up to the cap, K1
+     otherwise) and the multi-device harness on 2 virtual shares of the card
+     (MULTICHIP_SMOKE), every point decrypted. Phases 3a and 3b hold the
+     instances of the batches these give the rotation kernels
+     (BENCH_BATCHES, BENCH_MB_BATCHES).
+Each path of phases 5-19 is driven with the kernels' launch counts set to 0
 just before it and read just after; every kernel of a path must have
 launched, and every instance a path launched (the whole key: ring size,
 tile, cluster, unit, and the step kernel's gadget row count J) and every
@@ -247,6 +261,11 @@ NIBBLE_BATCHES = (16, 32, 128, 256, 512)
 #: B = 4096; at NIBBLE the adds of 256 values (512 and 256 rotations) and the warm-up add of 4 (8 and 4)
 SOAK_STRICT_BATCHES = (4096,)
 SOAK_NIBBLE_BATCHES = (4, 8, 256, 512)
+#: The batches phase 19's benches give the whole-rotation kernel beyond those of phases 5-18 (the
+#: suite's rotation at FAST B = 2048; the sweep's auto route at strict B = 1 and 2), and the
+#: multi-bit kernel (the sweep's fused_small_mb at FAST and strict B = 8, auto_mb at strict B = 2)
+BENCH_BATCHES = {"128_BIT_FAST": (2048,), "128_BIT": (1, 2)}
+BENCH_MB_BATCHES = {"128_BIT_FAST": (8,), "128_BIT": (2, 8)}
 #: The batches phase 17's examples give the whole-rotation kernel, by set (the N=512 demo sets of
 #: radix_integers and ciphertext_multiply as N512_DEMO); the Uint and 80/110-bit runs are cases of their own
 EXAMPLE_BATCHES = {
@@ -619,13 +638,16 @@ def phase_kernel_vs_plain(dev) -> dict:
     held.update(by_instance)
     # the instances of the radix phases' batches, of phase 16's (the data-parallel shards of FAST
     # B = 4096 on four shards and on the visible cards, the strict references at B = 8, the dry run's
-    # TEST_TINY shards) and of phase 18's soak, each at the smallest batch that takes it
+    # TEST_TINY shards), of phase 18's soak and of phase 19's benches, each at the smallest batch that
+    # takes it
     tiny = P.TEST_TINY
     tiny_bsk = rnd((tiny.n0, 2 * tiny.trgsw_lv1.l, 2, tiny.n1))
     parallel_fast = (4096 // 4, 4096 // max(1, torch.cuda.device_count()))
     for p, bsk, batches in ((p_radix, radix_bsk, RADIX_BATCHES), (p_nibble, nibble_bsk, NIBBLE_BATCHES),
                             (fast, fast_bsk, parallel_fast), (p_strict, strict_bsk, (8, *SOAK_STRICT_BATCHES)),
                             (p_nibble, nibble_bsk, SOAK_NIBBLE_BATCHES), (tiny, tiny_bsk, (2,)),
+                            (fast, fast_bsk, BENCH_BATCHES[_name(fast)]),
+                            (p_strict, strict_bsk, BENCH_BATCHES[_name(p_strict)]),
                             *((p, bsk, EXAMPLE_BATCHES[_name(p)]) for p, bsk in (
                                 (tiny, tiny_bsk), (demo, demo_bsk), (p_strict, strict_bsk), (fast, fast_bsk),
                                 (p_radix, radix_bsk), (p_nibble, nibble_bsk)))):
@@ -708,8 +730,21 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         (fast, fast_mb, 1024, False),
         (P.TEST_TINY, random_key(P.TEST_TINY), 1, False),  # low_latency_gates at its default set
     ]
+    # the instances of phase 19's sweep (fused_small_mb at B = 8, auto_mb at strict B = 2) that the
+    # cases above do not take, each at the smallest batch that takes it; the cluster check below is
+    # the route's rule for the batches `auto` sends, so it holds the cases above only
+    auto_cases = len(cases)
+    held = {(p.n1, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p)) for p, _, batch, _ in cases}
+    for p, key in ((fast, fast_mb), (strict, strict_mb)):
+        for batch in BENCH_MB_BATCHES[_name(p)]:
+            inst = (p.n1, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p))
+            if inst not in held:
+                held.add(inst)
+                first = next(b for b in range(1, batch + 1)
+                             if (p.n1, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, b, p)) == inst)
+                cases.append((p, key, first, False))
     max_err, rows, tiles = 0, {}, set()
-    for p, key, batch, per_ct in cases:
+    for i, (p, key, batch, per_ct) in enumerate(cases):
         n = p.n1
         tv = rnd((batch, 2, n) if per_ct else (2, n))
         bnd = rotation_bound(p, batch, tv.numel(), multibit=True)
@@ -717,7 +752,8 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         out, tile = launched_tile(cuda_blind_rotate_mb, lambda: blind_rotate_mb_kernel(b_til, a_til, tv, key, p))
         check(tile == (n, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p)),
               f"the multi-bit wrapper launched the planned instance at B={batch}")
-        check((tile[2] > 1) == (batch <= 4), "the batches auto sends take the cluster instance")
+        if i < auto_cases:
+            check((tile[2] > 1) == (batch <= 4), "the batches auto sends take the cluster instance")
         tiles.add(tile)
         name = _name(p)
         if n >= 2048 or batch >= 512:  # the plain version is costly here: one timed call each
@@ -2304,6 +2340,83 @@ def run_soak(dev, label: str, smi: str) -> dict:
     return res
 
 
+#: Phase 19: the suite's main-path cases, and the sweep's routes and batches
+SUITE_SMOKE_CASES = ["keygen_warm", "gate_nand_b1_latency", "gate_nand_b1_latency_mb", "gate_nand_b128",
+                     "gate_nand_b4096", "blind_rotate_b2048", "keyswitch_b2048", "external_product_step_b2048"]
+SWEEP_SMOKE_ROUTES = ("auto", "auto_mb", "fused_small_mb")
+SWEEP_SMOKE_BATCHES = (1, 2, 8)
+#: Phase 19's multi-device harness: 2 shares of the card, DP strong B = 64 and weak 32 a share,
+#: TP against DP at B = 1 and 8 (the J = 2 shards of phase 3c)
+MULTICHIP_SMOKE = {"n_devices": 2, "total_b": 64, "per_dev": 32, "tp_batches": (1, 8)}
+
+
+def load_bench_script(name: str):
+    """A fresh module of scripts/torch/<name>.py under a name of its own
+    (the root bench.py is the JAX bench; its helpers found beside it)."""
+    import importlib.util
+
+    if SOAK_DIR not in sys.path:
+        sys.path.insert(0, SOAK_DIR)
+    spec = importlib.util.spec_from_file_location(f"_torch_bench_{name}", os.path.join(SOAK_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_benches(dev, label: str, smi: str) -> dict:
+    """The measurement entry points (scripts/torch/bench.py, bench_suite.py,
+    bench_latency_sweep.py, bench_multichip.py) in this process, so that the
+    kernels' launch counts see them: bench.py at its defaults (FAST and
+    strict at B = 4096), the suite's main-path cases (SUITE_SMOKE_CASES),
+    the sweep at SWEEP_SMOKE_BATCHES for SWEEP_SMOKE_ROUTES at both sets,
+    and the multi-device harness at MULTICHIP_SMOKE. Fails on a correctness
+    below 1.0, a field or name the JAX scripts' artifacts do not have, or a
+    route that launched another kernel than its own."""
+    from rs_tfhe_tpu_torch.ops.blind_rotate import mb_route_batch_cap
+
+    card = f"({smi})"
+    bench, suite, sweep, multichip = (load_bench_script(n) for n in (
+        "bench", "bench_suite", "bench_latency_sweep", "bench_multichip"))
+    res = {}
+    out = bench.run(dev)
+    line = out["line"]
+    print(f"[{label}] bench line {card}: {json.dumps(line)}")
+    with open(os.path.join(ROOT, "BENCH_r05.json")) as f:
+        check(set(line) == set(json.load(f)["parsed"]), "the bench line has the fields of BENCH_r05.json parsed")
+    for pname, p_res in out["passes"].items():
+        print(f"[{label}] bench {pname}: kernels {p_res['kernels']}")
+        check(p_res["correctness"] == 1.0 and "mb_correct" not in p_res, f"bench {pname}: every gate right")
+        check(set(p_res["kernels"]["batch"]) == {"K1 blind_rotate"}, f"bench {pname}: B=4096 on K1")
+        check(set(p_res["kernels"]["b1_mb"]) == {"K4 blind_rotate_mb"}, f"bench {pname}: multi-bit B=1 on K4")
+    res["bench"] = out
+    rows = suite.run_cases(suite.Suite(dev), SUITE_SMOKE_CASES)
+    for row in rows:
+        print(f"[{label}] suite {json.dumps(row)}")
+    check([r["name"] for r in rows] == SUITE_SMOKE_CASES, "the suite measured every case it was given")
+    check(set(next(r for r in rows if r["name"] == "external_product_step_b2048")["kernels"])
+          == {"K5 external_product"}, "the suite's step case ran on K5")
+    res["suite"] = rows
+    rows = sweep.sweep(dev, sweep.SETS, SWEEP_SMOKE_ROUTES, SWEEP_SMOKE_BATCHES)
+    for row in rows:
+        print(f"[{label}] sweep {json.dumps(row)}")
+        check(row["correctness"] == 1.0, f"sweep {row['params']} B={row['batch']} {row['impl']}: every gate right")
+        mb = row["impl"] == "fused_small_mb" or (
+            row["impl"] == "auto_mb" and row["batch"] <= mb_route_batch_cap(sweep.params_by_name(row["params"])))
+        check(set(row["kernels"]) == {"K4 blind_rotate_mb" if mb else "K1 blind_rotate"},
+              f"sweep {row['params']} B={row['batch']} {row['impl']}: the route's kernel")
+    res["sweep"] = rows
+    scaling = multichip.run(dev, **MULTICHIP_SMOKE)
+    print(f"[{label}] multichip {card}: {json.dumps(scaling)}")
+    points = scaling["dp_strong_scaling"] + scaling["dp_weak_scaling"]
+    check(all(r["correctness"] == 1.0 for r in points), "multichip: every data-parallel point right")
+    check(all(r["dp_correctness"] == 1.0 and r["tp_correctness"] == 1.0 for r in scaling["tp_vs_dp_latency"]),
+          "multichip: every latency point right, tensor parallel included")
+    check(scaling["virtual"] == (torch.cuda.device_count() < 2), "multichip: a mesh of one card is virtual")
+    res["multichip"] = scaling
+    print(f"[{label}] done {elapsed()}")
+    return res
+
+
 #: kernels-line name -> (source, file:line of the TPU kernel it replaces, others it also replaces)
 SOURCES = {
     "blind_rotate": ("rs_tfhe_tpu_torch/csrc/blind_rotate.cu", "rs_tfhe_tpu/ops/pallas_blind_rotate.py:929",
@@ -2426,10 +2539,15 @@ def main() -> int:
     check(paths["soak"]["blind_rotate"] > 0, "the soak launched the whole-rotation kernel")
     check(paths["soak"]["blind_rotate_mb"] > 0, "the multi-bit soak and the noise measurement launched the "
                                                 "multi-bit kernel")
-    print(f"[5-18] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+    results["benches"], paths["benches"] = drive("19", run_benches, dev, "19", smi)
+    check(paths["benches"]["blind_rotate"] > 0, "the benches launched the whole-rotation kernel")
+    check(paths["benches"]["blind_rotate_mb"] > 0, "the benches launched the multi-bit kernel")
+    check(paths["benches"]["external_product"] > 0, "the suite's step case and the TP points launched the step "
+                                                    "kernel")
+    print(f"[5-19] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"total {elapsed()}")
     shapes_compared = {tuple(t) for t in compare["nussbaumer_dot"]["shapes_compared"]}
-    print(f"[5-18] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
+    print(f"[5-19] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
           f"version in phase 3e: {tile_list(shapes_compared)}")
     check(not path_dot_shapes - shapes_compared,
           f"every shape of the Nussbaumer dot the paths launched was held against the plain version "
@@ -2437,7 +2555,7 @@ def main() -> int:
     for name in modules:
         compared = {tuple(t) for t in compare[name]["tiles_compared"]}
         missing = path_tiles[name] - compared
-        print(f"[5-18] {name}: instances on the paths {tile_list(path_tiles[name])}, "
+        print(f"[5-19] {name}: instances on the paths {tile_list(path_tiles[name])}, "
               f"held against the plain version in phase 3: {tile_list(compared)}")
         check(not missing, f"every {name} instantiation the paths launched was held against the plain "
                            f"version (missing: {tile_list(missing)})")

@@ -12,7 +12,8 @@ Environment override: RS_TFHE_STEP_IMPL (read once, at import, as
                        (csrc/blind_rotate_mb.cu); on a CPU tensor the plain
                        PyTorch versions of the same;
   - "fused_small_mb" — forces the multi-bit rotation at every batch, as in
-                       the JAX package; raises if the key has no `bsk_mb`;
+                       the JAX package; a key without `bsk_mb` takes the
+                       standard rotation, as under "auto";
   - "pallas"         — the per-step route: per CMUX step, rotate and
                        decompose in PyTorch, then one external-product kernel
                        launch (csrc/external_product.cu) on the card, the

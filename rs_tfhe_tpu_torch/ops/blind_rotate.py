@@ -22,7 +22,9 @@ its input, as rs_tfhe_tpu/ops/blind_rotate.py:242-249 does:
     to `mb_route_batch_cap(params)` ciphertexts: the multi-bit kernel
     (ops/cuda_blind_rotate_mb.py) on CUDA, `blind_rotate_mb_plain` on the
     CPU. The two rotations compute different ciphertexts, so the cap decides
-    which function a batch gets and is kept as the JAX package has it;
+    which function a batch gets and is kept as the JAX package has it.
+    Without a multi-bit key "fused_small_mb" takes the standard rotation
+    below, as the JAX package's call falls through to its CMUX scan;
   - "pallas": the per-step route, one external-product kernel launch per
     step (ops/cuda_step.py) on CUDA, the plain product on the CPU; it
     ignores a multi-bit key, as the JAX package does;
@@ -164,8 +166,6 @@ def blind_rotate(
         raise ValueError(f"blind_rotate: no implementation for device {ct.device}")
     on_card = ct.device.type == "cuda"
     b_til, a_til = rotation_exponents(ct, params)
-    if impl == "fused_small_mb" and bsk_mb is None:
-        raise ValueError("step_impl='fused_small_mb' needs a multi-bit key (bsk_mb)")
     if bsk_mb is not None and (
         impl == "fused_small_mb" or (impl == "auto" and ct.shape[0] <= mb_route_batch_cap(params))
     ):

@@ -482,6 +482,32 @@ def test_routes_launch_their_kernels_and_count(dev):
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
 
 
+def test_fused_small_mb_without_multibit_key_launches_the_whole_rotation(dev):
+    """step_impl="fused_small_mb" with no multi-bit key takes the standard
+    rotation, as the JAX package falls through to its CMUX scan: K1 once,
+    K4 never, equal to the plain version; with a multi-bit key the same
+    batch still takes K4."""
+    p = P.TEST_TINY
+    _, _, tv, bsk_mb = _mb_inputs(dev, p, 8, False, seed=62)
+    _, _, _, bsk = _inputs(dev, p, 8, False, seed=63)
+    ct = torch.randint(-(1 << 31), 1 << 31, (8, p.n0 + 1), dtype=torch.int32, device=dev)
+    b_til, a_til = BR.rotation_exponents(ct, p)
+    saved = PC.config.step_impl
+    PC.config.step_impl = "fused_small_mb"
+    try:
+        before = CBR.launches, CMB.launches
+        out = BR.blind_rotate(ct, tv, bsk, p)
+        torch.cuda.synchronize()
+        assert (CBR.launches, CMB.launches) == (before[0] + 1, before[1])
+        out_mb = BR.blind_rotate(ct, tv, bsk, p, bsk_mb=bsk_mb)
+        torch.cuda.synchronize()
+        assert (CBR.launches, CMB.launches) == (before[0] + 1, before[1] + 1)
+    finally:
+        PC.config.step_impl = saved
+    assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
+    assert torch.equal(out_mb, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, p))
+
+
 def test_xla_route_runs_the_plain_rotation_on_the_card(dev):
     """step_impl="xla" runs blind_rotate_plain on a CUDA tensor, with a
     standard and with a multi-bit key at a batch "auto" sends to the

@@ -25,7 +25,9 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import rs_tfhe_tpu.params as JP  # noqa: E402
+from rs_tfhe_tpu import bootstrap as JBS  # noqa: E402
 from rs_tfhe_tpu import gates as JGa  # noqa: E402
+from rs_tfhe_tpu.config import config as JCONFIG  # noqa: E402
 from rs_tfhe_tpu import tlwe as JT  # noqa: E402
 from rs_tfhe_tpu.key import CloudKey as JCloudKey  # noqa: E402
 from rs_tfhe_tpu.key import SecretKey as JSecretKey  # noqa: E402
@@ -36,6 +38,7 @@ from rs_tfhe_tpu.ops.pallas_blind_rotate import (  # noqa: E402
     mb_rows_per_pattern,
     prepare_bsk_mb_vecs,
 )
+from rs_tfhe_tpu_torch import bootstrap as PBS  # noqa: E402
 from rs_tfhe_tpu_torch import config as PC  # noqa: E402
 from rs_tfhe_tpu_torch import gates as PGa  # noqa: E402
 from rs_tfhe_tpu_torch import key as PK  # noqa: E402
@@ -129,7 +132,8 @@ def test_blind_rotate_routes_by_batch_and_step_impl(impl):
     (rs_tfhe_tpu/ops/blind_rotate.py:242-249): under "auto" the multi-bit
     rotation up to `mb_route_batch_cap` (4 at TEST_TINY, L=3) and the
     standard one above it; "fused_small_mb" forces the multi-bit rotation at
-    every batch and refuses a key without `bsk_mb`; "pallas" and a key
+    every batch and, given a key without `bsk_mb`, takes the standard one, as
+    the JAX package falls through to its CMUX scan; "pallas" and a key
     without `bsk_mb` take the standard rotation."""
     assert PBR.mb_route_batch_cap(PTINY) == 4
     rng = np.random.default_rng(50)
@@ -151,8 +155,7 @@ def test_blind_rotate_routes_by_batch_and_step_impl(impl):
     assert torch.equal(PBR.blind_rotate(ct[:1], tv, bsk, PTINY, bsk_mb=bsk_mb), std[:1])
     impl("fused_small_mb")
     assert torch.equal(PBR.blind_rotate(ct, tv, bsk, PTINY, bsk_mb=bsk_mb), mb)
-    with pytest.raises(ValueError, match="multi-bit key"):
-        PBR.blind_rotate(ct, tv, bsk, PTINY)
+    assert torch.equal(PBR.blind_rotate(ct, tv, bsk, PTINY), std)
 
 
 def test_mb_kernel_plan_small_batches():
@@ -259,6 +262,41 @@ def test_mb_mux_matches_jax_with_carried_key(jax_mb):
     out = PGa.mux(*(to_torch(np.asarray(c), "cpu") for c in jc), pck)
     np.testing.assert_array_equal(to_numpy(out), np.asarray(JGa.mux(*jc, jck)))
     np.testing.assert_array_equal(PT.lwe_decrypt_bool(out, psk.lv0).numpy(), np.where(bits[0], bits[1], bits[2]))
+
+
+@pytest.fixture
+def both_fused_small_mb():
+    """step_impl="fused_small_mb" in both packages for one test."""
+    saved = PC.config.step_impl, JCONFIG.step_impl
+    PC.config.step_impl = JCONFIG.step_impl = "fused_small_mb"
+    yield
+    PC.config.step_impl, JCONFIG.step_impl = saved
+
+
+def test_fused_small_mb_without_multibit_key_matches_jax(jax_mb, both_fused_small_mb):
+    """Under "fused_small_mb" a call with no multi-bit key takes the
+    standard rotation in both packages (rs_tfhe_tpu/ops/blind_rotate.py:
+    242-249 falls through to the CMUX scan): NAND with a standard key, and
+    `bootstrap_with_testvec(allow_mb=False)` with a multi-bit key, each
+    bit-equal to JAX and to the standard rotation under "auto"."""
+    jsk, jck_mb, psk, pck_mb = jax_mb
+    jck = JCloudKey.generate(jax.random.key(62), jsk)
+    pck = PK.cloud_key_from_numpy({"testvec": np.asarray(jck.testvec), "bsk": np.asarray(jck.bsk),
+                                   "ksk_limbs": np.asarray(jck.ksk_limbs)}, PTINY, "cpu")
+    keys = jax.random.split(jax.random.key(66), 2)
+    ja = JT.lwe_encrypt_bool(keys[0], jsk.lv0, jnp.asarray(A[:2]), TINY.tlwe_lv0.alpha)
+    jb = JT.lwe_encrypt_bool(keys[1], jsk.lv0, jnp.asarray(B[:2]), TINY.tlwe_lv0.alpha)
+    pa, pb = to_torch(np.asarray(ja), "cpu"), to_torch(np.asarray(jb), "cpu")
+    out = PGa.nand(pa, pb, pck)
+    np.testing.assert_array_equal(to_numpy(out), np.asarray(JGa.nand(ja, jb, jck)))
+    np.testing.assert_array_equal(PT.lwe_decrypt_bool(out, psk.lv0).numpy(), ~(A[:2] & B[:2]))
+    lut = np.random.default_rng(67).integers(0, 1 << 32, (2, PTINY.n1), dtype=np.uint32)
+    ref = np.asarray(JBS.bootstrap_with_testvec(ja, jnp.asarray(lut), jck_mb, allow_mb=False))
+    got = PBS.bootstrap_with_testvec(pa, to_torch(lut, "cpu"), pck_mb, allow_mb=False)
+    np.testing.assert_array_equal(to_numpy(got), ref)
+    PC.config.step_impl = "auto"
+    assert torch.equal(PGa.nand(pa, pb, pck), out)
+    assert torch.equal(PBS.bootstrap_with_testvec(pa, to_torch(lut, "cpu"), pck_mb, allow_mb=False), got)
 
 
 @pytest.fixture(scope="module")

@@ -214,8 +214,21 @@ the last line):
      otherwise) and the multi-device harness on 2 virtual shares of the card
      (MULTICHIP_SMOKE), every point decrypted. Phases 3a and 3b hold the
      instances of the batches these give the rotation kernels
-     (BENCH_BATCHES, BENCH_MB_BATCHES).
-Each path of phases 5-19 is driven with the kernels' launch counts set to 0
+     (BENCH_BATCHES, BENCH_MB_BATCHES);
+ 20. the last two JAX entry points' counterparts (scripts/torch/), in this
+     process: tpu_validation in full at the production sets (strict,
+     UINT4, RADIX, NIBBLE; every check must pass, the tripwire's
+     counterpart on P1's s16 unit and the multi-bit noise stage among them,
+     and every entry of tests/vectors/golden_production_torch.npz must
+     verify), then its gate, MUX and PBS outputs recomputed under
+     step_impl="xla" and its first multi-bit rotations through
+     blind_rotate_mb_plain, bit for bit; and diag_gate_latency's four chains
+     (rotation, +extract, +key switch, the NAND) at FAST and strict, B = 1,
+     2 and 4 with a standard key and B = 1 and 2 with a multi-bit key, in
+     host-clock and device ms (CUDA events, the chain queued behind a spin
+     kernel). Phases 3a and 3b hold their instances (VALIDATION_BATCHES,
+     VALIDATION_MB_BATCHES).
+Each path of phases 5-20 is driven with the kernels' launch counts set to 0
 just before it and read just after; every kernel of a path must have
 launched, and every instance a path launched (the whole key: ring size,
 tile, cluster, unit, and the step kernel's gadget row count J) and every
@@ -266,6 +279,17 @@ SOAK_NIBBLE_BATCHES = (4, 8, 256, 512)
 #: multi-bit kernel (the sweep's fused_small_mb at FAST and strict B = 8, auto_mb at strict B = 2)
 BENCH_BATCHES = {"128_BIT_FAST": (2048,), "128_BIT": (1, 2)}
 BENCH_MB_BATCHES = {"128_BIT_FAST": (8,), "128_BIT": (2, 8)}
+#: The batches phase 20 gives the whole-rotation kernel, by set: scripts/torch/tpu_validation.py's
+#: stages (strict: the gates and MUX at 64, the LUT at 8, Kogge-Stone at 16, 8, 2 and 1, the netlist's
+#: groups of 1 and 2, the radix add; UINT4 16; RADIX 512 and 256; NIBBLE the adds' 512 and 256, the
+#: product's 1024, 256, 64 and 32), as a run on the CPU at tiny sets records them (a batch follows the
+#: trials and digits, not the set), and the diag's standard-key chains at B = 1, 2 and 4; and those it
+#: gives the multi-bit kernel (the multi-bit NAND and the noise stage at strict B = 2, the diag's
+#: multi-bit chains at B = 1 and 2)
+VALIDATION_BATCHES = {"128_BIT": (1, 2, 4, 8, 16, 64), "128_BIT_FAST": (1, 2, 4), "UINT4": (16,),
+                      "128_BIT_RADIX": (256, 512), "128_BIT_NIBBLE": (32, 64, 256, 512, 1024)}
+VALIDATION_MB_BATCHES = {"128_BIT": (1, 2), "128_BIT_FAST": (1, 2)}
+DIAG_BATCHES, DIAG_MB_BATCHES = (1, 2, 4), (1, 2)
 #: The batches phase 17's examples give the whole-rotation kernel, by set (the N=512 demo sets of
 #: radix_integers and ciphertext_multiply as N512_DEMO); the Uint and 80/110-bit runs are cases of their own
 EXAMPLE_BATCHES = {
@@ -638,8 +662,8 @@ def phase_kernel_vs_plain(dev) -> dict:
     held.update(by_instance)
     # the instances of the radix phases' batches, of phase 16's (the data-parallel shards of FAST
     # B = 4096 on four shards and on the visible cards, the strict references at B = 8, the dry run's
-    # TEST_TINY shards), of phase 18's soak and of phase 19's benches, each at the smallest batch that
-    # takes it
+    # TEST_TINY shards), of phase 18's soak, of phase 19's benches and of phase 20's validation and
+    # diag, each at the smallest batch that takes it
     tiny = P.TEST_TINY
     tiny_bsk = rnd((tiny.n0, 2 * tiny.trgsw_lv1.l, 2, tiny.n1))
     parallel_fast = (4096 // 4, 4096 // max(1, torch.cuda.device_count()))
@@ -648,6 +672,9 @@ def phase_kernel_vs_plain(dev) -> dict:
                             (p_nibble, nibble_bsk, SOAK_NIBBLE_BATCHES), (tiny, tiny_bsk, (2,)),
                             (fast, fast_bsk, BENCH_BATCHES[_name(fast)]),
                             (p_strict, strict_bsk, BENCH_BATCHES[_name(p_strict)]),
+                            *((p, bsk, VALIDATION_BATCHES[_name(p)]) for p, bsk in (
+                                (p_strict, strict_bsk), (fast, fast_bsk), (p_uint4, uint4_bsk),
+                                (p_radix, radix_bsk), (p_nibble, nibble_bsk))),
                             *((p, bsk, EXAMPLE_BATCHES[_name(p)]) for p, bsk in (
                                 (tiny, tiny_bsk), (demo, demo_bsk), (p_strict, strict_bsk), (fast, fast_bsk),
                                 (p_radix, radix_bsk), (p_nibble, nibble_bsk)))):
@@ -730,13 +757,13 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         (fast, fast_mb, 1024, False),
         (P.TEST_TINY, random_key(P.TEST_TINY), 1, False),  # low_latency_gates at its default set
     ]
-    # the instances of phase 19's sweep (fused_small_mb at B = 8, auto_mb at strict B = 2) that the
-    # cases above do not take, each at the smallest batch that takes it; the cluster check below is
+    # the instances of phase 19's sweep (fused_small_mb at B = 8, auto_mb at strict B = 2) and of
+    # phase 20 (VALIDATION_MB_BATCHES) that the cases above do not take, each at the smallest batch that takes it; the cluster check below is
     # the route's rule for the batches `auto` sends, so it holds the cases above only
     auto_cases = len(cases)
     held = {(p.n1, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p)) for p, _, batch, _ in cases}
     for p, key in ((fast, fast_mb), (strict, strict_mb)):
-        for batch in BENCH_MB_BATCHES[_name(p)]:
+        for batch in (*BENCH_MB_BATCHES[_name(p)], *VALIDATION_MB_BATCHES[_name(p)]):
             inst = (p.n1, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p))
             if inst not in held:
                 held.add(inst)
@@ -2302,7 +2329,7 @@ def run_examples(label: str, smi: str) -> dict:
 SOAK_DIR = os.path.join(ROOT, "scripts", "torch")
 #: Phase 18's short soak: the target of each phase of scripts/torch/soak.py (gates; adds at NIBBLE),
 #: whole dispatches of 8 layers (32,768 gates at B = 4096, 16 at B = 2) or of 256 adds
-SOAK_SMOKE_TARGETS = {"fast": 200_000, "strict": 65_000, "nibble": 256, "fast_mb": 2_000}
+SOAK_SMOKE_TARGETS = {"fast": 65_536, "strict": 32_768, "nibble": 256, "fast_mb": 2_000}
 
 
 def run_soak(dev, label: str, smi: str) -> dict:
@@ -2415,6 +2442,101 @@ def run_benches(dev, label: str, smi: str) -> dict:
     res["multichip"] = scaling
     print(f"[{label}] done {elapsed()}")
     return res
+
+
+#: Phase 20: the multi-bit rotations of the validation replayed through the plain version (the
+#: multi-bit NAND's, then some of the noise stage's; each ~0.26 s of plain rotation at strict B = 2)
+VALIDATION_MB_REPLAYS = 4
+
+
+def run_validation(dev, label: str, smi: str) -> dict:
+    """scripts/torch/tpu_validation.py in this process, in full, at the
+    production sets: every check must pass, every golden entry of
+    tests/vectors/golden_production_torch.npz among them. Then the card's
+    cross-route check: the gate, MUX and PBS stages recomputed under
+    step_impl="xla" (the plain rotation on the card, the --cpu path's
+    arithmetic), and the first multi-bit rotations it ran held against
+    blind_rotate_mb_plain on their own inputs; all bit for bit."""
+    from rs_tfhe_tpu_torch.ops.blind_rotate import blind_rotate_mb_plain
+
+    val = load_bench_script("tpu_validation")
+    import soak
+
+    card = f"({smi})"
+    t0 = time.perf_counter()
+    v = val.Validation(dev)
+    with soak.recorded_mb_rotations(dev) as mb_calls:
+        try:
+            v.run()
+        except SystemExit as err:
+            check(False, f"tpu_validation: {err}")
+    wall = time.perf_counter() - t0
+    with np.load(val.GOLDEN) as z:
+        golden = sorted(z.files)
+    print(f"[{label}] tpu_validation: {len(v.passed)} checks passed in {wall:.1f} s {card}; stage seconds "
+          + ", ".join(f"{k} {s:.2f}" for k, s in v.stage_s.items()))
+    check(len(golden) == 9 and [f"golden[{n}]" for n in golden] == sorted(n for n in v.passed
+                                                                        if n.startswith("golden[")),
+          "tpu_validation verified every golden entry")
+    check(any("s16 dot" in n for n in v.passed) and any("noise" in n for n in v.passed),
+          "tpu_validation ran the card-only checks (the tripwire's counterpart, the multi-bit noise)")
+    t1 = time.perf_counter()
+    with soak.route("xla"):
+        for name, fn, out in v.replays:
+            check(torch.equal(fn(), out), f"tpu_validation '{name}' under step_impl='xla' equals its output")
+    torch.cuda.synchronize()
+    xla_s = time.perf_counter() - t1
+    check(len(mb_calls) > VALIDATION_MB_REPLAYS, "tpu_validation ran the multi-bit kernel")
+    for args, out in mb_calls[:VALIDATION_MB_REPLAYS]:
+        check(torch.equal(blind_rotate_mb_plain(*args), out),
+              "tpu_validation's multi-bit rotation equals blind_rotate_mb_plain on its inputs")
+    print(f"[{label}] replays equal bit for bit: {len(v.replays)} stage outputs under step_impl='xla' "
+          f"({xla_s:.1f} s), {VALIDATION_MB_REPLAYS} of {len(mb_calls)} multi-bit rotations through "
+          f"blind_rotate_mb_plain {elapsed()}")
+    return {"checks": len(v.passed), "wall_s": wall, "stage_s": v.stage_s, "golden": golden,
+            "xla_replays": len(v.replays), "xla_s": xla_s, "mb_replays": VALIDATION_MB_REPLAYS}
+
+
+def run_diag(dev, label: str, smi: str) -> dict:
+    """scripts/torch/diag_gate_latency.py's four chains (rotation, +extract,
+    +key switch, the NAND) at FAST and strict with a standard key at
+    DIAG_BATCHES and a multi-bit key at DIAG_MB_BATCHES (the multi-bit
+    kernel): host-clock ms a call as the script times them, and device ms
+    by CUDA events with the chain queued behind a spin kernel. The split
+    answers where a small-batch gate's time goes; device ms must not fall
+    along the chain beyond the spread of a device-bound time (3%)."""
+    from rs_tfhe_tpu_torch import params as P
+
+    diag = load_bench_script("diag_gate_latency")
+    card = f"({smi})"
+    rows, kernels = [], {}
+    for p in (P.SECURITY_128_BIT_FAST, P.SECURITY_128_BIT):
+        for multibit, batches in ((False, DIAG_BATCHES), (True, DIAG_MB_BATCHES)):
+            sk, ck = diag.keys(p, dev, multibit=multibit)
+            # the rotation, extraction and key switch of one B=1 call by kernel (torch.profiler, a
+            # chain of 5 over 5)
+            a, b = diag.inputs(sk, 1)
+            split = {k: v / 5 for k, v in _profile_split(lambda: diag.full_bs(a, b, ck, 5)).items()}
+            kernels[f"{_name(p)} {'multibit' if multibit else 'standard'}"] = split
+            print(f"[{label}] diag {_name(p)} {'multibit' if multibit else 'standard'} B=1 rot+ext+ks by kernel, "
+                  f"device ms a call (profiler): {json.dumps({k: round(v, 4) for k, v in split.items()})}")
+            for batch in batches:
+                _, d = diag.measure(batch, sk, ck, events=True)
+                row = {"params": _name(p), "key": "multibit" if multibit else "standard", **d}
+                rows.append(row)
+                host = [d[s + "_ms"] for s in diag.STAGES]
+                devc = [d[s + "_device_ms"] for s in diag.STAGES]
+                print(f"[{label}] diag {row['params']} {row['key']} B={batch}: ms a call host / device: "
+                      + ", ".join(f"{s} {h:.3f} / {e:.3f}" for s, h, e in zip(diag.STAGES, host, devc))
+                      + f"; split (host / device): extract {host[1] - host[0]:.3f} / {devc[1] - devc[0]:.3f}, "
+                        f"key switch {host[2] - host[1]:.3f} / {devc[2] - devc[1]:.3f}, linear form and host "
+                        f"{host[3] - host[2]:.3f} / {devc[3] - devc[2]:.3f} {card}")
+                check(all(d[s + "_queued"] for s in diag.STAGES),
+                      f"diag {row['params']} B={batch}: each chain was queued before the card reached it")
+                check(all(b >= 0.97 * a for a, b in zip(devc, devc[1:])),
+                      f"diag {row['params']} {row['key']} B={batch}: device ms rot <= +ext <= +ks <= nand")
+    print(f"[{label}] done {elapsed()}")
+    return {"rows": rows, "b1_kernels": kernels}
 
 
 #: kernels-line name -> (source, file:line of the TPU kernel it replaces, others it also replaces)
@@ -2544,10 +2666,18 @@ def main() -> int:
     check(paths["benches"]["blind_rotate_mb"] > 0, "the benches launched the multi-bit kernel")
     check(paths["benches"]["external_product"] > 0, "the suite's step case and the TP points launched the step "
                                                     "kernel")
-    print(f"[5-19] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+    results["validation"], paths["validation"] = drive("20", run_validation, dev, "20", smi)
+    check(paths["validation"]["blind_rotate"] > 0, "the validation launched the whole-rotation kernel")
+    check(paths["validation"]["blind_rotate_mb"] > 0, "the validation's multi-bit stages launched the multi-bit "
+                                                      "kernel")
+    check(paths["validation"]["probe_dot"] > 0, "the tripwire's counterpart launched P1's s16 unit")
+    results["diag"], paths["diag"] = drive("20", run_diag, dev, "20", smi)
+    check(paths["diag"]["blind_rotate"] > 0, "the diag's standard-key chains launched the whole-rotation kernel")
+    check(paths["diag"]["blind_rotate_mb"] > 0, "the diag's multi-bit chains launched the multi-bit kernel")
+    print(f"[5-20] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
           f"total {elapsed()}")
     shapes_compared = {tuple(t) for t in compare["nussbaumer_dot"]["shapes_compared"]}
-    print(f"[5-19] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
+    print(f"[5-20] nussbaumer_dot (B, K, M) on the paths {tile_list(path_dot_shapes)}, held against the plain "
           f"version in phase 3e: {tile_list(shapes_compared)}")
     check(not path_dot_shapes - shapes_compared,
           f"every shape of the Nussbaumer dot the paths launched was held against the plain version "
@@ -2555,7 +2685,7 @@ def main() -> int:
     for name in modules:
         compared = {tuple(t) for t in compare[name]["tiles_compared"]}
         missing = path_tiles[name] - compared
-        print(f"[5-19] {name}: instances on the paths {tile_list(path_tiles[name])}, "
+        print(f"[5-20] {name}: instances on the paths {tile_list(path_tiles[name])}, "
               f"held against the plain version in phase 3: {tile_list(compared)}")
         check(not missing, f"every {name} instantiation the paths launched was held against the plain "
                            f"version (missing: {tile_list(missing)})")

@@ -1,0 +1,3 @@
+"""Per-layer metric `device.idle_share.layers` (see readers.idle_share)."""
+
+from tfhe_bench.readers import idle_share as read  # noqa: F401

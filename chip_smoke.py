@@ -1626,24 +1626,6 @@ def run_probe_scripts(dev) -> dict:
     return rates
 
 
-def _profile_idle(fn) -> dict:
-    """Device busy time and idle share over one fn() call (torch.profiler):
-    the sum of the kernels' and copies' durations against the span from the
-    first one's start to the last one's end."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(spans), "the profiler traced device activity")
-    busy_us = sum(end - start for start, end in spans)
-    span_us = max(end for _, end in spans) - min(start for start, _ in spans)
-    return {"device_busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3, "idle_share": 1.0 - busy_us / span_us,
-            "device_activities": len(spans)}
-
-
 def run_circuits(p, dev, label: str, multibit: bool) -> dict:
     """Boolean circuits at full width: the 32-bit ripple-carry adder through
     the netlist evaluator and its compiled form, a batch of Kogge-Stone
@@ -1683,10 +1665,6 @@ def run_circuits(p, dev, label: str, multibit: bool) -> dict:
     out = {"adder32_groups": len(plan.groups), "adder32_bootstrapped_groups": len(boot),
            "adder32_bootstrapped_gates": sum(boot), "adder32_evaluate_s": eval_s, "adder32_compiled_s": run_s,
            "adder32_compiled_enqueue_s": enqueue_s, "adder32_gates_per_s": sum(boot) / run_s}
-    if multibit:  # the shorter of the two compiled runs carries the profile
-        idle = _profile_idle(lambda: run(inputs, ck))
-        print(f"[{label}] one compiled adder run under torch.profiler: {json.dumps(idle)}")
-        out["adder32_compiled_profile"] = idle
 
     def enc_batch(vals, width):
         return torch.stack([bit_utils.encrypt_uint(g, sk.lv0, int(v), width, alpha) for v in vals])

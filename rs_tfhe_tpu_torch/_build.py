@@ -46,6 +46,10 @@ _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
+#: Builds in this process that ran nvcc (a library already built for these
+#: sources is loaded without one).
+nvcc_builds = 0
+
 
 def find_nvcc() -> str:
     """The CUDA compiler: $CUDA_HOME/bin/nvcc, then `nvcc` on PATH, then
@@ -93,10 +97,12 @@ def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
     The compilers' output (with ptxas' register and shared-memory report) is
     kept beside the library as build.log."""
+    global nvcc_builds
     path = library_path()
     if path.exists():
         return path
     nvcc = find_nvcc()
+    nvcc_builds += 1
     path.parent.mkdir(parents=True, exist_ok=True)
     log = path.parent / "build.log"
     log.write_text("")

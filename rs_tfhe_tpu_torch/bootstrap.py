@@ -17,6 +17,11 @@ from .ops.extract import sample_extract
 from .ops.keyswitch import identity_key_switch
 from .utils.noise import mb_lut_route_ok
 
+#: Lookup tables `LutBootstrap.bootstrap_func` built in this process (its
+#: cache's misses): one a (function, modulus, set, device) while the cache
+#: holds it.
+tables_built = 0
+
 
 def _rotate_extract(ct: torch.Tensor, testvec: torch.Tensor, ck: CloudKey, bsk_mb) -> torch.Tensor:
     """Blind rotate + extract over any leading batch shape:
@@ -105,9 +110,11 @@ class LutBootstrap:
         self._lut_cache: dict = {}
 
     def bootstrap_func(self, ct, f, message_modulus: int, ck: CloudKey):
+        global tables_built
         key = (f, message_modulus, ck.params, ck.testvec.device)
         lut = self._lut_cache.get(key)
         if lut is None:
+            tables_built += 1
             poly = Generator(message_modulus, ck.params).generate_lookup_table(f).poly
             lut = LookupTable(poly.to(ck.testvec.device))
             if len(self._lut_cache) >= self._LUT_CACHE_MAX:

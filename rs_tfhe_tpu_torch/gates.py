@@ -16,6 +16,7 @@ from .key import CloudKey
 from .ops.keyswitch import identity_key_switch
 from .tlwe import lwe_add_bias as _biased
 from .torus import f64_to_torus, i32, neg_torus, resolve_device
+from .utils.profiling import span
 
 _BIAS_1_8 = i32(int(f64_to_torus(0.125)))
 _BIAS_M1_8 = i32(int(f64_to_torus(-0.125)))
@@ -86,7 +87,8 @@ _LINEAR_FORMS = {
 def batch_gate(name: str, a: torch.Tensor, b: torch.Tensor, ck: CloudKey) -> torch.Tensor:
     """Evaluate one two-input gate over a whole batch with a single bootstrap
     (the analogue of the reference's batch_nand/batch_and/..., gates.rs:352-547)."""
-    return bs.bootstrap(_LINEAR_FORMS[name](a, b), ck)
+    with span("tfhe.gate"):
+        return bs.bootstrap(_LINEAR_FORMS[name](a, b), ck)
 
 
 def nand(a, b, ck):
@@ -136,9 +138,10 @@ def mux(a, b, c, ck):
     u2 = BS(!a and c) are fresh +/-1/8 lv1 encryptions, so u1 + u2 + 1/8
     decides OR by sign without a third bootstrap; one key switch returns to lv0.
     """
-    u1 = bs.bootstrap_without_key_switch(_and_lin(a, b), ck)
-    u2 = bs.bootstrap_without_key_switch(_and_lin(neg_torus(a), c), ck)
-    return identity_key_switch(_biased(u1 + u2, _BIAS_1_8), ck.ksk_limbs, ck.params)
+    with span("tfhe.gate"):
+        u1 = bs.bootstrap_without_key_switch(_and_lin(a, b), ck)
+        u2 = bs.bootstrap_without_key_switch(_and_lin(neg_torus(a), c), ck)
+        return identity_key_switch(_biased(u1 + u2, _BIAS_1_8), ck.ksk_limbs, ck.params)
 
 
 def mux_naive(a, b, c, ck):

@@ -24,6 +24,12 @@ import torch
 
 from .. import gates as G
 from ..key import CloudKey
+from ..utils.profiling import span
+
+#: Moves of a compiled plan's index tensors to a device in this process: one
+#: a compiled circuit and device (`evaluate` makes them on every call and is
+#: not counted).
+index_placements = 0
 
 #: op name -> (code, arity). Codes must match csrc/circuit_scheduler.cpp.
 OPS = {
@@ -197,16 +203,17 @@ def _run_group(wires: torch.Tensor, opname: str, ai, bi, ci, outi, ck: CloudKey)
     """One plan group: gather the operand rows, one batched gate, scatter
     the results into `wires` in place. The indices are int64 tensors on
     `wires`' device; NOT/COPY are bootstrap-free."""
-    av = wires[ai]
-    if opname == "not":
-        res = G.not_(av)
-    elif opname == "copy":
-        res = G.copy(av)
-    elif opname == "mux":
-        res = G.mux(av, wires[bi], wires[ci], ck)
-    else:
-        res = G.batch_gate(opname, av, wires[bi], ck)
-    wires[outi] = res
+    with span("tfhe.netlist.group"):
+        av = wires[ai]
+        if opname == "not":
+            res = G.not_(av)
+        elif opname == "copy":
+            res = G.copy(av)
+        elif opname == "mux":
+            res = G.mux(av, wires[bi], wires[ci], ck)
+        else:
+            res = G.batch_gate(opname, av, wires[bi], ck)
+        wires[outi] = res
 
 
 def _group_indices(circuit: Circuit, the_plan: Plan, device) -> list:
@@ -238,11 +245,12 @@ def evaluate(
     gathered rows. The plan and its index tensors are made on every call;
     `compile_circuit` makes them once.
     """
-    pl_ = the_plan if the_plan is not None else plan(circuit)
-    wires = _new_wires(circuit, inputs)
-    for group in _group_indices(circuit, pl_, inputs.device):
-        _run_group(wires, *group, ck)
-    return wires
+    with span("tfhe.netlist.run"):
+        pl_ = the_plan if the_plan is not None else plan(circuit)
+        wires = _new_wires(circuit, inputs)
+        for group in _group_indices(circuit, pl_, inputs.device):
+            _run_group(wires, *group, ck)
+        return wires
 
 
 def compile_circuit(circuit: Circuit, the_plan: Plan | None = None):
@@ -259,16 +267,19 @@ def compile_circuit(circuit: Circuit, the_plan: Plan | None = None):
     per_device: dict = {}
 
     def run(inputs: torch.Tensor, ck: CloudKey) -> torch.Tensor:
+        global index_placements
         device = ck.testvec.device
         if inputs.device != device:
             raise ValueError(f"inputs on {inputs.device}, key on {device}")
-        groups = per_device.get(device)
-        if groups is None:
-            groups = per_device[device] = _group_indices(circuit, pl_, device)
-        wires = _new_wires(circuit, inputs)
-        for group in groups:
-            _run_group(wires, *group, ck)
-        return wires
+        with span("tfhe.netlist.run"):
+            groups = per_device.get(device)
+            if groups is None:
+                index_placements += 1
+                groups = per_device[device] = _group_indices(circuit, pl_, device)
+            wires = _new_wires(circuit, inputs)
+            for group in groups:
+                _run_group(wires, *group, ck)
+            return wires
 
     return run
 

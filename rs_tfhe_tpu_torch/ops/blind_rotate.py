@@ -41,10 +41,17 @@ its input, as rs_tfhe_tpu/ops/blind_rotate.py:242-249 does:
     CUDA, `blind_rotate_plain` on the CPU.
 
 Nothing falls back from a kernel to a plain version.
+
+Each call counts its route's decision (`route_calls`, `route_ciphertexts`)
+and runs inside the span `tfhe.rotate.<route>`, the exponents included:
+"k4" (the multi-bit kernel), "plain_mb" (its plain version), "step"
+("pallas"), "nussbaumer", "k1" (the whole-rotation kernel) and "plain"
+(`blind_rotate_plain`).
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -52,9 +59,19 @@ import torch
 from ..config import step_impl
 from ..params import TORUS_BITS, TfheParams
 from ..torus import logical_rshift
+from ..utils.profiling import span
 from . import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_step, nussbaumer
 from .decompose import gadget_decompose
 from .poly import monomial_rotate, polymul_small_by_torus
+
+#: The routes of `blind_rotate`, as its counters and spans name them.
+ROUTES = ("k4", "plain_mb", "step", "nussbaumer", "k1", "plain")
+_SPANS = {route: f"tfhe.rotate.{route}" for route in ROUTES}
+
+#: Calls of `blind_rotate` by route in this process, and the ciphertexts
+#: they rotated.
+route_calls: collections.Counter = collections.Counter()
+route_ciphertexts: collections.Counter = collections.Counter()
 
 
 def modswitch(x: torch.Tensor, params: TfheParams) -> torch.Tensor:
@@ -165,24 +182,34 @@ def blind_rotate(
     if ct.device.type not in ("cuda", "cpu"):
         raise ValueError(f"blind_rotate: no implementation for device {ct.device}")
     on_card = ct.device.type == "cuda"
-    b_til, a_til = rotation_exponents(ct, params)
     if bsk_mb is not None and (
         impl == "fused_small_mb" or (impl == "auto" and ct.shape[0] <= mb_route_batch_cap(params))
     ):
-        if on_card:
-            return cuda_blind_rotate_mb.blind_rotate_mb_kernel(b_til, a_til, testvec, bsk_mb, params)
-        return blind_rotate_mb_plain(b_til, a_til, testvec, bsk_mb, params)
-    if impl == "pallas":
-        product = functools.partial(cuda_step.external_product, params=params)
-        return _rotate_steps(b_til, a_til, testvec, bsk, params, product)
-    if impl == "nussbaumer":
+        route = "k4" if on_card else "plain_mb"
+    elif impl == "pallas":
+        route = "step"
+    elif impl == "nussbaumer":
         if not nussbaumer.check_bounds(params):
             raise ValueError("nussbaumer step: parameter bounds not satisfied")
-
-        def product(digits, bsk_i):
-            return nussbaumer.external_product_step(digits, nussbaumer.prepare_bsk_step(bsk_i, params), params)
+        route = "nussbaumer"
+    else:
+        route = "k1" if on_card and impl != "xla" else "plain"
+    route_calls[route] += 1
+    route_ciphertexts[route] += ct.shape[0]
+    with span(_SPANS[route]):
+        b_til, a_til = rotation_exponents(ct, params)
+        if route == "k4":
+            return cuda_blind_rotate_mb.blind_rotate_mb_kernel(b_til, a_til, testvec, bsk_mb, params)
+        if route == "plain_mb":
+            return blind_rotate_mb_plain(b_til, a_til, testvec, bsk_mb, params)
+        if route == "k1":
+            return cuda_blind_rotate.blind_rotate_kernel(b_til, a_til, testvec, bsk, params)
+        if route == "plain":
+            return blind_rotate_plain(b_til, a_til, testvec, bsk, params)
+        if route == "step":
+            product = functools.partial(cuda_step.external_product, params=params)
+        else:
+            def product(digits, bsk_i):
+                return nussbaumer.external_product_step(digits, nussbaumer.prepare_bsk_step(bsk_i, params), params)
 
         return _rotate_steps(b_til, a_til, testvec, bsk, params, product)
-    if on_card and impl != "xla":
-        return cuda_blind_rotate.blind_rotate_kernel(b_til, a_til, testvec, bsk, params)
-    return blind_rotate_plain(b_til, a_til, testvec, bsk, params)

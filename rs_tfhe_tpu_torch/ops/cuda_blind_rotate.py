@@ -44,6 +44,17 @@ launched_tiles: collections.Counter = collections.Counter()
 #: the tensor, its version counter then, on the grid?).
 _grid_checked: dict = {}
 
+#: Whole-key reads of `key_limbs` in this process (each synchronises the
+#: host with the device): one a key tensor, unless a caller hands over a new
+#: tensor each call.
+grid_checks = 0
+
+
+def _on_grid(bsk: torch.Tensor) -> bool:
+    global grid_checks
+    grid_checks += 1
+    return not bool((bsk & 0xFF).any())
+
 
 def key_limbs(bsk: torch.Tensor, params: TfheParams) -> int:
     """How many byte limbs of the key the tensor-core instance multiplies: 3
@@ -59,11 +70,11 @@ def key_limbs(bsk: torch.Tensor, params: TfheParams) -> int:
     if params.bsk_round_bits < 8:
         return 4
     if bsk.is_inference():
-        return 4 if bool((bsk & 0xFF).any()) else 3
+        return 3 if _on_grid(bsk) else 4
     ident = id(bsk)
     entry = _grid_checked.get(ident)
     if entry is None or entry[0]() is not bsk or entry[1] != bsk._version:
-        on_grid = not bool((bsk & 0xFF).any())
+        on_grid = _on_grid(bsk)
         entry = (weakref.ref(bsk, lambda _, ident=ident: _grid_checked.pop(ident, None)), bsk._version, on_grid)
         _grid_checked[ident] = entry
     return 3 if entry[2] else 4

@@ -12,18 +12,20 @@ from __future__ import annotations
 import torch
 
 from ..torus import neg_torus
+from ..utils.profiling import span
 
 
 def sample_extract(trlwe: torch.Tensor, k: int = 0) -> torch.Tensor:
     """int32 [..., 2, N] -> LWE lv1 [..., N+1] extracting coefficient k."""
-    a = trlwe[..., 0, :]
-    b = trlwe[..., 1, :]
-    n = a.shape[-1]
-    idx = torch.remainder(k - torch.arange(n, device=trlwe.device), 2 * n)
-    wrap = idx >= n
-    vals = a[..., torch.where(wrap, idx - n, idx)]
-    p = torch.where(wrap, neg_torus(vals), vals)
-    return torch.cat([p, b[..., k : k + 1]], dim=-1)
+    with span("tfhe.extract"):
+        a = trlwe[..., 0, :]
+        b = trlwe[..., 1, :]
+        n = a.shape[-1]
+        idx = torch.remainder(k - torch.arange(n, device=trlwe.device), 2 * n)
+        wrap = idx >= n
+        vals = a[..., torch.where(wrap, idx - n, idx)]
+        p = torch.where(wrap, neg_torus(vals), vals)
+        return torch.cat([p, b[..., k : k + 1]], dim=-1)
 
 
 def sample_extract_to_lv0_width(trlwe: torch.Tensor, n0: int, k: int = 0) -> torch.Tensor:

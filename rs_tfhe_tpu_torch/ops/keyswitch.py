@@ -17,6 +17,7 @@ import torch
 
 from ..params import TORUS_BITS, TfheParams
 from ..torus import i32, recombine_planar
+from ..utils.profiling import span
 from .poly import exact_dot_i8
 
 
@@ -64,6 +65,7 @@ def identity_key_switch(
     """LWE lv1 [..., N+1] -> LWE lv0 [..., n0+1] (reference trgsw.rs:332-360)."""
     g = params.trgsw_lv1
     n1 = params.n1
-    return digit_select_subtract(
-        ct[..., :n1], ct[..., n1], ksk_limbs, g.iks_t, g.basebit, params.n0 + 1
-    )
+    with span("tfhe.keyswitch"):
+        return digit_select_subtract(
+            ct[..., :n1], ct[..., n1], ksk_limbs, g.iks_t, g.basebit, params.n0 + 1
+        )

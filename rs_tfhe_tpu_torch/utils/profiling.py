@@ -1,6 +1,20 @@
 """Timing and tracing (rs_tfhe_tpu/utils/profiling.py): a timer that waits
 for the device, a bootstraps-a-second counter (the framework's north-star
-metric), and a `torch.profiler` trace written as a Chrome trace."""
+metric), and a `torch.profiler` trace written as a Chrome trace.
+
+Beside them, the package's own instrumentation:
+
+  - `span(name)`: a named range of the program (`tfhe.netlist.run`,
+    `tfhe.netlist.group`, `tfhe.gate`, `tfhe.rotate.<route>`,
+    `tfhe.extract`, `tfhe.keyswitch`), recorded as a `torch.profiler`
+    event while a profiler records and a shared no-op otherwise. Every
+    kernel launched inside a span, the ctypes launches of the CUDA
+    kernels too, has it as an ancestor in the profiler's events, on the
+    clock of the device's activity;
+  - `counters()`: one flat snapshot of every counter the package keeps
+    (kernel launches by instance, the rotation's route, work that a
+    process should do once).
+"""
 
 from __future__ import annotations
 
@@ -10,6 +24,84 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+
+class _NoSpan:
+    """The span while nothing traces: a shared context manager that does
+    nothing (cheaper than `contextlib.nullcontext`, whose exit takes
+    *args)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager over a range of the program named `name` (a
+    static name: order in the trace tells one call from another): a
+    profiler range while a profiler is recording, else a shared no-op, so a
+    span costs one check when nothing traces.
+
+    The range is the profiler's own op range (`_RecordFunctionFast`, as
+    PyTorch's compiled code marks its graphs), not `record_function`: the
+    profiler links a kernel to the innermost op range open at its launch,
+    and a `record_function` range is a user annotation that it passes over,
+    so the kernels launched here through ctypes, outside any ATen op, would
+    belong to no range (measured on an H100: 13-17% of a 16-bit add's
+    device time under the spans with `record_function`, all of it with op
+    ranges). It also costs less with the profiler on: 1.9 against 11 us a
+    span on the host of an H100 machine."""
+    if _profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
+
+
+def counters() -> dict:
+    """Every counter of the package, now, as one flat dict of name -> count:
+
+      k1.launches, k1.instance.<N>/<tile>/<cluster>/<unit>   ops/cuda_blind_rotate
+      k4.launches, k4.instance.<N>/<tile>/<cluster>          ops/cuda_blind_rotate_mb
+      k5.launches, k5.instance.<N>/<unit>/<tile>/<split>/<J> ops/cuda_step
+      probes.launches.<wrapper>, probes.roll_add.instance.<E>  ops/cuda_probes
+      nussbaumer.shape.<B>/<K>/<M>                           ops/nussbaumer
+      rotate.route.<route>.calls / .ciphertexts              ops/blind_rotate
+      bsk.grid_checks      whole-key reads of key_limbs (each synchronises)
+      netlist.index_placements  a compiled plan's indices moved to a device
+      build.nvcc           kernel builds that ran nvcc in this process
+      lut.tables_built     LutBootstrap table cache misses
+
+    The counts are the process's since it started; subtract two snapshots
+    for what ran between them."""
+    from .. import _build, bootstrap
+    from ..models import netlist
+    from ..ops import blind_rotate, cuda_blind_rotate, cuda_blind_rotate_mb, cuda_probes, cuda_step, nussbaumer
+
+    out = {"k1.launches": cuda_blind_rotate.launches, "k4.launches": cuda_blind_rotate_mb.launches,
+           "k5.launches": cuda_step.launches}
+    for prefix, counter in (("k1.instance", cuda_blind_rotate.launched_tiles),
+                            ("k4.instance", cuda_blind_rotate_mb.launched_tiles),
+                            ("k5.instance", cuda_step.launched_tiles),
+                            ("probes.launches", cuda_probes.launches),
+                            ("probes.roll_add.instance", cuda_probes.roll_add_launches),
+                            ("nussbaumer.shape", nussbaumer.launched_shapes)):
+        for k, n in counter.items():
+            out[f"{prefix}.{'/'.join(map(str, k)) if isinstance(k, tuple) else k}"] = n
+    for route in blind_rotate.ROUTES:
+        out[f"rotate.route.{route}.calls"] = blind_rotate.route_calls[route]
+        out[f"rotate.route.{route}.ciphertexts"] = blind_rotate.route_ciphertexts[route]
+    out["bsk.grid_checks"] = cuda_blind_rotate.grid_checks
+    out["netlist.index_placements"] = netlist.index_placements
+    out["build.nvcc"] = _build.nvcc_builds
+    out["lut.tables_built"] = bootstrap.tables_built
+    return out
 
 
 def _first_tensor(x):

@@ -26,16 +26,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from soak import ROOT, card, generator, route  # noqa: E402,F401  (scripts/torch/soak.py)
 
 import rs_tfhe_tpu_torch as tfhe  # noqa: E402
-from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_probes, cuda_step  # noqa: E402
 from rs_tfhe_tpu_torch.torus import resolve_device, wrap_i32  # noqa: E402
+from rs_tfhe_tpu_torch.utils import profiling  # noqa: E402
 
-#: kernel -> its wrapper module's launch count (the probe dot's s16 unit, as
-#: the Nussbaumer route calls it, is counted under `nussbaumer_dot`)
+#: kernel -> its launch count's name in `profiling.counters()` (the probe
+#: dot's s16 unit, as the Nussbaumer route calls it, is counted under
+#: `nussbaumer_dot`)
 KERNELS = {
-    "K1 blind_rotate": lambda: cuda_blind_rotate.launches,
-    "K4 blind_rotate_mb": lambda: cuda_blind_rotate_mb.launches,
-    "K5 external_product": lambda: cuda_step.launches,
-    "P1 nussbaumer_dot": lambda: cuda_probes.launches["nussbaumer_dot"],
+    "K1 blind_rotate": "k1.launches",
+    "K4 blind_rotate_mb": "k4.launches",
+    "K5 external_product": "k5.launches",
+    "P1 nussbaumer_dot": "probes.launches.nussbaumer_dot",
 }
 
 
@@ -101,7 +102,8 @@ def xor_into_body(out, cur):
 
 def launches() -> dict:
     """Every kernel's launch count in this process, now."""
-    return {k: f() for k, f in KERNELS.items()}
+    counts = profiling.counters()
+    return {k: counts.get(name, 0) for k, name in KERNELS.items()}
 
 
 def launched_since(before: dict) -> dict:

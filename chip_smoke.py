@@ -81,6 +81,14 @@ the last line):
           [512, 1024] for each of 16 DFT points at FAST, B = 1 and 8, and
           [8, 768] x [768, 1024] at strict, beside a float64 torch.bmm over
           the 16 points;
+       3f the small-batch key switch (csrc/key_switch.cu) against its plain
+          version, the one-hot product route, at the FAST and strict
+          key-switching tables (random limbs, 0x80000000 and 0xFFFFFFFF
+          planted in the inputs), B = 1 and 16, inputs cycling so that the
+          rows come from memory; torch._int_mm alone on the padded one-hot
+          operand is its library time; then the sweep at FAST over
+          KS_SWEEP_BATCHES, kernel against product, each compared bit for
+          bit, that sets ops.keyswitch.KS_SELECT_MAX_BATCH;
      every case with its bound: the least time the card could take, the
      larger of bytes over the memory rate and operations over the peak rate
      (for 32-bit multiply-adds the better of the CUDA cores and of s8 limb
@@ -340,6 +348,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: Cycles a second of torch.cuda._sleep's spin on an H100 (an upper bound: the spin only has to outlast the host)
+SLEEP_CYCLES_PER_S = 2.5e9
+
+
+def queued_ms(fn, reps: int) -> tuple:
+    """(mean device ms, mean host ms) of fn() over `reps` runs: first on the
+    host clock to a synchronise, then queued behind a spin kernel that holds
+    the stream for twice that long, so that the events bracket the runs'
+    kernels back to back and not the host's launch path (a call whose host
+    path is longer than its kernels would time the host with `cuda_ms`).
+    Fails if the card reached the first event before the last run was
+    queued."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S) + 100_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    check(queued, "the timed runs were queued before the card reached them")
+    return start.elapsed_time(end) / reps, host_s * 1e3 / reps
+
+
 def timed(fn):
     """(fn(), device ms of that one call)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -570,6 +609,113 @@ def phase_build():
                                                      f"{CP.ROLL_ADD_WORDS} (found {sorted(regs)})")
     check(all(c["SHFL"] > 0 and not any(c[k] for k in ("LDS", "STS", "BAR", "LDL", "STL")) for c in shown.values()),
           "the roll+add register instances hold SHFL and no LDS, STS, BAR, LDL or STL")
+
+
+#: Phase 3f's sweep of the key switch: the selection kernel against the
+#: product route at these batches (FAST table).
+KS_SWEEP_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+def phase_key_switch_vs_plain(dev) -> dict:
+    """The small-batch key switch kernel against its plain version, the
+    one-hot product route (`ops.keyswitch._product_sum`), bit for bit, both
+    device times by CUDA events around runs queued behind a spin kernel
+    (`queued_ms`: the kernel's host path, also printed, is longer than its
+    device time), over inputs that cycle through 8 batches (the table,
+    103.8 MB, exceeds the L2), `torch._int_mm` alone on the padded
+    one-hot operand as the library time, and the bound: the distinct rows
+    the batch selects read once, its ciphertexts read and its results
+    written, over 3.35 TB/s. Then the sweep at FAST, which prints the
+    largest batch up to which the kernel beats the product at every batch
+    of the sweep, beside `KS_SELECT_MAX_BATCH`."""
+    import itertools
+
+    from rs_tfhe_tpu_torch import params as P
+    from rs_tfhe_tpu_torch.ops import cuda_keyswitch
+    from rs_tfhe_tpu_torch.ops import keyswitch as KS
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rnd = _rnd(g, dev)
+    tables = {}
+    rows, tiles, max_err = {}, set(), 0
+
+    def table_of(p):
+        gp = p.trgsw_lv1
+        if p not in tables:
+            w = -(-(p.n0 + 1) // 8) * 8
+            tables[p] = torch.randint(-128, 128, (p.n1 * gp.iks_t << gp.basebit, 4 * w), generator=g,
+                                      dtype=torch.int8, device=dev)
+        return tables[p]
+
+    def measure(p, batch, reps):
+        """(kernel ms, product ms, library ms, bound, max error, instance) at one batch."""
+        nonlocal max_err
+        gp, n1, width = p.trgsw_lv1, p.n1, p.n0 + 1
+        t, basebit, table = gp.iks_t, gp.basebit, table_of(p)
+        cts = [rnd((batch, n1 + 1)) for _ in range(8)]
+        cts[0][0, :2] = torch.tensor([-(1 << 31), -1], dtype=torch.int32)
+        cts[0][-1, -1] = -(1 << 31)
+        a, body = cts[0][..., :n1], cts[0][..., n1]
+        out, tile = launched_tile(cuda_keyswitch, lambda: cuda_keyswitch.digit_select_kernel(
+            a, body, table, t, basebit, width))
+        ref = -KS._product_sum(a, table, t, basebit, width)
+        ref[..., width - 1] += body
+        torch.cuda.synchronize()
+        err = max_abs_err(out, ref)
+        check(torch.equal(out, ref), f"key switch kernel == product at {_name(p)} B={batch}")
+        max_err = max(max_err, err)
+        tiles.add(tile)
+        it = itertools.cycle(cts)
+
+        def kernel():
+            ct = next(it)
+            return cuda_keyswitch.digit_select_kernel(ct[..., :n1], ct[..., n1], table, t, basebit, width)
+
+        def product():
+            ct = next(it)
+            res = -KS._product_sum(ct[..., :n1], table, t, basebit, width)
+            res[..., width - 1] += ct[..., n1]
+            return res
+
+        k_ms, k_host_ms = queued_ms(kernel, reps)
+        p_ms, _ = queued_ms(product, max(2, reps // 10))
+        # the one PyTorch call inside the product: _int_mm on the padded one-hot rows
+        off = 1 << (31 - basebit * t)
+        shifts = 32 - basebit * torch.arange(1, t + 1, dtype=torch.int32, device=dev)
+        digits = ((a + off).unsqueeze(-1) >> shifts) & ((1 << basebit) - 1)  # [B, n1, t]
+        onehot = (digits.unsqueeze(-1) == torch.arange(1 << basebit, device=dev, dtype=torch.int32))
+        lhs = torch.nn.functional.pad(onehot.to(torch.int8).reshape(batch, -1), (0, 0, 0, max(0, 17 - batch)))
+        lib_ms, _ = queued_ms(lambda: torch._int_mm(lhs, table), max(2, reps // 10))
+        row_ids = (torch.arange(n1 * t, device=dev).reshape(n1, t) << basebit) + digits
+        distinct = int(torch.unique(row_ids).numel())
+        bnd = {"distinct_rows": distinct, "host_ms": k_host_ms,
+               **bound(distinct * table.shape[1] + 4 * batch * (n1 + 1) + 4 * batch * width)}
+        return k_ms, p_ms, lib_ms, bnd, err, tile
+
+    for p in (P.SECURITY_128_BIT_FAST, P.SECURITY_128_BIT):
+        for batch in (1, 16):
+            k_ms, p_ms, lib_ms, bnd, err, tile = measure(p, batch, 200)
+            case = f"{_name(p)} B={batch}"
+            print(f"[3f] key_switch {case} ({tile[0]} ciphertexts a block; {bnd['distinct_rows']} distinct rows "
+                  f"of {table_of(p).shape[0]}): max_abs_err={err} kernel {k_ms:.4f} ms (host path "
+                  f"{bnd['host_ms']:.4f} ms a call), product route {p_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
+                  f"{show_bound(bnd)}")
+            rows[case] = {**case_row(case, k_ms, p_ms, bnd, tile), "library_ms": lib_ms}
+    sweep, cap = {}, 0
+    for batch in KS_SWEEP_BATCHES:
+        k_ms, p_ms, lib_ms, bnd, err, tile = measure(P.SECURITY_128_BIT_FAST, batch, 50)
+        sweep[batch] = {"kernel_ms": k_ms, "kernel_host_ms": bnd["host_ms"], "product_ms": p_ms, "int_mm_ms": lib_ms,
+                        "bound_ms": bnd["bound_ms"],
+                        "distinct_rows": bnd["distinct_rows"], "instance": list(tile)}
+        if cap == batch // 2 and k_ms < p_ms:
+            cap = batch
+        print(f"[3f] sweep FAST B={batch}: kernel {k_ms:.4f} ms, product route {p_ms:.4f} ms, "
+              f"torch._int_mm {lib_ms:.4f} ms, {show_bound(bnd)}")
+    print(f"[3f] the kernel beats the product at every swept batch up to B={cap}; "
+          f"KS_SELECT_MAX_BATCH = {KS.KS_SELECT_MAX_BATCH}; sweep {json.dumps(sweep)}")
+    print(f"[3f] done {elapsed()}")
+    return {"max_abs_err": max_err, **rows["128_BIT_FAST B=1"], "cases": list(rows.values()), "sweep": sweep,
+            "sweep_cap": cap, "tiles_compared": tile_list(tiles)}
 
 
 def _rnd(g, dev):
@@ -1730,13 +1876,13 @@ def run_multi_value(p, dev, label: str) -> dict:
 
 def _kernel_share(fn) -> dict:
     """Device time of one fn() call: the rotation kernels (names with
-    blind_rotate), the key switch's int8 products (cuBLAS gemm kernels) and
-    the rest, ms."""
+    blind_rotate), the key switch's kernels (csrc/key_switch.cu, or the
+    product route's int8 gemm kernels) and the rest, ms."""
     share = {"rotation_ms": 0.0, "key_switch_ms": 0.0, "other_ms": 0.0}
     for name, ms in _device_times(fn):
         name = name.lower()
         slot = ("rotation_ms" if "blind_rotate" in name else
-                "key_switch_ms" if any(k in name for k in ("gemm", "xmma", "cutlass", "int_mm")) else "other_ms")
+                "key_switch_ms" if any(k in name for k in ("key_switch", "gemm", "xmma", "cutlass", "int_mm")) else "other_ms")
         share[slot] += ms
     share["device_ms"] = sum(share.values())
     share["rotation_share"] = share["rotation_ms"] / share["device_ms"] if share["device_ms"] else 0.0
@@ -2532,6 +2678,8 @@ SOURCES = {
     "chain_roll_add": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/bench_kernel_prims.py:120", []),
     # P1's s16 unit as the Nussbaumer route calls it (ops/nussbaumer.pointwise_dot), counted apart
     "nussbaumer_dot": ("rs_tfhe_tpu_torch/csrc/probes.cu", "scripts/probe_mosaic.py:33", []),
+    # no TPU kernel: the JAX key switch is a plain XLA product (rs_tfhe_tpu/ops/keyswitch.py:25)
+    "key_switch": ("rs_tfhe_tpu_torch/csrc/key_switch.cu", None, []),
 }
 
 
@@ -2539,11 +2687,11 @@ def main() -> int:
     smi = phase_environment()
     import rs_tfhe_tpu_torch  # noqa: F401  (fails outside a checkout)
     from rs_tfhe_tpu_torch import params as P
-    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_probes, cuda_step
+    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_keyswitch, cuda_probes, cuda_step
     from rs_tfhe_tpu_torch.ops import nussbaumer as NU
 
     modules = {"blind_rotate": cuda_blind_rotate, "blind_rotate_mb": cuda_blind_rotate_mb,
-               "external_product": cuda_step}
+               "external_product": cuda_step, "key_switch": cuda_keyswitch}
     probe_names = [k for k in SOURCES if k not in modules]
 
     path_tiles = {k: set() for k in modules}
@@ -2578,6 +2726,7 @@ def main() -> int:
         "blind_rotate": phase_kernel_vs_plain(dev),
         "blind_rotate_mb": phase_mb_kernel_vs_plain(dev),
         "external_product": phase_step_kernel_vs_plain(dev),
+        "key_switch": phase_key_switch_vs_plain(dev),
     }
     crossover = phase_crossover(dev)
     compare.update(phase_probes_vs_plain(dev))
@@ -2611,6 +2760,7 @@ def main() -> int:
     fast = P.SECURITY_128_BIT_FAST
     results["circuits_std"], paths["circuits_std"] = drive("11", run_circuits, fast, dev, "11", False)
     check(paths["circuits_std"]["blind_rotate"] > 0, "circuits with a standard key launched the blind-rotation kernel")
+    check(paths["circuits_std"]["key_switch"] > 0, "the circuits' small plan groups launched the key switch kernel")
     results["circuits_mb"], paths["circuits_mb"] = drive("11", run_circuits, fast, dev, "11", True)
     check(paths["circuits_mb"]["blind_rotate_mb"] > 0, "circuits with a multi-bit key launched the multi-bit kernel")
     check(paths["circuits_mb"]["blind_rotate"] > 0, "circuits with a multi-bit key launched the whole-rotation kernel")

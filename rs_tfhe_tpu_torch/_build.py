@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("blind_rotate.cu", "blind_rotate_mb.cu", "external_product.cu", "probes.cu")
+    for name in ("blind_rotate.cu", "blind_rotate_mb.cu", "external_product.cu", "probes.cu", "key_switch.cu")
 )
 #: (source, extra flags, object name) per nvcc process. The two rotation
 #: kernels have most instances: one unit each per ring size 2^6..2^12, the
@@ -140,6 +140,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tfhe_blind_rotate_max_cluster.restype = i
     lib.tfhe_external_product.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.tfhe_external_product.restype = i
+    lib.tfhe_key_switch.argtypes = [
+        p, ctypes.c_longlong, p, ctypes.c_longlong, p, p, p, i, i, i, i, ctypes.c_uint, i, i, i, i, i, p,
+    ]
+    lib.tfhe_key_switch.restype = i
+    lib.tfhe_key_switch_blocks_per_sm.argtypes = [i, i, i]
+    lib.tfhe_key_switch_blocks_per_sm.restype = i
     for name in ("tfhe_blind_rotate", "tfhe_blind_rotate_mb", "tfhe_external_product"):
         getattr(lib, f"{name}_max_tile").argtypes = [i]
         getattr(lib, f"{name}_max_tile").restype = i

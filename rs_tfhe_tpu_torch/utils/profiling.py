@@ -70,9 +70,11 @@ def counters() -> dict:
       k1.launches, k1.instance.<N>/<tile>/<cluster>/<unit>   ops/cuda_blind_rotate
       k4.launches, k4.instance.<N>/<tile>/<cluster>          ops/cuda_blind_rotate_mb
       k5.launches, k5.instance.<N>/<unit>/<tile>/<split>/<J> ops/cuda_step
+      ks.launches, ks.instance.<ciphertexts a block>         ops/cuda_keyswitch
       probes.launches.<wrapper>, probes.roll_add.instance.<E>  ops/cuda_probes
       nussbaumer.shape.<B>/<K>/<M>                           ops/nussbaumer
       rotate.route.<route>.calls / .ciphertexts              ops/blind_rotate
+      keyswitch.route.<select|product>.calls / .ciphertexts  ops/keyswitch
       bsk.grid_checks      whole-key reads of key_limbs (each synchronises)
       netlist.index_placements  a compiled plan's indices moved to a device
       build.nvcc           kernel builds that ran nvcc in this process
@@ -82,13 +84,15 @@ def counters() -> dict:
     for what ran between them."""
     from .. import _build, bootstrap
     from ..models import netlist
-    from ..ops import blind_rotate, cuda_blind_rotate, cuda_blind_rotate_mb, cuda_probes, cuda_step, nussbaumer
+    from ..ops import (blind_rotate, cuda_blind_rotate, cuda_blind_rotate_mb, cuda_keyswitch, cuda_probes,
+                       cuda_step, keyswitch, nussbaumer)
 
     out = {"k1.launches": cuda_blind_rotate.launches, "k4.launches": cuda_blind_rotate_mb.launches,
-           "k5.launches": cuda_step.launches}
+           "k5.launches": cuda_step.launches, "ks.launches": cuda_keyswitch.launches}
     for prefix, counter in (("k1.instance", cuda_blind_rotate.launched_tiles),
                             ("k4.instance", cuda_blind_rotate_mb.launched_tiles),
                             ("k5.instance", cuda_step.launched_tiles),
+                            ("ks.instance", cuda_keyswitch.launched_tiles),
                             ("probes.launches", cuda_probes.launches),
                             ("probes.roll_add.instance", cuda_probes.roll_add_launches),
                             ("nussbaumer.shape", nussbaumer.launched_shapes)):
@@ -97,6 +101,9 @@ def counters() -> dict:
     for route in blind_rotate.ROUTES:
         out[f"rotate.route.{route}.calls"] = blind_rotate.route_calls[route]
         out[f"rotate.route.{route}.ciphertexts"] = blind_rotate.route_ciphertexts[route]
+    for route in keyswitch.ROUTES:
+        out[f"keyswitch.route.{route}.calls"] = keyswitch.route_calls[route]
+        out[f"keyswitch.route.{route}.ciphertexts"] = keyswitch.route_ciphertexts[route]
     out["bsk.grid_checks"] = cuda_blind_rotate.grid_checks
     out["netlist.index_placements"] = netlist.index_placements
     out["build.nvcc"] = _build.nvcc_builds

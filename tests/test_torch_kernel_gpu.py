@@ -2,8 +2,9 @@
 against their plain PyTorch versions: the blind rotation
 (csrc/blind_rotate.cu), the multi-bit blind rotation
 (csrc/blind_rotate_mb.cu), the external-product step
-(csrc/external_product.cu) and the probe and primitive-rate kernels
-(csrc/probes.cu).
+(csrc/external_product.cu), the probe and primitive-rate kernels
+(csrc/probes.cu) and the small-batch key switch (csrc/key_switch.cu,
+against the one-hot product).
 
 Every test here needs a CUDA device (marker `gpu`) and skips without one:
 the kernels have no CPU mode. This file imports neither JAX nor the JAX
@@ -25,8 +26,12 @@ from rs_tfhe_tpu_torch.ops import blind_rotate as BR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate_mb as CMB  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_probes as CP  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_keyswitch as CKS  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_step as CS  # noqa: E402
+from rs_tfhe_tpu_torch.ops import keyswitch as KS  # noqa: E402
 from rs_tfhe_tpu_torch.ops.poly import polymul_small_by_torus  # noqa: E402
+from rs_tfhe_tpu_torch.torus import limb_width, planar_limbs  # noqa: E402
+from rs_tfhe_tpu_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -946,3 +951,157 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
         CP.probe_bitcast_i32_to_i8(a)
     with pytest.raises(ValueError, match="contiguous"):
         CP.probe_roll(_rand(dev, (8, 16), torch.int32, 71).t())
+
+
+# ---------------------------------------------------------------------------
+# The small-batch key switch (csrc/key_switch.cu) against the one-hot product
+# ---------------------------------------------------------------------------
+
+_FAST = P.SECURITY_128_BIT_FAST
+#: name -> (n_in, t, basebit, out_width, ciphertext width, first mask column):
+#: the key-switching tables of FAST and strict (the same shape), a proxy
+#: re-key table of basebit 6 and t 3 (lv0 -> lv0), and the second of two
+#: tensor-parallel column shards of the FAST table (no body: the plain sum)
+_KS_SHAPES = {
+    **{name: (p.n1, p.trgsw_lv1.iks_t, p.trgsw_lv1.basebit, p.n0 + 1, p.n1 + 1, 0)
+       for name, p in (("SECURITY_128_BIT_FAST", _FAST), ("SECURITY_128_BIT", P.SECURITY_128_BIT))},
+    "rekey_b6_t3": (_FAST.n0, 3, 6, _FAST.n0 + 1, _FAST.n0 + 1, 0),
+    "shard_tp2": (_FAST.n1 // 2, _FAST.trgsw_lv1.iks_t, _FAST.trgsw_lv1.basebit, _FAST.n0 + 1, _FAST.n1 + 1,
+                  _FAST.n1 // 2),
+}
+_KS_TABLES = {}
+
+
+def _ks_table(dev, name):
+    """Random limbs (every byte value), with the key's own limbs of the words
+    0x80000000 and 0xFFFFFFFF planted in the digit-0 and digit-(base-1) rows
+    of every fifth row group; built once a shape."""
+    if name not in _KS_TABLES:
+        n_in, t, basebit, out_width, _, _ = _KS_SHAPES[name]
+        base = 1 << basebit
+        g = torch.Generator(device=dev).manual_seed(len(_KS_TABLES) + 300)
+        table = torch.randint(-128, 128, (n_in * t * base, 4 * limb_width(out_width)), generator=g,
+                              dtype=torch.int8, device=dev)
+        words = torch.tensor([[-(1 << 31)], [-1]], dtype=torch.int32, device=dev).expand(2, out_width)
+        planted = planar_limbs(words.contiguous())
+        groups = torch.arange(0, n_in * t, 5, device=dev) * base
+        table[groups] = planted[0]
+        table[groups + base - 1] = planted[1]
+        _KS_TABLES[name] = table
+    return _KS_TABLES[name]
+
+
+def _ks_ciphertexts(dev, name, batch, kind, seed):
+    """int32 [batch, width]: random words with 0x80000000 and 0xFFFFFFFF
+    planted in the masks and the bodies, or masks whose digits are all 0 or
+    all base-1."""
+    _, t, basebit, _, width, _ = _KS_SHAPES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ct = torch.randint(-(1 << 31), 1 << 31, (batch, width), generator=g, dtype=torch.int32, device=dev)
+    offset = 1 << (31 - basebit * t)
+    if kind == "digits_0":
+        ct[:, :-1] = -offset  # a + offset = 0
+    elif kind == "digits_max":
+        ct[:, :-1] = -1 - offset  # a + offset = 0xFFFFFFFF
+    else:
+        ct[0, :2] = torch.tensor([-(1 << 31), -1], dtype=torch.int32)
+        ct[-1, -2:] = torch.tensor([-1, -(1 << 31)], dtype=torch.int32)
+    return ct
+
+
+def _ks_product(a, body, table, t, basebit, out_width):
+    """The plain version: the one-hot product on the card."""
+    ref = KS._product_sum(a, table, t, basebit, out_width)
+    if body is None:
+        return ref
+    ref = -ref
+    ref[..., out_width - 1] += body
+    return ref
+
+
+def _ks_moved(before: dict) -> dict:
+    now = profiling.counters()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("kind", ["random", "digits_0", "digits_max"])
+@pytest.mark.parametrize("batch", [1, 2, 3, 16, "cap", "cap+1"])
+@pytest.mark.parametrize("name", list(_KS_SHAPES))
+def test_key_switch_select_matches_product(dev, name, batch, kind):
+    """Through `digit_select_subtract` (`digit_select_sum` for the shard),
+    as every caller goes: up to the cap the selection kernel, equal to the
+    one-hot product bit for bit, with the route's counters and one launch;
+    one above the cap the product. The masks are `ct[..., :n]`, not copied."""
+    n_in, t, basebit, out_width, _, start = _KS_SHAPES[name]
+    cap = KS.KS_SELECT_MAX_BATCH
+    batch = {"cap": cap, "cap+1": cap + 1}.get(batch, batch)
+    table = _ks_table(dev, name)
+    ct = _ks_ciphertexts(dev, name, batch, kind, seed=batch)
+    a = ct[..., start:start + n_in]
+    assert batch == 1 or not a.is_contiguous()
+    body = None if name == "shard_tp2" else ct[..., -1]
+    before = profiling.counters()
+    if body is None:
+        out = KS.digit_select_sum(a, table, t, basebit, out_width)
+    else:
+        out = KS.digit_select_subtract(a, body, table, t, basebit, out_width)
+    torch.cuda.synchronize()
+    route = "select" if batch <= cap else "product"
+    expect = {f"keyswitch.route.{route}.calls": 1, f"keyswitch.route.{route}.ciphertexts": batch}
+    if route == "select":
+        expect.update({"ks.launches": 1, f"ks.instance.{min(16, 1 << (batch - 1).bit_length())}": 1})
+    assert _ks_moved(before) == expect
+    assert out.shape == (batch, out_width) and out.dtype == torch.int32
+    assert torch.equal(out, _ks_product(a, body, table, t, basebit, out_width))
+
+
+@pytest.mark.parametrize("batch", [5, 17, 100, 512])
+def test_key_switch_kernel_every_block_batch(dev, batch):
+    """The kernel called directly past the cap too (the sweep's batches):
+    blocks of 8 and of 16 ciphertexts, a ragged last block, several blocks
+    on one slice of row groups."""
+    name = "SECURITY_128_BIT_FAST"
+    n_in, t, basebit, out_width, _, _ = _KS_SHAPES[name]
+    table = _ks_table(dev, name)
+    ct = _ks_ciphertexts(dev, name, batch, "random", seed=1000 + batch)
+    a, body = ct[..., :n_in], ct[..., -1]
+    out = CKS.digit_select_kernel(a, body, table, t, basebit, out_width)
+    torch.cuda.synchronize()
+    assert torch.equal(out, _ks_product(a, body, table, t, basebit, out_width))
+
+
+def test_key_switch_keeps_leading_dimensions_and_the_key_switch_path(dev):
+    """[2, 3, N+1] ciphertexts through `identity_key_switch` (a batch of 6
+    on the kernel) equal the product; a single ciphertext [N+1] too."""
+    p = _FAST
+    name = "SECURITY_128_BIT_FAST"
+    table = _ks_table(dev, name)
+    ct = _ks_ciphertexts(dev, name, 6, "random", seed=77).reshape(2, 3, -1)
+    before = profiling.counters()
+    out = KS.identity_key_switch(ct, table, p)
+    one = KS.identity_key_switch(ct[1, 2], table, p)
+    torch.cuda.synchronize()
+    assert _ks_moved(before) == {"keyswitch.route.select.calls": 2, "keyswitch.route.select.ciphertexts": 7,
+                                 "ks.launches": 2, "ks.instance.8": 1, "ks.instance.1": 1}
+    g = p.trgsw_lv1
+    ref = _ks_product(ct[..., :p.n1], ct[..., p.n1], table, g.iks_t, g.basebit, p.n0 + 1)
+    assert out.shape == (2, 3, p.n0 + 1) and torch.equal(out, ref)
+    assert one.shape == (p.n0 + 1,) and torch.equal(one, ref[1, 2])
+
+
+def test_key_switch_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    name = "SECURITY_128_BIT_FAST"
+    n_in, t, basebit, out_width, _, _ = _KS_SHAPES[name]
+    table = _ks_table(dev, name)
+    ct = _ks_ciphertexts(dev, name, 2, "random", seed=5)
+    a, body = ct[..., :n_in], ct[..., -1]
+    with pytest.raises(TypeError):
+        CKS.digit_select_kernel(a.to(torch.int64), body, table, t, basebit, out_width)
+    with pytest.raises(TypeError):
+        CKS.digit_select_kernel(a, body, table.cpu(), t, basebit, out_width)
+    with pytest.raises(ValueError, match="does not fit"):
+        CKS.digit_select_kernel(a[..., :-1], body, table, t, basebit, out_width)
+    with pytest.raises(ValueError, match="does not fit"):
+        CKS.digit_select_kernel(a, body, table, t, basebit, limb_width(out_width) + 1)
+    with pytest.raises(ValueError, match="body"):
+        CKS.digit_select_kernel(a, body[:1], table, t, basebit, out_width)

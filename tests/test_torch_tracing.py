@@ -14,6 +14,7 @@ import rs_tfhe_tpu_torch as pt  # noqa: E402
 from rs_tfhe_tpu_torch import bit_utils, bootstrap, gates, key, tlwe  # noqa: E402
 from rs_tfhe_tpu_torch.models import netlist  # noqa: E402
 from rs_tfhe_tpu_torch.ops import blind_rotate, cuda_blind_rotate, cuda_blind_rotate_mb, cuda_probes, cuda_step  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_keyswitch  # noqa: E402
 from rs_tfhe_tpu_torch.ops import nussbaumer  # noqa: E402
 from rs_tfhe_tpu_torch.utils import profiling  # noqa: E402
 
@@ -146,7 +147,9 @@ def _increment(v):
 def test_route_counters_at_the_multi_bit_cap(keys, extra):
     """A multi-bit key's batch of `mb_route_batch_cap` ciphertexts takes the
     multi-bit rotation, one more the standard one; each call counts once
-    under its route with its ciphertexts, and its span carries the route."""
+    under its route with its ciphertexts, and its span carries the route.
+    The key switch counts once under its route (a CPU tensor's: the
+    product)."""
     sk, cks = keys
     batch = blind_rotate.mb_route_batch_cap(P) + extra
     route = "plain" if extra else "plain_mb"
@@ -155,7 +158,8 @@ def test_route_counters_at_the_multi_bit_cap(keys, extra):
     before = profiling.counters()
     _, events = _profiled(lambda: gates.batch_gate("and", a, b, cks["multi-bit"]))
     moved = {k: v - before.get(k, 0) for k, v in profiling.counters().items() if v != before.get(k, 0)}
-    assert moved == {f"rotate.route.{route}.calls": 1, f"rotate.route.{route}.ciphertexts": batch}
+    assert moved == {f"rotate.route.{route}.calls": 1, f"rotate.route.{route}.ciphertexts": batch,
+                     "keyswitch.route.product.calls": 1, "keyswitch.route.product.ciphertexts": batch}
     assert [e.name for e in events if e.name.startswith("tfhe.rotate.")] == [f"tfhe.rotate.{route}"]
 
 
@@ -212,14 +216,17 @@ def test_counters_hold_the_launch_counters(monkeypatch):
     monkeypatch.setattr(cuda_blind_rotate_mb, "launched_tiles", collections.Counter({(1024, 1, 16): 4}))
     monkeypatch.setattr(cuda_step, "launches", 7)
     monkeypatch.setattr(cuda_step, "launched_tiles", collections.Counter({(1024, "mma_s8", 8, 1, 4): 7}))
+    monkeypatch.setattr(cuda_keyswitch, "launches", 3)
+    monkeypatch.setattr(cuda_keyswitch, "launched_tiles", collections.Counter({(1,): 2, (16,): 1}))
     monkeypatch.setattr(cuda_probes, "launches", collections.Counter({"nussbaumer_dot": 16, "roll": 1}))
     monkeypatch.setattr(cuda_probes, "roll_add_launches", collections.Counter({32: 2}))
     monkeypatch.setattr(nussbaumer, "launched_shapes", collections.Counter({(8, 512, 1024): 16}))
     got = profiling.counters()
-    assert {k: v for k, v in got.items() if k.split(".")[0] in ("k1", "k4", "k5", "probes", "nussbaumer")} == {
+    assert {k: v for k, v in got.items() if k.split(".")[0] in ("k1", "k4", "k5", "ks", "probes", "nussbaumer")} == {
         "k1.launches": 5, "k1.instance.1024/1/16/imad": 3, "k1.instance.1024/32/8/mma_s8x3": 2,
         "k4.launches": 4, "k4.instance.1024/1/16": 4,
         "k5.launches": 7, "k5.instance.1024/mma_s8/8/1/4": 7,
+        "ks.launches": 3, "ks.instance.1": 2, "ks.instance.16": 1,
         "probes.launches.nussbaumer_dot": 16, "probes.launches.roll": 1, "probes.roll_add.instance.32": 2,
         "nussbaumer.shape.8/512/1024": 16}
     assert {"bsk.grid_checks", "netlist.index_placements", "build.nvcc", "lut.tables_built"} <= set(got)

@@ -7,6 +7,9 @@ switch, with a caller-supplied test vector for programmable bootstrapping.
 
 from __future__ import annotations
 
+import collections
+import math
+
 import torch
 
 from .key import CloudKey
@@ -16,11 +19,28 @@ from .ops.blind_rotate import blind_rotate
 from .ops.extract import sample_extract
 from .ops.keyswitch import identity_key_switch
 from .utils.noise import mb_lut_route_ok
+from .utils.profiling import span
 
 #: Lookup tables `LutBootstrap.bootstrap_func` built in this process (its
 #: cache's misses): one a (function, modulus, set, device) while the cache
 #: holds it.
 tables_built = 0
+
+#: Programmable (LUT) bootstraps in this process: "calls" (each
+#: `bootstrap_with_testvec` and `lut.multi_value_bootstrap` call),
+#: "ciphertexts" (the ciphertexts they rotated) and "per_row_luts" (the calls
+#: whose test vector is per ciphertext). The gate path counts none.
+pbs_counts: collections.Counter = collections.Counter()
+
+
+def pbs_span(ciphertexts: int, per_row: bool):
+    """Count one programmable bootstrap of `ciphertexts` ciphertexts and
+    return its span, `tfhe.pbs`, which encloses the call's rotation, extract
+    and key switch spans."""
+    pbs_counts["calls"] += 1
+    pbs_counts["ciphertexts"] += ciphertexts
+    pbs_counts["per_row_luts"] += per_row
+    return span("tfhe.pbs")
 
 
 def _rotate_extract(ct: torch.Tensor, testvec: torch.Tensor, ck: CloudKey, bsk_mb) -> torch.Tensor:
@@ -64,15 +84,20 @@ def bootstrap_with_testvec(
     `utils.noise.mb_lut_route_ok` (true where the route moves every LUT
     decision margin by < 1%: the RADIX and NIBBLE sets, not FAST or strict),
     as rs_tfhe_tpu/bootstrap.py:54-84 does.
+
+    Runs inside the span `tfhe.pbs` and counts in `pbs_counts`.
     """
     if allow_mb is None:
         allow_mb = mb_lut_route_ok(ck.params)
-    if testvec.dim() > 2:
-        # per-ciphertext test vectors may come broadcast (expand); the kernel
-        # reads them densely, as JAX's reshape of a broadcast array does
-        testvec = testvec.reshape(-1, *testvec.shape[-2:]).contiguous()
-    lv1 = _rotate_extract(ct, testvec, ck, ck.bsk_mb if allow_mb else None)
-    return identity_key_switch(lv1, ck.ksk_limbs, ck.params)
+    per_row = testvec.dim() > 2
+    with pbs_span(math.prod(ct.shape[:-1]), per_row):
+        if per_row:
+            # per-ciphertext test vectors may come broadcast (expand); the
+            # kernel reads them densely, as JAX's reshape of a broadcast
+            # array does
+            testvec = testvec.reshape(-1, *testvec.shape[-2:]).contiguous()
+        lv1 = _rotate_extract(ct, testvec, ck, ck.bsk_mb if allow_mb else None)
+        return identity_key_switch(lv1, ck.ksk_limbs, ck.params)
 
 
 class VanillaBootstrap:

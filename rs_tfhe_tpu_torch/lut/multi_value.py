@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from .. import bootstrap as _bootstrap  # the module: it imports this package
 from ..key import CloudKey
 from ..ops.blind_rotate import blind_rotate
 from ..ops.extract import sample_extract
@@ -139,8 +140,9 @@ def multi_value_bootstrap(ct: torch.Tensor, mv: MultiValueLuts,
     """
     lead = ct.shape[:-1]
     flat = ct.reshape(-1, ct.shape[-1])
-    acc = blind_rotate(flat, mv.tv0.to(flat.device), ck.bsk, ck.params)
-    accs = torch.stack([_mul_sparse(acc, t) for t in mv.terms], dim=1)
-    lv1 = sample_extract(accs)  # [B, K, N+1]
-    out = identity_key_switch(lv1, ck.ksk_limbs, ck.params)
+    with _bootstrap.pbs_span(flat.shape[0], per_row=False):
+        acc = blind_rotate(flat, mv.tv0.to(flat.device), ck.bsk, ck.params)
+        accs = torch.stack([_mul_sparse(acc, t) for t in mv.terms], dim=1)
+        lv1 = sample_extract(accs)  # [B, K, N+1]
+        out = identity_key_switch(lv1, ck.ksk_limbs, ck.params)
     return out.reshape(*lead, mv.n_luts, out.shape[-1])

@@ -22,6 +22,7 @@ the inputs' device. The seeded transport (`encrypt_radix_seeded`,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -41,6 +42,28 @@ from ..tlwe import (
     message_mu,
 )
 from ..torus import f64_to_torus, i32
+from ..utils.profiling import span
+
+#: Radix operations called in this process, by name ("add", "sub",
+#: "compare", "mul"); each runs inside the span `tfhe.radix.<name>`.
+radix_ops: collections.Counter = collections.Counter()
+
+
+def _radix_op(name: str):
+    """Count each call of the decorated operation under `name` and run it
+    inside its span (`__wrapped__`: the operation uncounted, outside it)."""
+    span_name = f"tfhe.radix.{name}"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def counted(*args, **kwargs):
+            radix_ops[name] += 1
+            with span(span_name):
+                return fn(*args, **kwargs)
+
+        return counted
+
+    return wrap
 
 
 def _digits_of(val, num_digits: int, base_bits: int) -> np.ndarray:
@@ -188,6 +211,7 @@ def _mul_mv(base_bits: int, params) -> dict:
     return {"pair": factor_test_vectors([luts["lo"], luts["hi"]])}
 
 
+@_radix_op("add")
 def add_radix(a: torch.Tensor, b: torch.Tensor, ck: CloudKey, base_bits: int = 3,
               carry_in: torch.Tensor | None = None, multi_value: bool = False) -> torch.Tensor:
     """Digit-vector addition, 2D - 1 programmable bootstraps for D digits.
@@ -229,6 +253,7 @@ def add_radix(a: torch.Tensor, b: torch.Tensor, ck: CloudKey, base_bits: int = 3
     return torch.stack(outs, dim=-2)
 
 
+@_radix_op("sub")
 def sub_radix(a: torch.Tensor, b: torch.Tensor, ck: CloudKey, base_bits: int = 3,
               multi_value: bool = False) -> torch.Tensor:
     """Digit-vector subtraction a - b (mod base^D) in 2D programmable
@@ -240,7 +265,7 @@ def sub_radix(a: torch.Tensor, b: torch.Tensor, ck: CloudKey, base_bits: int = 3
     one = lwe_trivial_message(
         torch.ones(a.shape[:-2], dtype=torch.int64, device=a.device), modulus, a.shape[-1] - 1, a.device
     )
-    return add_radix(a, comp, ck, base_bits, carry_in=one, multi_value=multi_value)
+    return add_radix.__wrapped__(a, comp, ck, base_bits, carry_in=one, multi_value=multi_value)
 
 
 def apply_lut_radix(ct: torch.Tensor, f, ck: CloudKey, base_bits: int = 3) -> torch.Tensor:
@@ -293,6 +318,7 @@ def _per_ct(polys: list, lead_shapes: list) -> torch.Tensor:
     return torch.cat([p.expand(*lead, *p.shape) for p, lead in zip(polys, lead_shapes)], dim=-3)
 
 
+@_radix_op("mul")
 def mul_radix(a: torch.Tensor, b: torch.Tensor, ck: CloudKey, base_bits: int = 2,
               multi_value: bool = False) -> torch.Tensor:
     """Ciphertext x ciphertext multiplication over base-2^b digit vectors:
@@ -424,6 +450,7 @@ def _cmp_mv(base_bits: int, params) -> dict:
     }
 
 
+@_radix_op("compare")
 def compare_radix(a: torch.Tensor, b: torch.Tensor, ck: CloudKey, base_bits: int = 3,
                   multi_value: bool = False):
     """Encrypted comparison of two radix digit vectors: the triple

@@ -5,12 +5,12 @@ metric), and a `torch.profiler` trace written as a Chrome trace.
 Beside them, the package's own instrumentation:
 
   - `span(name)`: a named range of the program (`tfhe.netlist.run`,
-    `tfhe.netlist.group`, `tfhe.gate`, `tfhe.rotate.<route>`,
-    `tfhe.extract`, `tfhe.keyswitch`), recorded as a `torch.profiler`
-    event while a profiler records and a shared no-op otherwise. Every
-    kernel launched inside a span, the ctypes launches of the CUDA
-    kernels too, has it as an ancestor in the profiler's events, on the
-    clock of the device's activity;
+    `tfhe.netlist.group`, `tfhe.gate`, `tfhe.radix.<op>`, `tfhe.pbs`,
+    `tfhe.rotate.<route>`, `tfhe.extract`, `tfhe.keyswitch`), recorded as
+    a `torch.profiler` event while a profiler records and a shared no-op
+    otherwise. Every kernel launched inside a span, the ctypes launches of
+    the CUDA kernels too, has it as an ancestor in the profiler's events,
+    on the clock of the device's activity;
   - `counters()`: one flat snapshot of every counter the package keeps
     (kernel launches by instance, the rotation's route, work that a
     process should do once).
@@ -79,11 +79,14 @@ def counters() -> dict:
       netlist.index_placements  a compiled plan's indices moved to a device
       build.nvcc           kernel builds that ran nvcc in this process
       lut.tables_built     LutBootstrap table cache misses
+      pbs.calls, pbs.ciphertexts, pbs.per_row_luts          bootstrap: LUT bootstraps,
+                           the ciphertexts they rotated, those with a test vector a ciphertext
+      radix.ops.<add|sub|compare|mul>                       models/arithmetic
 
     The counts are the process's since it started; subtract two snapshots
     for what ran between them."""
     from .. import _build, bootstrap
-    from ..models import netlist
+    from ..models import arithmetic, netlist
     from ..ops import (blind_rotate, cuda_blind_rotate, cuda_blind_rotate_mb, cuda_keyswitch, cuda_probes,
                        cuda_step, keyswitch, nussbaumer)
 
@@ -108,6 +111,10 @@ def counters() -> dict:
     out["netlist.index_placements"] = netlist.index_placements
     out["build.nvcc"] = _build.nvcc_builds
     out["lut.tables_built"] = bootstrap.tables_built
+    for k in ("calls", "ciphertexts", "per_row_luts"):
+        out[f"pbs.{k}"] = bootstrap.pbs_counts[k]
+    for op in ("add", "sub", "compare", "mul"):
+        out[f"radix.ops.{op}"] = arithmetic.radix_ops[op]
     return out
 
 

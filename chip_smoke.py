@@ -14,7 +14,9 @@ the last line):
      registers, so no CUDA-core dot loop), the roll, bitcast and unpack
      kernels' 128-bit global loads and stores, and the chained roll+add's
      register instances' shuffles (SHFL, and no shared memory, barrier or
-     local memory: LDS, STS, BAR, LDL, STL);
+     local memory: LDS, STS, BAR, LDL, STL), and the blind rotation's wgmma
+     instance (IGMMA with U8 operands and no IMMA in every instantiation, no
+     ptxas note of serialised wgmma, C7515 or C7518, naming it);
   3. each kernel against its plain PyTorch version on the card, bit for bit,
      with both times (CUDA events), and the instance each case launched
      (ring size, tile, cluster and unit for the rotation; ring size, unit,
@@ -592,6 +594,26 @@ def phase_build():
           "the byte-limb dots run the u8 forms of wgmma")
     check(not any(op.startswith(("LDG", "LDS")) for k in limb_kernels for op in ops[k]),
           "the byte-limb dots load no operand into registers (no CUDA-core dot loop)")
+    # the rotation's wgmma instance: every instantiation runs the u8 x s8 wgmma and no mma.sync, and
+    # ptxas serialises none of its wgmma (no note names it: C7515, or C7518 for a branch on the thread
+    # between wgmma groups)
+    rotation = {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip() if "blind_rotate_wgmma_kernel" in line else None
+            if kernel is not None:
+                rotation[kernel] = collections.Counter()
+        elif kernel is not None and "*/" in line:
+            words = line.split("*/")[1].split()
+            words = words[1:] if words and words[0].startswith("@") else words
+            if words and "MMA" in words[0]:
+                rotation[kernel][words[0]] += 1
+    print(f"[2] tensor-core instructions of the rotation's wgmma instance: { {k: dict(v) for k, v in rotation.items()} }")
+    check(len(rotation) >= 1 and all(any(op.startswith("IGMMA") and "U8" in op for op in ops)
+                                     and not any(op.startswith("IMMA") for op in ops) for ops in rotation.values()),
+          "the rotation's wgmma instance runs IGMMA with U8 operands and no IMMA")
+    serialised = [line for line in log if "serialized" in line and "blind_rotate_wgmma_kernel" in line]
+    check(not serialised, f"ptxas serialises no wgmma of the rotation's wgmma instance ({serialised[:1]})")
     print(f"[2] global loads and stores of the copy kernels: { {k: ops[k] for k in copy_kernels} }")
     check(all(any(op.startswith(kind) and ".128" in op for op in ops[k])
               for k in copy_kernels for kind in ("LDG", "STG")),
@@ -735,6 +757,7 @@ def _name(p) -> str:
 
 
 def phase_kernel_vs_plain(dev) -> dict:
+    from rs_tfhe_tpu_torch import _build
     from rs_tfhe_tpu_torch import params as P
     from rs_tfhe_tpu_torch.key import SecretKey, gen_bootstrapping_key
     from rs_tfhe_tpu_torch.ops import cuda_blind_rotate
@@ -764,7 +787,26 @@ def phase_kernel_vs_plain(dev) -> dict:
         has_mma = p.n1 in cuda_blind_rotate.MMA_RING_SIZES and cuda_blind_rotate.takes_tensor_cores(p)
         limbs = cuda_blind_rotate.key_limbs(bsk, p) if has_mma else 0
         tile, cluster, limbs = cuda_blind_rotate.planned_instance(dev.index or 0, batch, p, limbs)
-        return (p.n1, tile, cluster, f"mma_s8x{limbs}" if limbs else "imad")
+        unit = cuda_blind_rotate.tensor_core_unit(cuda_blind_rotate.on_wgmma(p.n1, tile, limbs), limbs)
+        return (p.n1, tile, cluster, unit if limbs else "imad")
+
+    # the wgmma instance's key operand (FAST, three limbs) against its plain build, byte for byte, a
+    # stretch of steps at a time; the build's time against the bytes it writes and reads
+    strips = cuda_blind_rotate.key_strips(fast_bsk, fast, 32, 3)
+    step_bytes = strips.numel() // fast.n0
+    strips_equal = all(
+        torch.equal(strips[i * step_bytes:(i + 50) * step_bytes], cuda_blind_rotate.key_strips_plain(
+            fast_bsk[i:i + 50], 3)) for i in range(0, fast.n0, 50))
+    lib = _build.load()
+    strip_ms = cuda_ms(lambda: lib.tfhe_blind_rotate_strips(
+        fast_bsk.data_ptr(), strips.data_ptr(), fast.n0, 10, fast.trgsw_lv1.l, 32, 3,
+        torch.cuda.current_stream(dev).cuda_stream), 5)
+    strip_bound = bound(strips.numel() + fast_bsk.numel() * 4)
+    print(f"[3a] key strips {_name(fast)} ({strips.numel()} bytes, {strips.numel() / (fast_bsk.numel() * 4):.1f} "
+          f"times the key): equal to key_strips_plain={strips_equal}; build {strip_ms:.3f} ms, "
+          f"{show_bound(strip_bound)}")
+    check(strips_equal, "the wgmma instance's key strips == key_strips_plain at 128_BIT_FAST")
+    del strips
 
     for log_n in (6, 10, 11, 12):
         print(f"[3a] clusters the card holds at one block an SM, N=2^{log_n}: "
@@ -869,7 +911,8 @@ def phase_kernel_vs_plain(dev) -> dict:
         rows[(name, batch, per_ct)] = case_row(case, k_ms, p_ms, bnd, tile)
     print(f"[3a] done {elapsed()}")
     return {"max_abs_err": max_err, **rows[("128_BIT_FAST", 4096, False)], "library_ms": None,
-            "cases": list(rows.values()), "tiles_compared": tile_list(tiles)}
+            "cases": list(rows.values()), "tiles_compared": tile_list(tiles),
+            "strip_build": {"ms": strip_ms, "bound_ms": strip_bound["bound_ms"], "equal_to_plain": strips_equal}}
 
 
 def phase_mb_kernel_vs_plain(dev) -> dict:
@@ -2704,12 +2747,14 @@ def main() -> int:
         for m in modules.values():
             m.launches = 0
             m.launched_tiles.clear()
+        strip_builds = cuda_blind_rotate.strip_builds
         NU.launched_shapes.clear()
         cuda_probes.launches.clear()
         cuda_probes.roll_add_launches.clear()
         out = fn(*args)
         counts = {k: m.launches for k, m in modules.items()}
         counts.update({k: cuda_probes.launches[k] for k in probe_names})
+        counts["bsk.strip_builds"] = cuda_blind_rotate.strip_builds - strip_builds
         roll_add_instances.update(cuda_probes.roll_add_launches)
         tiles = {k: tile_list(m.launched_tiles) for k, m in modules.items()}
         for k, m in modules.items():
@@ -2828,6 +2873,10 @@ def main() -> int:
         }
         if name in modules:
             entry["tiles_on_path"] = tile_list(path_tiles[name])
+        if name == "blind_rotate":  # the wgmma instance's key strips built, beside the launches
+            entry["strip_builds"] = sum(c["bsk.strip_builds"] for c in paths.values())
+            entry["strip_builds_by_path"] = {k: c["bsk.strip_builds"] for k, c in paths.items()
+                                             if c["bsk.strip_builds"]}
         if name == "nussbaumer_dot":
             entry["shapes_on_path"] = tile_list(path_dot_shapes)
         if name == "chain_roll_add":

@@ -131,9 +131,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tfhe_blind_rotate_mb_max_cluster_tile.argtypes = [i]
     lib.tfhe_blind_rotate_mb_max_cluster_tile.restype = i
     lib.tfhe_blind_rotate.argtypes = [
-        p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, i, i, p,
+        p, p, p, ctypes.c_longlong, p, p, p, i, i, i, i, i, ctypes.c_uint, i, i, i, p,
     ]
     lib.tfhe_blind_rotate.restype = i
+    lib.tfhe_blind_rotate_strip_bytes.argtypes = [i, i, i, i, i]
+    lib.tfhe_blind_rotate_strip_bytes.restype = ctypes.c_longlong
+    lib.tfhe_blind_rotate_strips.argtypes = [p, p, i, i, i, i, i, p]
+    lib.tfhe_blind_rotate_strips.restype = i
     lib.tfhe_blind_rotate_max_active_clusters.argtypes = [i, i, i, i, i]
     lib.tfhe_blind_rotate_max_active_clusters.restype = i
     lib.tfhe_blind_rotate_max_cluster.argtypes = [i]

@@ -16,9 +16,12 @@
 // (tile T, cluster CL, unit):
 //
 // Tensor-core instance (N = 1024 and 2048, single-limb digits, from a few
-// dozen ciphertexts up): a cluster with T = 16 or 32, CL = 2N / 256, the product as s8
-// limb products through mma.sync (csrc/negacyclic_mma.cuh), the decomposition
-// shared out by rows; described at blind_rotate_mma_kernel.
+// dozen ciphertexts up): a cluster with T = 16 or 32, CL = 2N / 256, the
+// product as s8 limb products, the decomposition shared out by rows. With 32
+// rows (N = 1024, a key of three limbs: SECURITY_128_BIT_FAST's full batches)
+// on wgmma, the key as the A operand read through a descriptor from a
+// diagonal strip (blind_rotate_wgmma_kernel); with 16 rows and at N = 2048 on
+// mma.sync (blind_rotate_mma_kernel, csrc/negacyclic_mma.cuh).
 //
 // Cluster instance (CL >= 2; small batches, and batches up to a few hundred of
 // the sets the tensor-core instance does not serve). A thread-block
@@ -81,8 +84,13 @@
 // is bound by how many SMs one ciphertext can use (16) and by the exchange.
 // The tensor-core instance is bound by s8 multiply-adds (3 or 4 limbs per
 // word): 2 * 2L * N^2 * limbs per step and ciphertext against the tensor
-// cores' rate; what it sustains, and what its two exchanges a step cost, is
-// in PERF.md.
+// cores' rate. On wgmma the operands come from shared memory, 128 bytes a
+// clock: an m64nTk32 reads 2 KB of key and 32 T bytes of digits for
+// 64 * T * 32 multiply-adds, 24 clocks at T = 32 (two thirds of the s8 rate)
+// and 20 at T = 16 (two fifths), whatever the layout; at T = 16 the mma.sync
+// loop, whose key fragments are built in registers and serve four column
+// tiles, is faster. What each sustains, and what the two exchanges a step
+// cost, is in PERF.md.
 //
 // Shared memory per block (single-block instance): (3T + 4) * N words, 112 KB
 // at N=1024, T=8.
@@ -96,6 +104,7 @@
 
 #include "cluster_rotation.cuh"
 #include "negacyclic_mma.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
@@ -386,10 +395,11 @@ blind_rotate_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core instance (N = 1024 and 2048, single-limb digits, 16 or 32 ciphertexts a cluster)
+// The tensor-core instance on mma.sync (16 ciphertexts a cluster, and N = 2048)
 // ---------------------------------------------------------------------------
 
 namespace nm = negacyclic;
+namespace wg8 = wgmma_s8;
 
 // The ring sizes that have this instance: all 2L digit planes of 16 rows
 // must fit in shared memory (196 KB of 227 at N = 2048, L = 3; not at 4096).
@@ -407,9 +417,10 @@ constexpr size_t mma_smem_bytes(int n, int limbs, int tile, int l) {
          + static_cast<size_t>(2 * l) * tile * n;                                   // s8 digits
 }
 
-// The cluster instance with the product on the tensor cores: 16 * MS
-// ciphertexts on a cluster of 2N / 256 blocks. No block keeps a copy of the
-// whole accumulator. Block r owns
+// The cluster instance with the product on the tensor cores through
+// mma.sync, for the shapes without a wgmma instance (has_wgmma_instance: 16
+// rows, and N = 2048): 16 * MS ciphertexts on a cluster of 2N / 256 blocks.
+// No block keeps a copy of the whole accumulator. Block r owns
 //   - the output columns [256 r, 256 r + 256) of all rows, as the 32-bit sums
 //     of its mma accumulators, in registers for the whole rotation;
 //   - the rows [r * T/CL, (r + 1) * T/CL) in full (every column, shared
@@ -431,10 +442,9 @@ constexpr size_t mma_smem_bytes(int n, int limbs, int tile, int l) {
 // MS = 2 every fragment serves two m16 row tiles. The limb sums stay in s32
 // registers for the whole step (2L * N * 128 * 255 < 2^31, checked by the
 // wrapper). Shared memory: T/CL * 2N words + 2L * T * N digit bytes + the key
-// windows: 168 KB at N = 1024, L = 2, MS = 2; 122 KB at L = 3, MS = 1 (L = 3
-// with MS = 2 does not fit, and 4 limbs with MS = 2 exceed the registers);
-// 226 KB of the 227 a block may have at N = 2048, L = 3, MS = 1, a cluster
-// of 16 with one row a block.
+// windows: 122 KB at N = 1024, L = 3 (MS = 1: 32 rows run on wgmma); 226 KB
+// of the 227 a block may have at N = 2048, L = 3, a cluster of 16 with one
+// row a block.
 template <int LOG_N, int LIMBS, int MS>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 blind_rotate_mma_kernel(const int32_t* __restrict__ b_til,     // [B]
@@ -664,12 +674,328 @@ blind_rotate_mma_kernel(const int32_t* __restrict__ b_til,     // [B]
     }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core instance on wgmma (N = 1024, 32 rows a cluster)
+// ---------------------------------------------------------------------------
+
+// The one shape (ring size, key limbs, 16-row tiles) whose tensor-core
+// instance runs on wgmma: FAST's 32 rows. Its product reads the key's operand
+// (2 KB an m64 x k32 tile) and the digits from shared memory on every wgmma
+// and is bound by those reads; at 16 rows the same key bytes serve half the
+// multiply-adds, and the mma.sync kernel above, which builds its key
+// fragments in registers, measured faster there (PERF.md). At N = 2048 the
+// digit planes leave 19 KB, too little for the ring. The wrapper asks the
+// library (tfhe_blind_rotate_strip_bytes), which answers from here alone.
+constexpr int kWgmmaLogN = 10, kWgmmaLimbs = 3, kWgmmaMs = 2;
+constexpr bool has_wgmma_instance(int log_n, int limbs, int ms) {
+  return log_n == kWgmmaLogN && limbs == kWgmmaLimbs && ms == kWgmmaMs;
+}
+
+// Slots of the strip ring: one key limb's strip of a whole gadget row each.
+constexpr int kStripSlots = 3;
+
+__host__ __device__ constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
+
+// Shared memory: the strip ring, own rows, own exponents and the ring's
+// barriers, then the 2L digit planes (each at a multiple of 128 bytes).
+constexpr size_t wgmma_smem_bytes(int n, int limbs, int tile, int l) {
+  return static_cast<size_t>(kStripSlots * nm::strip_cores(n) * nm::kCoreBytes) +
+         round128(tile / (2 * n / kMmaCols) * 2 * n * 4) + 128 + static_cast<size_t>(2 * l) * tile * n;
+}
+
+// Bytes of the key's strips (blind_rotate_strips_kernel) for n0 steps.
+constexpr long long strip_bytes(int n, int n0, int l, int limbs) {
+  return static_cast<long long>(n0) * 2 * l * 2 * limbs * nm::poly_strip_cores(n) * nm::kCoreBytes;
+}
+
+// The key's operand for the wgmma instance: for every step i, gadget row j,
+// polynomial o and key limb k, the polynomial's strip (poly_strip_cores(N)
+// core matrices, csrc/negacyclic_mma.cuh), at
+// strips[(((i * 2L + j) * 2 + o) * LIMBS + k) * poly_strip_cores(N) * 128];
+// a block's strip of a gadget row is a contiguous run of it, and so is a
+// chunk's. Row x of a strip (16 bytes at 16 x) is bytes x .. x + 15 of the
+// limb's reversed ext, so a block (one a polynomial and gadget row) puts the
+// limbs' reversed bytes in shared memory and writes each row with one 16-byte
+// store: consecutive threads, consecutive rows.
+template <int LOG_N, int LIMBS>
+__global__ void __launch_bounds__(256)
+blind_rotate_strips_kernel(const uint32_t* __restrict__ bsk, uint8_t* __restrict__ strips) {
+  constexpr int N = 1 << LOG_N;
+  constexpr int CORES = nm::poly_strip_cores(N);
+  constexpr int WORDS = 2 * N / 4;  // reversed bytes of a limb, as words
+  __shared__ uint32_t rev_s[LIMBS][WORDS];
+  const uint32_t* p = bsk + static_cast<size_t>(blockIdx.x) * N;  // polynomial o of gadget row j of step i
+  for (int q = threadIdx.x; q < WORDS; q += blockDim.x) {
+    uint32_t w[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {  // byte 4q + b is ext[2N - 1 - 4q - b]
+      const int x = 2 * N - 1 - 4 * q - b;
+      w[b] = x >= N ? p[x - N] : 0u - p[x];
+    }
+#pragma unroll
+    for (int k = 0; k < LIMBS; ++k) {
+      const int shift = 8 * (k + nm::kLimbs - LIMBS);
+      rev_s[k][q] = (w[0] >> shift & 0xFFu) | (w[1] >> shift & 0xFFu) << 8 | (w[2] >> shift & 0xFFu) << 16 |
+                    (w[3] >> shift & 0xFFu) << 24;
+    }
+  }
+  __syncthreads();
+  uint4* dst = reinterpret_cast<uint4*>(strips + static_cast<size_t>(blockIdx.x) * LIMBS * CORES * nm::kCoreBytes);
+  for (int x = threadIdx.x; x < LIMBS * CORES * 8; x += blockDim.x) {
+    const int k = x / (CORES * 8), row = x % (CORES * 8);
+    const uint32_t* r = rev_s[k] + row / 4;  // row + 15 < 2N: every word read is the limb's
+    const int shift = 8 * (row % 4);
+    dst[x] = make_uint4(__funnelshift_r(r[0], r[1], shift), __funnelshift_r(r[1], r[2], shift),
+                        __funnelshift_r(r[2], r[3], shift), __funnelshift_r(r[3], r[4], shift));
+  }
+}
+
+// The tensor-core instance with the product on wgmma: 32 ciphertexts on a
+// cluster of 2N / 256 = 8 blocks, each block owning 256 output columns of all
+// rows and the rows [r * T/CL, (r + 1) * T/CL) in full, exactly as the
+// mma.sync kernel above (its exchange, its two cluster barriers a step, its
+// decomposition shared out by rows). Only the product differs:
+//   D[mu, n] = sum_m A[mu, m] * B[n, m]   (per key limb, s32)
+// with M = the block's 256 columns in descending order (four m64 tiles, two
+// per warpgroup), N = the T rows (wgmma m64n32k32 .u8.s8) and K = the N digits
+// of a gadget row. A, the key limb's Toeplitz operand, is read through a
+// descriptor from the diagonal strip (csrc/negacyclic_mma.cuh). The strips
+// come ready from the key (blind_rotate_strips_kernel): one unit of work is a
+// gadget row and a key limb, whose strip (20 KB at N = 1024, a run of the
+// polynomial's strip that every block of its half of the cluster reads) the
+// copy engine brings (cp.async.bulk) into a ring of three slots, two units
+// ahead. A block builds nothing: the copies take none of the issue slots and
+// little of the shared-memory bandwidth that bounds the product (each wgmma
+// reads its 2 KB of key and T * 32 bytes of digits: 24 clocks an m64n32k32
+// at 128 bytes a clock, whatever the layout). One unit's products stay in flight while the
+// next is issued; a warp releases a unit's slot (an mbarrier, one arrival a
+// warp) once its products are done, and thread 0 then copies the unit three
+// ahead into it. B, the digit planes, are read in place: the decomposition
+// writes each digit into the core matrix the descriptor reads and pushes the
+// same 16-byte words to the peers as before. One s32 accumulator set per limb
+// (T/2 words a tile and thread), folded into the 32-bit slice once a step
+// (2L * N * 128 * 255 < 2^31, checked by the wrapper). Like the mma.sync
+// kernel, it replaces the TPU kernels fused_blind_rotate and
+// fused_blind_rotate_wide for these batches. Shared memory at N = 1024, L = 2,
+// T = 32: the ring 60.7 KB (3 x 158 core matrices), own rows 32 KB, digits
+// 128 KB: 224,640 of 232,448 bytes; the key's strips in device memory, 23.8
+// times its bytes (546 MB at SECURITY_128_BIT_FAST), one key's a device
+// (ops/cuda_blind_rotate.key_strips).
+template <int LOG_N, int LIMBS, int MS>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+blind_rotate_wgmma_kernel(const int32_t* __restrict__ b_til,     // [B]
+                          const int32_t* __restrict__ a_til,     // [B, n0]
+                          const uint32_t* __restrict__ testvec,  // [2, N] or [B, 2, N]
+                          long long tv_stride,                   // 0 (shared) or 2N
+                          const uint8_t* __restrict__ strips,    // the key's strips, strip_bytes(N, n0, L, LIMBS)
+                          uint32_t* __restrict__ out,            // [B, 2, N]
+                          int batch, int n0, int l, int bgbit, uint32_t dec_offset) {
+  constexpr int N = 1 << LOG_N;
+  constexpr int TWO_N_MASK = 2 * N - 1;
+  constexpr int T = 16 * MS;
+  constexpr int THREADS = kMmaThreads;
+  constexpr int W = kMmaCols;
+  constexpr int CL = 2 * N / W;
+  constexpr int RPB = T / CL;  // rows whose accumulator this block owns in full
+  constexpr int SLOT = nm::strip_cores(N) * nm::kCoreBytes;  // one limb's strip of a gadget row
+  constexpr int POLY = nm::poly_strip_cores(N) * nm::kCoreBytes;  // the polynomial's strip it is a run of
+  constexpr int PLANE = T * N;                   // bytes of one digit plane
+  constexpr int ACC = T / 2;                     // accumulator words a tile and thread
+  constexpr int LBO_B = T / 8 * nm::kCoreBytes;  // digit core matrices along K
+  static_assert(W == nm::kColsA && T % CL == 0 && RPB <= 8 && N % 32 == 0, "wgmma instance shape");
+
+  extern __shared__ __align__(128) uint8_t smem8[];
+  uint8_t* strip_s = smem8;                                                          // [kStripSlots][SLOT]
+  uint32_t* rowacc_s = reinterpret_cast<uint32_t*>(strip_s + kStripSlots * SLOT);    // [RPB][2][N]
+  int* a_s = reinterpret_cast<int*>(rowacc_s + round128(RPB * 2 * N * 4) / 4);       // [8]
+  uint64_t* full = reinterpret_cast<uint64_t*>(a_s + 8);                             // [slots] a strip landed
+  uint64_t* empty = full + kStripSlots;                                              // [slots] every warp read it
+  uint8_t* dig_s = reinterpret_cast<uint8_t*>(a_s + 32);                             // [2L][PLANE]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // warpgroup: m64 tiles 2 wgi and 2 wgi + 1
+  const int lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int mu0 = 128 * wgi + 16 * (tid % 128 / 32) + g;  // this thread's first column (descending order)
+  const int o = rank * W / N;
+  const int s0 = rank * W % N;
+  const int b0 = (blockIdx.x / CL) * T;
+  const int row0 = rank * RPB;
+  const uint32_t digit_mask = (1u << bgbit) - 1u;
+  const int32_t half_bg = 1 << (bgbit - 1);
+  const int units = n0 * 2 * l * LIMBS;  // (step, gadget row, limb) of the whole rotation; unit u takes slot u % 3
+  // accumulator word 4 jj + 2 h + e of tile tt: column s0 + W - 1 - (mu0 + 64 tt + 8 h), row 8 jj + 2 t4 + e
+  auto column = [&](int tt, int h) { return s0 + W - 1 - (mu0 + 64 * tt + 8 * h); };
+
+  if (tid == 0) {
+    for (int b = 0; b < kStripSlots; ++b) {
+      wg8::mbar_init(full + b, 1);
+      wg8::mbar_init(empty + b, THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // unit u's strip into slot u % 3, copied by thread 0 (every thread calls): the units' polynomial strips
+  // are laid out in their order, and this block's run starts at core (N - W - s0) / 8 of each
+  auto fetch = [&](int u) {
+    const long long unit = (static_cast<long long>(u / LIMBS) * 2 + o) * LIMBS + u % LIMBS;
+    wg8::bulk_load_if(strip_s + u % kStripSlots * SLOT, strips + unit * POLY + (N - W - s0) / 8 * nm::kCoreBytes,
+                      SLOT, full + u % kStripSlots, tid == 0);
+  };
+
+  auto rotated_testvec = [&](int b, int poly, int c) -> uint32_t {
+    if (b >= batch) return 0u;
+    const int k = (c - (b_til[b] & TWO_N_MASK) + 2 * N) & TWO_N_MASK;
+    const uint32_t w = testvec[b * tv_stride + poly * N + (k & (N - 1))];
+    return k >= N ? 0u - w : w;
+  };
+  for (int x = tid; x < RPB * 2 * N; x += THREADS)
+    rowacc_s[x] = rotated_testvec(b0 + row0 + x / (2 * N), (x / N) & 1, x & (N - 1));
+  uint32_t slice[2][ACC];
+#pragma unroll
+  for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+    for (int x = 0; x < ACC; ++x)
+      slice[tt][x] = rotated_testvec(b0 + 8 * (x / 4) + 2 * t4 + (x & 1), o, column(tt, (x / 2) & 1));
+  auto exponent = [&](int i) -> int {
+    const int b = b0 + row0 + tid;
+    return tid < RPB && b < batch && i < n0 ? (a_til[static_cast<size_t>(b) * n0 + i] & TWO_N_MASK) : 0;
+  };
+  if (tid < RPB) a_s[tid] = exponent(0);
+  __syncthreads();  // the barriers are initialised
+  for (int u = 0; u < kStripSlots && u < units; ++u) fetch(u);
+
+  // all 2L digit planes of this block's rows, into its own digit buffer and its peers'
+  auto decompose_and_share = [&]() {
+    for (int x = tid; x < RPB * 2 * N; x += THREADS) {
+      const int lr = x / (2 * N);
+      const int poly = (x / N) & 1;
+      const int m = x & (N - 1);
+      const uint32_t* src = rowacc_s + (lr * 2 + poly) * N;
+      const int k = (m - a_s[lr] + 2 * N) & TWO_N_MASK;
+      const uint32_t w = src[k & (N - 1)];
+      const uint32_t v = (k >= N ? 0u - w : w) - src[m] + dec_offset;
+      for (int lvl = 0; lvl < l; ++lvl) {
+        const int32_t d = static_cast<int32_t>((v >> (32 - (lvl + 1) * bgbit)) & digit_mask) - half_bg;
+        dig_s[(poly * l + lvl) * PLANE + nm::digit_offset(T, row0 + lr, m)] = static_cast<uint8_t>(d);
+      }
+    }
+    __syncthreads();
+    uint4* dig4 = reinterpret_cast<uint4*>(dig_s);
+    for (int x = tid; x < 2 * l * (N / 16) * RPB; x += THREADS) {
+      const int idx = nm::digit_offset(T, row0, 16 * (x / RPB)) / 16 + x % RPB;  // planes are whole 16-digit runs
+      const uint4 v = dig4[idx];
+#pragma unroll
+      for (int p = 0; p < CL; ++p)
+        if (p != rank) cluster.map_shared_rank(dig4, p)[idx] = v;
+    }
+    nm::fence_async_shared();
+    cluster_arrive();
+    cluster_wait();  // every block has every row's digits
+    nm::fence_async_shared();
+  };
+
+  uint32_t acc[LIMBS][2][ACC];
+  // gadget row j against key limb k from slot `slot`: for each 32-digit step s, one wgmma a tile (k is
+  // a constant where the callers' loops over the limbs unroll)
+  auto issue = [&](int k, int slot, int j) {
+    const uint8_t* strip = strip_s + slot * SLOT + (16 * wgi) * nm::kCoreBytes;
+    const uint8_t* plane = dig_s + j * PLANE;
+    wg8::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < N / 32; ++s) {
+      const uint64_t db = nm::plain_desc(plane + 2 * s * LBO_B, LBO_B, nm::kCoreBytes);
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+        nm::wgmma_u8s8<T>(acc[k][tt], nm::plain_desc(strip + (8 * tt + 4 * s) * nm::kCoreBytes, 2 * nm::kCoreBytes,
+                                                      nm::kCoreBytes), db, s > 0 || j > 0);
+    }
+    wg8::wgmma_commit();
+  };
+
+  // One unit's products stay in flight while the next unit is issued; a warp releases unit u - 1 once
+  // its products are done (wait_group 1), and thread 0 then copies unit u + 2 into that slot. At a step's
+  // end every product is waited for (the fold reads the sums) and the step's last unit released there.
+  // No branch on the thread between the groups (csrc/wgmma_s8.cuh: mbar_wait_uniform).
+  auto release_and_fetch = [&](int done) {  // unit `done` is complete in this warp
+    wg8::mbar_arrive_if(empty + done % kStripSlots, lane == 0);
+    if (done + kStripSlots < units) {
+      wg8::mbar_wait_uniform(empty + done % kStripSlots, (done / kStripSlots) & 1);
+      fetch(done + kStripSlots);
+    }
+  };
+  decompose_and_share();
+  int u = 0;
+  for (int i = 0; i < n0; ++i) {
+    const int a_next = exponent(i + 1);
+    for (int j = 0; j < 2 * l; ++j) {
+#pragma unroll
+      for (int k = 0; k < LIMBS; ++k, ++u) {
+        wg8::mbar_wait_uniform(full + u % kStripSlots, (u / kStripSlots) & 1);
+        issue(k, u % kStripSlots, j);
+        wg8::wgmma_wait<1>();
+        if (j > 0 || k > 0) release_and_fetch(u - 1);
+      }
+    }
+    wg8::wgmma_wait<0>();
+#pragma unroll
+    for (int k = 0; k < LIMBS; ++k)
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt) wg8::fence_acc(acc[k][tt]);
+    release_and_fetch(u - 1);
+#pragma unroll
+    for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+      for (int x = 0; x < ACC; ++x)
+#pragma unroll
+        for (int k = 0; k < LIMBS; ++k)
+          slice[tt][x] += acc[k][tt][x] << (8 * (k + nm::kLimbs - LIMBS));
+    if (i + 1 == n0) break;
+    // each row of the slice goes to the block that owns the row: a lane pairs its column with its
+    // neighbour's (lane ^ 4 holds the next or previous column) for 8-byte stores
+    const bool even = (g & 1) == 0;
+#pragma unroll
+    for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+      for (int jj = 0; jj < T / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t v0 = slice[tt][4 * jj + 2 * h], v1 = slice[tt][4 * jj + 2 * h + 1];
+          const uint32_t recv = __shfl_xor_sync(0xFFFFFFFFu, even ? v1 : v0, 4);
+          const int row = 8 * jj + 2 * t4 + (even ? 0 : 1);
+          const int c = column(tt, h) - (even ? 1 : 0);
+          uint32_t* dst = cluster.map_shared_rank(rowacc_s, row / RPB) + ((row % RPB) * 2 + o) * N + c;
+          *reinterpret_cast<uint2*>(dst) = even ? make_uint2(recv, v0) : make_uint2(v1, recv);
+        }
+    if (tid < RPB) a_s[tid] = a_next;
+    cluster_arrive();
+    cluster_wait();  // every owner has its rows' new accumulator
+    decompose_and_share();
+  }
+
+  const bool even = (g & 1) == 0;
+#pragma unroll
+  for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+    for (int jj = 0; jj < T / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t v0 = slice[tt][4 * jj + 2 * h], v1 = slice[tt][4 * jj + 2 * h + 1];
+        const uint32_t recv = __shfl_xor_sync(0xFFFFFFFFu, even ? v1 : v0, 4);
+        const int b = b0 + 8 * jj + 2 * t4 + (even ? 0 : 1);
+        if (b < batch)
+          *reinterpret_cast<uint2*>(out + (static_cast<size_t>(b) * 2 + o) * N + column(tt, h) - (even ? 1 : 0)) =
+              even ? make_uint2(recv, v0) : make_uint2(v1, recv);
+      }
+}
+
 struct Args {
   const int32_t* b_til;
   const int32_t* a_til;
   const uint32_t* testvec;
   long long tv_stride;
   const uint32_t* bsk;
+  const uint8_t* strips;  // the key's strips where the instance runs on wgmma, else null
   uint32_t* out;
   int batch, n0, l, bgbit;
   uint32_t dec_offset;
@@ -780,19 +1106,27 @@ int launch_tile(const Args& a, int tile, int cluster, int* active) {
   }
 }
 
-// Launch the tensor-core instance (or, with `active`, count the clusters the
-// device holds of it).
+// Launch the tensor-core instance, on wgmma where the shape has it, else on
+// mma.sync (or, with `active`, count the clusters the device holds of it).
 template <int LOG_N, int LIMBS, int MS>
 int launch_mma(const Args& a, int* active) {
   constexpr int N = 1 << LOG_N;
   constexpr int CL = 2 * N / kMmaCols;
   constexpr int T = 16 * MS;
-  const size_t smem = mma_smem_bytes(N, LIMBS, T, a.l);
+  constexpr bool on_wgmma = has_wgmma_instance(LOG_N, LIMBS, MS);
+  const size_t smem = on_wgmma ? wgmma_smem_bytes(N, LIMBS, T, a.l) : mma_smem_bytes(N, LIMBS, T, a.l);
   if (smem > kMaxSmem) {  // this gadget length's digit planes do not fit a block
     if (active != nullptr) *active = 0;
     return static_cast<int>(active != nullptr ? cudaSuccess : cudaErrorInvalidValue);
   }
-  auto kern = blind_rotate_mma_kernel<LOG_N, LIMBS, MS>;
+  if (on_wgmma && active == nullptr && a.strips == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = [] {  // one kernel a shape: the other is never instantiated
+    if constexpr (on_wgmma) {
+      return blind_rotate_wgmma_kernel<LOG_N, LIMBS, MS>;
+    } else {
+      return blind_rotate_mma_kernel<LOG_N, LIMBS, MS>;
+    }
+  }();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -814,10 +1148,21 @@ int launch_mma(const Args& a, int* active) {
   config.numAttrs = 1;
   if (active != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveClusters(active, kern, &config));
-  err = cudaLaunchKernelEx(&config, kern, a.b_til, a.a_til, a.testvec, a.tv_stride, a.bsk, a.out,
-                           a.batch, a.n0, a.l, a.bgbit, a.dec_offset);
+  if constexpr (on_wgmma) {
+    err = cudaLaunchKernelEx(&config, kern, a.b_til, a.a_til, a.testvec, a.tv_stride, a.strips, a.out,
+                             a.batch, a.n0, a.l, a.bgbit, a.dec_offset);
+  } else {
+    err = cudaLaunchKernelEx(&config, kern, a.b_til, a.a_til, a.testvec, a.tv_stride, a.bsk, a.out,
+                             a.batch, a.n0, a.l, a.bgbit, a.dec_offset);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the tensor-core instance of this ring size, tile and key limbs runs
+// on wgmma, reading the key's strips.
+constexpr bool runs_on_wgmma(int log_n, int tile, int limbs) {
+  return (tile == 16 || tile == 32) && has_wgmma_instance(log_n, limbs, tile / 16);
 }
 
 // limbs 0: the CUDA-core instances; 3 or 4: the tensor-core instance with
@@ -855,6 +1200,17 @@ extern "C" int TFHE_RING_FN(TFHE_LOG_N)(const void* args, int tile, int cluster,
   return launch_unit<TFHE_LOG_N>(*static_cast<const Args*>(args), tile, cluster, limbs, active);
 }
 
+#if TFHE_LOG_N == 10
+static_assert(kWgmmaLogN == TFHE_LOG_N, "the strips are built in the wgmma instance's unit");
+// The key's strips (strip_bytes of them) of the one wgmma shape, on the stream.
+extern "C" int tfhe_blind_rotate_strips_ring_10(const void* args) {
+  const Args& a = *static_cast<const Args*>(args);
+  blind_rotate_strips_kernel<kWgmmaLogN, kWgmmaLimbs>
+      <<<static_cast<unsigned>(a.n0 * 2 * a.l * 2), 256, 0, a.stream>>>(a.bsk, const_cast<uint8_t*>(a.strips));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
 #ifdef TFHE_MAIN
 
 extern "C" {
@@ -865,6 +1221,7 @@ int tfhe_blind_rotate_ring_9(const void*, int, int, int, int*);
 int tfhe_blind_rotate_ring_10(const void*, int, int, int, int*);
 int tfhe_blind_rotate_ring_11(const void*, int, int, int, int*);
 int tfhe_blind_rotate_ring_12(const void*, int, int, int, int*);
+int tfhe_blind_rotate_strips_ring_10(const void*);
 }
 
 namespace {
@@ -894,14 +1251,37 @@ extern "C" {
 // after the launch (0 on success) or cudaErrorInvalidValue for a shape it
 // does not take. Does not synchronise and allocates nothing.
 int tfhe_blind_rotate(const void* b_til, const void* a_til, const void* testvec,
-                      long long tv_stride, const void* bsk, void* out, int batch, int n0,
-                      int log_n, int l, int bgbit, unsigned int dec_offset, int tile, int cluster,
-                      int limbs, void* stream) {
+                      long long tv_stride, const void* bsk, const void* strips, void* out, int batch,
+                      int n0, int log_n, int l, int bgbit, unsigned int dec_offset, int tile,
+                      int cluster, int limbs, void* stream) {
   const Args a{static_cast<const int32_t*>(b_til), static_cast<const int32_t*>(a_til),
                static_cast<const uint32_t*>(testvec), tv_stride,
-               static_cast<const uint32_t*>(bsk), static_cast<uint32_t*>(out),
-               batch, n0, l, bgbit, dec_offset, static_cast<cudaStream_t>(stream)};
+               static_cast<const uint32_t*>(bsk), static_cast<const uint8_t*>(strips),
+               static_cast<uint32_t*>(out), batch, n0, l, bgbit, dec_offset,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(a, log_n, tile, cluster, limbs, nullptr);
+}
+
+// Bytes of the key's strips that the tensor-core instance of (tile, limbs)
+// reads at ring size 2^log_n for n0 steps and gadget length l: 0 where that
+// instance runs on mma.sync and reads the key itself.
+long long tfhe_blind_rotate_strip_bytes(int log_n, int n0, int l, int tile, int limbs) {
+  return runs_on_wgmma(log_n, tile, limbs) ? strip_bytes(1 << log_n, n0, l, limbs) : 0;
+}
+
+// Builds the key's strips (tfhe_blind_rotate_strip_bytes of them) from bsk
+// [n0, 2L, 2, N] into `strips` on `stream`. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for an instance without strips.
+int tfhe_blind_rotate_strips(const void* bsk, void* strips, int n0, int log_n, int l, int tile, int limbs,
+                             void* stream) {
+  Args a{};
+  a.bsk = static_cast<const uint32_t*>(bsk);
+  a.strips = static_cast<const uint8_t*>(strips);
+  a.n0 = n0;
+  a.l = l;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (!runs_on_wgmma(log_n, tile, limbs)) return static_cast<int>(cudaErrorInvalidValue);
+  return tfhe_blind_rotate_strips_ring_10(&a);  // runs_on_wgmma holds at kWgmmaLogN alone
 }
 
 // How many clusters of the (tile, cluster >= 2) instance the current device

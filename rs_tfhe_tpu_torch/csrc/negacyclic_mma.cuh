@@ -39,6 +39,8 @@
 
 #include <cstdint>
 
+#include "wgmma_s8.cuh"
+
 namespace negacyclic {
 
 constexpr int kLimbs = 4;           // bytes of a torus word
@@ -157,6 +159,84 @@ __device__ __forceinline__ uint32_t fold_limbs(const int (&acc)[LIMBS][MS][NS][4
 #pragma unroll
   for (int k = 0; k < LIMBS; ++k) v += static_cast<uint32_t>(acc[k][ms][ns][i]) << (8 * k);
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// The same product on wgmma: the key as the A operand, read through a
+// descriptor from a diagonal strip
+// ---------------------------------------------------------------------------
+//
+// With the columns taken in descending order, mu = kColsA - 1 - cl, entry
+// (mu, m) of the Toeplitz operand is rev[mu + m] (the reversed window above,
+// over kColsA columns): a Hankel matrix. wgmma reads a K-major 8-bit operand
+// without swizzle as core matrices of 8 rows x 16 bytes (128 contiguous
+// bytes); core matrix (i, j), rows 8i.. and k-bytes 16j.., holds
+// rev[8 (i + 2j) + r + b] at row r, byte b, so it depends on i + 2j alone. The
+// strip S[delta] (128 bytes: row r = rev[8 delta + r .. 8 delta + r + 15]) is
+// therefore the whole operand, and a descriptor with 128 bytes between core
+// matrices along M (stride byte offset) and 256 along K (leading byte offset)
+// reads it: (kColsA + K) / 8 - 2 core matrices for K digits, where the
+// operand itself would be kColsA * K bytes. The tensor cores only read it;
+// neighbouring core matrices overlap in what they hold, not in memory.
+//
+// The digits are the B operand (N = the tile's rows), K-major in the same
+// core matrices: digit m of row n at ((m / 16) * (rows / 8) + n / 8) * 128 +
+// (n % 8) * 16 + m % 16, so a 16-digit slice of a row is one 16-byte word.
+
+constexpr int kColsA = 256;    // output columns (M) a block: four m64 tiles
+constexpr int kCoreBytes = 128;  // one core matrix
+
+// Core matrices of a strip that serves K digits for kColsA columns.
+__host__ __device__ constexpr int strip_cores(int k) { return (kColsA + k) / 8 - 2; }
+
+// Core matrices of a polynomial's strip: row x = bytes x .. x + 15 of the
+// whole reversed ext = [-p, p] (2N bytes). The reversed window of the block
+// whose columns start at s0 begins at its byte N - kColsA - s0, so the block's
+// strip for a gadget row is strip_cores(N) of these from core (N - kColsA -
+// s0) / 8 on: one strip a polynomial serves every block of the cluster.
+__host__ __device__ constexpr int poly_strip_cores(int n) { return 2 * n / 8 - 2; }
+
+// Byte offset of digit m of row n in a plane of `rows` rows.
+__host__ __device__ constexpr int digit_offset(int rows, int n, int m) {
+  return ((m / 16) * (rows / 8) + n / 8) * kCoreBytes + (n % 8) * 16 + m % 16;
+}
+
+// Descriptor of a K-major operand without swizzle at p: `lbo` bytes between
+// core matrices along K, `sbo` along M or N.
+__device__ __forceinline__ uint64_t plain_desc(const void* p, int lbo, int sbo) {
+  return static_cast<uint64_t>((wgmma_s8::smem_addr(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Generic-proxy writes of shared memory (this block's, and through
+// distributed shared memory its peers') before wgmma reads them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cluster;" ::: "memory");
+}
+
+// d[64 x NT] (+)= A[64 x 32] . B[NT x 32]^T, A unsigned (key limbs), B signed
+// (digits), s32 sums that wrap; scale_d 0 overwrites d. Thread t of the
+// warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
+// 8j + 2 (t % 4) (+ 1) in d[4j .. 4j + 3].
+template <int NT>
+__device__ __forceinline__ void wgmma_u8s8(uint32_t (&d)[NT / 2], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(NT == 16 || NT == 32, "tiles of 16 or 32 rows");
+  if constexpr (NT == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.u8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.u8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
 }  // namespace negacyclic

@@ -146,6 +146,56 @@ __device__ __forceinline__ void tma_load_2d(const CUtensorMap* map, uint64_t* ba
       : "memory");
 }
 
+// Barrier steps for code between asynchronous wgmma groups, where a branch
+// on the thread would make ptxas serialise the products (C7518): the wait
+// loops inside one asm statement, and a step meant for one thread is
+// predicated inside its asm.
+
+// Wait until the phase of `parity` has completed.
+__device__ __forceinline__ void mbar_wait_uniform(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival on bar from each thread with `pred` set.
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// From the thread with `pred` set: one arrival on bar that announces `bytes`,
+// and the copy of `bytes` contiguous bytes (a multiple of 16, both ends
+// 16-byte aligned) from global memory at src into this block's shared memory
+// at dst, which completes them.
+__device__ __forceinline__ void bulk_load_if(void* dst, const void* src, uint32_t bytes, uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %4, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      "}\n"
+      :
+      : "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar)),
+        "r"(static_cast<int>(pred))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // The product
 // ---------------------------------------------------------------------------
@@ -167,9 +217,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Tells the compiler the accumulator may change here (the asynchronous
 // products write it between their issue and the wait).
-__device__ __forceinline__ void fence_acc(uint32_t (&d)[64]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define WGMMA_S8_D_REGS                                                                          \

@@ -16,7 +16,12 @@ size the card holds, in one wave where the batch allows. On the tensor cores
 (N = 1024 and 2048, single-limb digits) a cluster of 2N / 256 blocks owns 16
 ciphertexts, or 32 at N = 1024 with a three-limb key and L = 2, and multiplies s8 digits by the key's
 byte limbs; `rotation_unit` takes it from the batch where its waves cost
-less, and `key_limbs` counts the limbs from the key itself.
+less, and `key_limbs` counts the limbs from the key itself. With 32 rows (N =
+1024, three limbs) the product runs on wgmma, the key read through a
+descriptor from a diagonal strip (`strip_product_plain` states the
+addressing, `key_strips_plain` the strips), the strips built from the key
+and kept for the last key a device (`key_strips`); the 16-row instances run
+on mma.sync.
 """
 
 from __future__ import annotations
@@ -36,8 +41,9 @@ launches = 0
 
 #: Launches by instance (ring size N, tile, cluster, unit) in this process,
 #: beside `launches`: which instantiations of the kernel ran. The unit is
-#: "imad" (32-bit multiply-adds on the CUDA cores) or "mma_s8x3" / "mma_s8x4"
-#: (s8 limb products on the tensor cores with 3 or 4 key limbs).
+#: "imad" (32-bit multiply-adds on the CUDA cores), "wgmma_s8x3" (s8 limb
+#: products on wgmma with 3 key limbs) or "mma_s8x3" / "mma_s8x4" (on mma.sync
+#: with 3 or 4 key limbs): `tensor_core_unit` of what launched.
 launched_tiles: collections.Counter = collections.Counter()
 
 #: Keys already checked for the 2^8 grid: id(tensor) -> (weak reference to
@@ -108,6 +114,144 @@ _SINGLE_FACTOR = {1: 2.1, 2: 1.13, 4: 1.02, 8: 1.0}
 #: rows a block and costs half (`_mma_cost`).
 MMA_COLS, MMA_RING_SIZES = 256, (1024, 2048)
 _MMA_WORK = {16: 0.4, 32: 0.64}
+
+#: Strip builds in this process (`key_strips`): one each time a device's
+#: wgmma instance is handed another key than its last one, or the same key
+#: changed in place.
+strip_builds = 0
+
+#: The strips of the last key each device's wgmma instance ran with: device
+#: index -> (weak reference to the key, its version then, the strips). One
+#: key's strips a device, however many keys are resident.
+_strips: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def on_wgmma(n: int, tile: int, limbs: int) -> bool:
+    """Whether the library runs the tensor-core instance of this ring size,
+    tile and key limbs on wgmma (the key read from its strips) rather than on
+    mma.sync: it names a strip size for those alone (`has_wgmma_instance` in
+    csrc/blind_rotate.cu decides; 32 rows at N = 1024 with three limbs)."""
+    return _build.load().tfhe_blind_rotate_strip_bytes(n.bit_length() - 1, 1, 1, tile, limbs) > 0
+
+
+def tensor_core_unit(wgmma: bool, limbs: int) -> str:
+    """The unit name `launched_tiles` gives the tensor-core instance: on
+    wgmma (`on_wgmma`) or on mma.sync, with `limbs` key limbs."""
+    return f"{'wgmma' if wgmma else 'mma'}_s8x{limbs}"
+
+
+def _drop_strips(index: int, ref: weakref.ref) -> None:
+    """A key died: its device's strips go with it, unless they are already
+    another key's."""
+    if _strips.get(index, (None,))[0] is ref:
+        del _strips[index]
+
+
+def key_strips(bsk: torch.Tensor, params: TfheParams, tile: int, limbs: int) -> torch.Tensor | None:
+    """The key's operand for the wgmma instance: for every step, gadget row,
+    polynomial and key limb, the diagonal strip of the polynomial (uint8,
+    built on the key's device by the library's strip kernel, 23.8 times the
+    key's bytes: 546 MB at SECURITY_128_BIT_FAST); `key_strips_plain` builds
+    the same bytes. None for an instance that reads the key itself.
+
+    Kept for the last key a device ran, by tensor and version counter as
+    `key_limbs` keeps its answer: a call with another key frees the kept
+    strips before it builds its own, so the device holds one key's strips
+    whatever the number of keys, and alternating keys pay a build a switch
+    (PERF.md). A key made under `torch.inference_mode()` has no version
+    counter and is built anew each call."""
+    global strip_builds
+    if not on_wgmma(params.n1, tile, limbs):
+        return None
+    index = bsk.device.index
+    entry = None if bsk.is_inference() else _strips.get(index)
+    if entry is not None and entry[0]() is bsk and entry[1] == bsk._version:
+        return entry[2]
+    _strips.pop(index, None)
+    lib = _build.load()
+    g, log_n = params.trgsw_lv1, params.n1.bit_length() - 1
+    size = lib.tfhe_blind_rotate_strip_bytes(log_n, params.n0, g.l, tile, limbs)
+    strips = torch.empty(size, dtype=torch.uint8, device=bsk.device)
+    with on_device(bsk.device.index):
+        err = lib.tfhe_blind_rotate_strips(bsk.data_ptr(), strips.data_ptr(), params.n0, log_n, g.l, tile, limbs,
+                                           torch.cuda.current_stream(bsk.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"blind_rotate: strip build failed: {lib.tfhe_cuda_error_string(err).decode()} ({err})")
+    strip_builds += 1
+    if not bsk.is_inference():
+        _strips[index] = (weakref.ref(bsk, functools.partial(_drop_strips, index)), bsk._version, strips)
+    return strips
+
+
+def poly_strip_plain(poly: torch.Tensor, limb: int) -> torch.Tensor:
+    """The diagonal strip of key limb `limb` (0: the lowest byte) of each
+    polynomial of `poly` (int32 [..., N]), as the library's strip kernel
+    builds it: 2N / 8 - 2 core matrices of 128 bytes whose row x (16 bytes at
+    16 x) is rev[x .. x + 15], with rev[z] = byte `limb` of ext[2N - 1 - z] and
+    ext = [-p, p]. Returns uint8 [..., (2N - 16) * 16]."""
+    n, dev = poly.shape[-1], poly.device
+    words = poly.to(torch.int64) & 0xFFFFFFFF
+    rev = (torch.cat([(-words) & 0xFFFFFFFF, words], dim=-1).flip(-1) >> (8 * limb)) & 0xFF
+    rows = torch.arange(2 * n - 16, device=dev)[:, None] + torch.arange(16, device=dev)
+    return rev[..., rows].reshape(*poly.shape[:-1], -1).to(torch.uint8)
+
+
+def key_strips_plain(bsk: torch.Tensor, limbs: int) -> torch.Tensor:
+    """The bytes `key_strips` builds on the card: the strips of bsk (int32
+    [n0, 2L, 2, N]) for key limbs 4 - limbs .. 3, in the order (step, gadget
+    row, polynomial, limb), flat."""
+    return torch.stack([poly_strip_plain(bsk, k) for k in range(4 - limbs, 4)], dim=-2).reshape(-1)
+
+
+def strip_product_plain(
+    digits: torch.Tensor, poly: torch.Tensor, s0: int = 0, cols: int = MMA_COLS, limbs: int = 4
+) -> torch.Tensor:
+    """One gadget row's product for a block's `cols` output columns [s0, s0 +
+    cols) of one polynomial, by the wgmma instance's addressing: for each key
+    limb, the block's strip, the run of the polynomial's strip
+    (`poly_strip_plain`) from core matrix (N - cols - s0) / 8 on, whose core
+    matrix delta has row r = rev[8 delta + r .. 8 delta + r + 15] for the
+    block's reversed window rev[y] = byte(ext[s0 + cols - 1 + N - y]); the key
+    operand A[mu, m] (column s0 + cols - 1 - mu, digit m) read as byte (mu %
+    8) * 16 + m % 16 of core matrix (mu / 8, m / 16) at byte (mu / 8 + 2 (m /
+    16)) * 128 of the block's strip; the digits read from their core-matrix
+    plane at `digit_offset(rows, n, m)`; one s32 product per limb (raises
+    where a limb sum would leave s32), shifted by its weight and summed mod
+    2^32.
+
+    digits: int [rows, N] with |d| <= 128, rows a multiple of 8; poly: int32
+    [N]; s0 + cols <= N, both multiples of 8. Returns int32 [rows, cols].
+    `limbs` < 4 drops the key's low bytes, as the kernel does for a key on the
+    2^8 grid. For tests: `ops.poly.polymul_small_by_torus` is the plain
+    product."""
+    rows, n = digits.shape
+    if rows % 8 or cols % 8 or s0 % 8 or n % 16 or s0 + cols > n:
+        raise ValueError(f"strip_product_plain: rows {rows}, cols {cols} at s0={s0}, N={n}")
+    dev = digits.device
+    mu, m = torch.arange(cols, device=dev), torch.arange(n, device=dev)
+    a_at = ((mu[:, None] // 8 + 2 * (m[None, :] // 16)) * 128 + (mu[:, None] % 8) * 16 + m[None, :] % 16)
+    plane = torch.zeros(rows * n, dtype=torch.float64, device=dev)
+    nn = torch.arange(rows, device=dev)[:, None]
+    plane[digit_offset(rows, nn, m[None, :])] = digits.to(torch.float64)
+    b_op = plane[digit_offset(rows, nn, m[None, :])]  # [rows, N], read back from its core matrices
+    out = torch.zeros((cols, rows), dtype=torch.int64, device=dev)
+    for k in range(4 - limbs, 4):
+        strip = poly_strip_plain(poly, k)[(n - cols - s0) // 8 * 128:]  # the block's run
+        # float64 carries these integers exactly (|S_k| < 2^53) and has a matmul on every device
+        s_k = (strip[a_at].to(torch.float64) @ b_op.T).to(torch.int64)
+        if int(s_k.abs().max()) >= 1 << 31:
+            raise ValueError("limb accumulator leaves s32")
+        out += s_k << (8 * k)
+    out = out.flip(0).T & 0xFFFFFFFF  # descending columns back to ascending
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def digit_offset(rows: int, n, m):
+    """Byte offset of digit m of row n in a digit plane of `rows` rows, as
+    the decomposition writes it and wgmma reads it (core matrices of 8 rows x
+    16 digits, row-group fastest): `nm::digit_offset` of the kernel."""
+    return ((m // 16) * (rows // 8) + n // 8) * 128 + (n % 8) * 16 + m % 16
 
 
 def _exchange(n: int) -> float:
@@ -351,16 +495,19 @@ def blind_rotate_kernel(
             f"blind_rotate: the device cannot schedule a cluster of {cluster} blocks at N={n}, tile={tile}"
         )
     dec_offset = (params.decomposition_offset + params.decomposition_round_bit) & 0xFFFFFFFF
+    strips = key_strips(bsk, params, tile, limbs) if limbs else None
     with on_device(index):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tfhe_blind_rotate(
             b_til.data_ptr(), a_til.data_ptr(), testvec.data_ptr(), tv_stride,
-            bsk.data_ptr(), out.data_ptr(), batch, n0, log_n,
+            bsk.data_ptr(), strips.data_ptr() if strips is not None else None, out.data_ptr(), batch, n0, log_n,
             g.l, g.bgbit, dec_offset, tile, cluster, limbs, stream,
         )
     if err != 0:
         msg = lib.tfhe_cuda_error_string(err).decode()
         raise RuntimeError(f"blind_rotate kernel launch failed (tile={tile}, cluster={cluster}): {msg} ({err})")
+    if strips is not None:  # another key's strips may take its memory once this stream has read it
+        strips.record_stream(torch.cuda.current_stream(dev))
     launches += 1
-    launched_tiles[(n, tile, cluster, f"mma_s8x{limbs}" if limbs else "imad")] += 1
+    launched_tiles[(n, tile, cluster, tensor_core_unit(strips is not None, limbs) if limbs else "imad")] += 1
     return out

@@ -76,6 +76,7 @@ def counters() -> dict:
       rotate.route.<route>.calls / .ciphertexts              ops/blind_rotate
       keyswitch.route.<select|product>.calls / .ciphertexts  ops/keyswitch
       bsk.grid_checks      whole-key reads of key_limbs (each synchronises)
+      bsk.strip_builds     key_strips builds of the wgmma instance's key operand
       netlist.index_placements  a compiled plan's indices moved to a device
       build.nvcc           kernel builds that ran nvcc in this process
       lut.tables_built     LutBootstrap table cache misses
@@ -108,6 +109,7 @@ def counters() -> dict:
         out[f"keyswitch.route.{route}.calls"] = keyswitch.route_calls[route]
         out[f"keyswitch.route.{route}.ciphertexts"] = keyswitch.route_ciphertexts[route]
     out["bsk.grid_checks"] = cuda_blind_rotate.grid_checks
+    out["bsk.strip_builds"] = cuda_blind_rotate.strip_builds
     out["netlist.index_placements"] = netlist.index_placements
     out["build.nvcc"] = _build.nvcc_builds
     out["lut.tables_built"] = bootstrap.tables_built

@@ -98,7 +98,8 @@ def main(dev=None) -> dict:
         for tile in (16, 32) if batch >= 16 else ():
             out = CBR.blind_rotate_kernel(*args, fast, tile=tile, tensor_cores=True)
             assert torch.equal(out, ref), (batch, "mma", tile)
-            table[f"B={batch} tile {tile} cluster 8 mma_s8x3"] = cuda_ms(
+            unit = CBR.tensor_core_unit(CBR.on_wgmma(fast.n1, tile, 3), 3)
+            table[f"B={batch} tile {tile} cluster 8 {unit}"] = cuda_ms(
                 lambda: CBR.blind_rotate_kernel(*args, fast, tile=tile, tensor_cores=True))
     for name, ms in table.items():
         print(f"FAST {name}: {ms:.3f} ms")

@@ -130,7 +130,7 @@ def test_kernel_launches_the_planned_instance(dev, name, batch):
     before = CBR.launched_tiles.copy()
     out = CBR.blind_rotate_kernel(*args, p)
     torch.cuda.synchronize()
-    unit = "mma_s8x4" if tensor_cores else "imad"
+    unit = CBR.tensor_core_unit(CBR.on_wgmma(p.n1, tile, 4), 4) if tensor_cores else "imad"
     assert CBR.launched_tiles - before == {(p.n1, tile, cluster, unit): 1}
     assert torch.equal(out, BR.blind_rotate_plain(*args, p))
 
@@ -160,7 +160,8 @@ def test_tensor_core_kernel_matches_plain(dev, name, batch, on_grid, per_ct_tv):
         before = CBR.launched_tiles.copy()
         out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=tile, tensor_cores=True)
         torch.cuda.synchronize()
-        assert CBR.launched_tiles - before == {(p.n1, tile, cluster, f"mma_s8x{limbs}"): 1}
+        assert CBR.launched_tiles - before == {
+            (p.n1, tile, cluster, CBR.tensor_core_unit(CBR.on_wgmma(p.n1, tile, limbs), limbs)): 1}
         assert torch.equal(out, ref)
     before = CBR.launched_tiles.copy()
     out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tensor_cores=True)
@@ -169,6 +170,82 @@ def test_tensor_core_kernel_matches_plain(dev, name, batch, on_grid, per_ct_tv):
     if limbs == 4:
         with pytest.raises(ValueError, match="has tiles"):
             CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=32, tensor_cores=True)
+
+
+def _planted(dev, p, batch, seed, per_ct_tv):
+    """Full-length rotation inputs with 0x80000000 and 0xFFFFFFFF planted in
+    the key and the test vectors (so in the accumulators from the start)."""
+    b_til, a_til, tv, bsk = _inputs(dev, p, batch, per_ct_tv, seed)
+    for t in (bsk, tv):
+        t.view(-1)[::97], t.view(-1)[5::101] = -(1 << 31), -1
+    return b_til, a_til, tv, bsk
+
+
+@pytest.mark.parametrize(
+    "name,batch,on_grid,tile,unit",
+    [("SECURITY_128_BIT_FAST", 32, True, 32, "wgmma_s8x3"), ("SECURITY_128_BIT_FAST", 47, True, 32, "wgmma_s8x3"),
+     ("SECURITY_128_BIT_FAST", 481, True, 32, "wgmma_s8x3"), ("SECURITY_128_BIT", 16, False, 16, "mma_s8x4"),
+     ("SECURITY_128_BIT", 75, False, 16, "mma_s8x4"), ("SECURITY_128_BIT_RADIX", 16, False, 16, "mma_s8x4"),
+     ("SECURITY_128_BIT_RADIX", 40, False, 16, "mma_s8x4")],
+)
+def test_tensor_core_instance_bit_equal_at_each_shape(dev, name, batch, on_grid, tile, unit):
+    """The tensor-core instance at every shape it serves, whole rotations:
+    FAST's 32-row tiles on wgmma with a three-limb key (a ragged last tile at
+    47 and 481), strict's 16-row tiles on mma.sync with four limbs, RADIX (N =
+    2048) on mma.sync with per-ciphertext test vectors; extremes planted in
+    the key and the test vectors. Each case names the unit it ran."""
+    p = getattr(P, name)
+    b_til, a_til, tv, bsk = _planted(dev, p, batch, batch, per_ct_tv=p.n1 == 2048)
+    bsk = bsk & ~0xFF if on_grid else bsk
+    before = CBR.launched_tiles.copy()
+    out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=tile, tensor_cores=True)
+    torch.cuda.synchronize()
+    assert CBR.launched_tiles - before == {(p.n1, tile, 2 * p.n1 // CBR.MMA_COLS, unit): 1}
+    assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
+
+
+def test_wgmma_strips_built_once_per_key_and_after_an_edit(dev):
+    """The wgmma instance's key operand is built once for a key tensor, of the
+    size the library names (for the one shape it names a size for), and again
+    after the key changes in place; it holds `key_strips_plain`'s bytes, and
+    the rotation stays bit-equal to the plain one either way."""
+    p = _short(P.SECURITY_128_BIT_FAST, 5)
+    b_til, a_til, tv, bsk = _planted(dev, p, 40, seed=11, per_ct_tv=False)
+    bsk &= ~0xFF
+    lib, g = _build.load(), p.trgsw_lv1
+    assert [(n, t, k) for n in CBR.MMA_RING_SIZES for t in (16, 32) for k in (3, 4) if CBR.on_wgmma(n, t, k)] == [
+        (1024, 32, 3)]
+    before = CBR.strip_builds
+    for _ in range(2):
+        out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=32, tensor_cores=True)
+        assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
+    assert CBR.strip_builds - before == 1
+    strips = CBR.key_strips(bsk, p, 32, 3)
+    assert strips.numel() == lib.tfhe_blind_rotate_strip_bytes(10, p.n0, g.l, 32, 3) == 5 * 4 * 2 * 3 * 254 * 128
+    assert torch.equal(strips, CBR.key_strips_plain(bsk, 3))
+    bsk[1, 2, 1, 7] += 1 << 8  # still on the grid
+    out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=32, tensor_cores=True)
+    assert CBR.strip_builds - before == 2
+    assert torch.equal(CBR.key_strips(bsk, p, 32, 3), CBR.key_strips_plain(bsk, 3))
+    assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
+
+
+def test_wgmma_strips_one_key_a_device(dev):
+    """A device keeps one key's strips however many keys run on it: keys
+    taken in turn build theirs at each switch, in place of the last key's,
+    and each rotation is bit-equal to the plain one; a key's strips go when
+    the key goes."""
+    p = _short(P.SECURITY_128_BIT_FAST, 4)
+    b_til, a_til, tv, _ = _planted(dev, p, 33, seed=12, per_ct_tv=False)
+    keys = [_planted(dev, p, 1, seed=20 + t, per_ct_tv=False)[3] & ~0xFF for t in range(3)]
+    refs = [BR.blind_rotate_plain(b_til, a_til, tv, bsk, p) for bsk in keys]
+    before = CBR.strip_builds
+    for bsk, ref in [*zip(keys, refs), *zip(keys, refs)]:
+        assert torch.equal(CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=32, tensor_cores=True), ref)
+        assert [e[0]() is bsk for e in CBR._strips.values()] == [True]
+    assert CBR.strip_builds - before == 6
+    del bsk, keys
+    assert b_til.device.index not in CBR._strips
 
 
 def test_tensor_core_kernel_full_rotation_and_key_check(dev):

@@ -123,6 +123,112 @@ def test_accumulator_bound_is_reached_and_holds():
     assert 2 * g.l * ext_bytes_255 * g.half_bg * 255 == CS.limb_accumulator_bound(p)
 
 
+@pytest.mark.parametrize(
+    "n,cols,s0,rows,limbs",
+    [(64, 64, 0, 16, 4), (64, 32, 32, 8, 4), (64, 32, 0, 8, 3), (1024, 256, 0, 32, 3), (1024, 256, 768, 16, 4),
+     (1024, 256, 256, 16, 3)],
+)
+def test_strip_addressing_equals_the_negacyclic_product(n, cols, s0, rows, limbs):
+    """The wgmma instance's operands as `strip_product_plain` addresses them
+    (the key limb's Toeplitz operand read at byte (i + 2j) * 128 of the
+    diagonal strip, the digits from their core-matrix plane) give the block's
+    columns [s0, s0 + cols) of the plain product, bit for bit: digits at both
+    ends of their range, key words 0x80000000, 0xFFFFFFFF and 0 planted; a key
+    on the 2^8 grid with three limbs."""
+    rng = np.random.default_rng(n + s0 + rows)
+    d = torch.from_numpy(rng.integers(-128, 128, (rows, n)).astype(np.int32))
+    d[0, ::3], d[-1, 1::2] = -128, 127
+    p = to_torch(rng.integers(0, 1 << 32, n, dtype=np.uint32), "cpu")
+    p[::5], p[1::7], p[2] = -(1 << 31), -1, 0
+    if limbs == 3:
+        p &= ~0xFF
+    ref = polymul_small_by_torus(d[:, None, :], p[None, None, :], 128)[:, 0, s0:s0 + cols]
+    assert torch.equal(CBR.strip_product_plain(d, p, s0, cols, limbs), ref)
+
+
+@pytest.mark.parametrize("rows", [16, 32])
+def test_digit_plane_layout(rows):
+    """The digit plane the decomposition writes and wgmma reads: every digit
+    of [rows, N] at its own byte; 16 digits of a row are one 16-byte word;
+    the rows of an 8-row group are consecutive words (a block's rows, pushed
+    as consecutive words); planes follow each other as whole 16-digit runs."""
+    n = 1024
+    rr, m = torch.meshgrid(torch.arange(rows), torch.arange(n), indexing="ij")
+    off = CBR.digit_offset(rows, rr, m)
+    assert torch.equal(torch.sort(off.reshape(-1)).values, torch.arange(rows * n))
+    assert torch.equal(off[:, 1:16] - off[:, :1], torch.arange(1, 16).expand(rows, 15))
+    words = off[:, ::16] // 16
+    assert torch.equal(words[1:8] - words[:1], torch.arange(1, 8)[:, None].expand(7, n // 16))
+    run = torch.arange(4 * n // 16)  # 16-digit runs over four planes
+    assert torch.equal(CBR.digit_offset(rows, 0, 16 * run), (run // (n // 16)) * rows * n + CBR.digit_offset(
+        rows, 0, 16 * (run % (n // 16))))
+
+
+def test_strip_product_refuses_shapes_off_its_tiles():
+    d = torch.zeros((12, 64), dtype=torch.int32)
+    with pytest.raises(ValueError, match="rows 12"):
+        CBR.strip_product_plain(d, torch.zeros(64, dtype=torch.int32), 0, 64)
+    with pytest.raises(ValueError, match="s0=32"):
+        CBR.strip_product_plain(torch.zeros((8, 64), dtype=torch.int32), torch.zeros(64, dtype=torch.int32), 32, 64)
+
+
+def test_tensor_core_unit_names_the_instruction():
+    """The launch counter tells the wgmma instance (the one that read the
+    key's strips) from the mma.sync one, with the key's limbs."""
+    assert CBR.tensor_core_unit(True, 3) == "wgmma_s8x3"
+    assert CBR.tensor_core_unit(False, 3) == "mma_s8x3" and CBR.tensor_core_unit(False, 4) == "mma_s8x4"
+
+
+def _block_strip(poly: torch.Tensor, s0: int, cols: int, limb: int) -> torch.Tensor:
+    """A block's strip built from its own reversed window alone, core by
+    core: core delta, row r, byte b is byte `limb` of ext[s0 + cols - 1 + N -
+    (8 delta + r + b)]."""
+    n = poly.shape[0]
+    words = poly.to(torch.int64) & 0xFFFFFFFF
+    ext = torch.cat([(-words) & 0xFFFFFFFF, words])
+    y = (8 * torch.arange((cols + n) // 8 - 2)[:, None, None] + torch.arange(8)[None, :, None]
+         + torch.arange(16)[None, None, :])
+    return ((ext[s0 + cols - 1 + n - y] >> (8 * limb)) & 0xFF).reshape(-1).to(torch.uint8)
+
+
+@pytest.mark.parametrize("n,cols,limbs", [(64, 32, 4), (64, 16, 3), (1024, 256, 3)])
+def test_key_strips_hold_every_blocks_strip(n, cols, limbs):
+    """`key_strips_plain`'s layout, as the wgmma instance fetches it: the
+    strip of (step, gadget row, polynomial, limb) at its unit's offset, and
+    in it the block's strip from core matrix (N - cols - s0) / 8 on, equal to
+    the block's own strip for every block of the polynomial; extremes planted
+    in the key."""
+    rng = np.random.default_rng(n + cols + limbs)
+    n0, rows2 = 2, 4
+    bsk = to_torch(rng.integers(0, 1 << 32, (n0, rows2, 2, n), dtype=np.uint32), "cpu")
+    bsk.view(-1)[::7], bsk.view(-1)[3::11], bsk.view(-1)[5::13] = -(1 << 31), -1, 0
+    strips = CBR.key_strips_plain(bsk, limbs)
+    poly_bytes = (2 * n - 16) * 16
+    assert strips.dtype == torch.uint8 and strips.numel() == n0 * rows2 * 2 * limbs * poly_bytes
+    block_bytes = ((cols + n) // 8 - 2) * 128
+    for i in range(n0):
+        for j in range(rows2):
+            for o in range(2):
+                for k in range(limbs):
+                    unit = ((i * rows2 + j) * 2 + o) * limbs + k
+                    for s0 in range(0, n, cols):
+                        at = unit * poly_bytes + (n - cols - s0) // 8 * 128
+                        assert torch.equal(strips[at:at + block_bytes],
+                                           _block_strip(bsk[i, j, o], s0, cols, 4 - limbs + k)), (i, j, o, k, s0)
+
+
+def test_poly_strip_rows_are_the_reversed_bytes():
+    """Row x of a polynomial's strip is bytes x .. x + 15 of the limb's
+    reversed ext = [-p, p], for leading dimensions too."""
+    poly = torch.tensor([[1, -1, -(1 << 31), 0x01020304] * 4, [7] * 16], dtype=torch.int32)
+    strip = CBR.poly_strip_plain(poly, 0).reshape(2, 2 * 16 - 16, 16)
+    ext = torch.cat([-poly.to(torch.int64), poly.to(torch.int64)], dim=-1) & 0xFF
+    rev = ext.flip(-1)
+    for x in range(2 * 16 - 16):
+        assert torch.equal(strip[:, x].to(torch.int64), rev[:, x:x + 16])
+    assert int(strip[0, 0, 0]) == 0x04 and int(strip[0, 0, 1]) == 0 and int(strip[0, 0, 2]) == 0xFF
+
+
 @pytest.mark.parametrize("name", sorted(_SETS))
 def test_step_instance_per_set(name):
     """Single-limb sets take the tensor-core instance at every row count

@@ -130,8 +130,7 @@ the last line):
  11. boolean circuits at SECURITY_128_BIT_FAST with a standard and with a
      multi-bit key: encrypt_uint -> ripple_carry_adder(32) through
      netlist.evaluate and netlist.compile_circuit -> decrypt_uint equals
-     (x + y) mod 2^32, wall time and gates/s through the plan, and the
-     device's idle share over one compiled run (torch.profiler);
+     (x + y) mod 2^32, and wall time and gates/s through the plan;
      add_kogge_stone on a batch of 32-bit pairs and mul_csa on a batch of
      8-bit pairs, decrypted and checked; with a multi-bit key both rotation
      kernels run (plan groups of at most 2 gates the multi-bit one);
@@ -425,12 +424,32 @@ EARLIER_MS = {
 }
 
 
+def counters() -> dict:
+    """The package's counters now (`utils.profiling.counters()`)."""
+    from rs_tfhe_tpu_torch.utils import profiling
+
+    return profiling.counters()
+
+
+def counts_since(before: dict) -> dict:
+    """What the package's counters moved since the snapshot `before`."""
+    return {k: v - before.get(k, 0) for k, v in counters().items() if v != before.get(k, 0)}
+
+
+def by_instance(counts: dict, prefix: str) -> collections.Counter:
+    """The counts of a snapshot or a delta under `prefix` (`k1.instance`,
+    `nussbaumer.shape`, ...) keyed as the wrapper keys them: a tuple of the
+    name's '/'-separated parts, numbers as ints."""
+    head = prefix + "."
+    return collections.Counter({tuple(int(x) if x.isdigit() else x for x in k[len(head):].split("/")): v
+                                for k, v in counts.items() if k.startswith(head) and v > 0})
+
+
 def rotation_launches() -> tuple:
     """Launches so far of the two rotation kernels, and the multi-bit
     kernel's by instance."""
-    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb
-
-    return cuda_blind_rotate.launches, cuda_blind_rotate_mb.launches, cuda_blind_rotate_mb.launched_tiles.copy()
+    now = counters()
+    return now["k1.launches"], now["k4.launches"], by_instance(now, "k4.instance")
 
 
 def check_route(before: tuple, whole: bool, multibit: bool, what: str) -> None:
@@ -443,12 +462,13 @@ def check_route(before: tuple, whole: bool, multibit: bool, what: str) -> None:
     check(all(t[2] > 1 for t in (now[2] - before[2])), f"{what}: the multi-bit kernel ran as a cluster")
 
 
-def launched_tile(module, fn):
-    """(fn(), the instance of `module`'s kernel it launched, as the wrapper
-    keys it): fn must launch that kernel exactly once."""
-    before = module.launched_tiles.copy()
+def launched_tile(prefix, fn):
+    """(fn(), the instance of the kernel whose launches the counters keep
+    under `prefix` (`k1.instance`, ...) it launched, as the wrapper keys it):
+    fn must launch that kernel exactly once."""
+    before = counters()
     out = fn()
-    (key,) = (module.launched_tiles - before).keys()
+    (key,) = by_instance(counts_since(before), prefix).keys()
     return out, key
 
 
@@ -678,7 +698,7 @@ def phase_key_switch_vs_plain(dev) -> dict:
         cts[0][0, :2] = torch.tensor([-(1 << 31), -1], dtype=torch.int32)
         cts[0][-1, -1] = -(1 << 31)
         a, body = cts[0][..., :n1], cts[0][..., n1]
-        out, tile = launched_tile(cuda_keyswitch, lambda: cuda_keyswitch.digit_select_kernel(
+        out, tile = launched_tile("ks.instance", lambda: cuda_keyswitch.digit_select_kernel(
             a, body, table, t, basebit, width))
         ref = -KS._product_sum(a, table, t, basebit, width)
         ref[..., width - 1] += body
@@ -760,7 +780,7 @@ def phase_kernel_vs_plain(dev) -> dict:
     from rs_tfhe_tpu_torch import _build
     from rs_tfhe_tpu_torch import params as P
     from rs_tfhe_tpu_torch.key import SecretKey, gen_bootstrapping_key
-    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate
+    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_launch
     from rs_tfhe_tpu_torch.ops.blind_rotate import blind_rotate_plain
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate import blind_rotate_kernel
 
@@ -784,7 +804,7 @@ def phase_kernel_vs_plain(dev) -> dict:
     def instance_of(p, batch, bsk):
         """The instance the wrapper picks: tile and cluster from the batch and the clusters the
         card holds, the unit from the parameter set, the key's limbs from the key."""
-        has_mma = p.n1 in cuda_blind_rotate.MMA_RING_SIZES and cuda_blind_rotate.takes_tensor_cores(p)
+        has_mma = p.n1 in cuda_blind_rotate.MMA_RING_SIZES and cuda_launch.takes_tensor_cores(p)
         limbs = cuda_blind_rotate.key_limbs(bsk, p) if has_mma else 0
         tile, cluster, limbs = cuda_blind_rotate.planned_instance(dev.index or 0, batch, p, limbs)
         unit = cuda_blind_rotate.tensor_core_unit(cuda_blind_rotate.on_wgmma(p.n1, tile, limbs), limbs)
@@ -810,7 +830,7 @@ def phase_kernel_vs_plain(dev) -> dict:
 
     for log_n in (6, 10, 11, 12):
         print(f"[3a] clusters the card holds at one block an SM, N=2^{log_n}: "
-              f"{cuda_blind_rotate.cluster_slots(dev.index or 0, log_n)}")
+              f"{cuda_launch.cluster_slots(dev.index or 0, log_n, cuda_blind_rotate.held_clusters)}")
     for p, limbs in ((fast, 3), (fast, 4), (p_strict, 4), (p_radix, 4)):
         print(f"[3a] clusters of the tensor-core instance the card holds, {_name(p)}, {limbs} key limbs, by tile: "
               f"{cuda_blind_rotate.mma_slots(dev.index or 0, p, limbs)}")
@@ -878,7 +898,7 @@ def phase_kernel_vs_plain(dev) -> dict:
         tv = rnd((batch, 2, n) if per_ct else (2, n))
         bnd = rotation_bound(p, batch, tv.numel(), multibit=False)
         b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
-        out, tile = launched_tile(cuda_blind_rotate, lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p))
+        out, tile = launched_tile("k1.instance", lambda: blind_rotate_kernel(b_til, a_til, tv, bsk, p))
         check(tile == instance_of(p, batch, bsk), f"the wrapper launched the planned instance at B={batch}")
         tiles.add(tile)
         name = _name(p)
@@ -965,7 +985,7 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         tv = rnd((batch, 2, n) if per_ct else (2, n))
         bnd = rotation_bound(p, batch, tv.numel(), multibit=True)
         b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
-        out, tile = launched_tile(cuda_blind_rotate_mb, lambda: blind_rotate_mb_kernel(b_til, a_til, tv, key, p))
+        out, tile = launched_tile("k4.instance", lambda: blind_rotate_mb_kernel(b_til, a_til, tv, key, p))
         check(tile == (n, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p)),
               f"the multi-bit wrapper launched the planned instance at B={batch}")
         if i < auto_cases:
@@ -997,7 +1017,7 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
 
 def phase_step_kernel_vs_plain(dev) -> dict:
     from rs_tfhe_tpu_torch import params as P
-    from rs_tfhe_tpu_torch.ops import cuda_step
+    from rs_tfhe_tpu_torch.ops import cuda_launch
     from rs_tfhe_tpu_torch.ops.cuda_step import external_product_kernel
     from rs_tfhe_tpu_torch.ops.poly import _step_circulant, polymul_small_by_torus
 
@@ -1018,8 +1038,8 @@ def phase_step_kernel_vs_plain(dev) -> dict:
         trgsw = rnd((j, 2, n))
         digits[0, :, ::3], digits[-1, :, 1::2] = -gp.half_bg, gp.half_bg - 1  # the digit range's ends
         trgsw[0, 0, ::2], trgsw[-1, 1, ::3] = -(1 << 31), -1  # 0x80000000 and 0xFFFFFFFF
-        out, tile = launched_tile(cuda_step, lambda: external_product_kernel(digits, trgsw, p))
-        check((tile[1] == "mma_s8") == cuda_step.takes_tensor_cores(p), "single-limb digits take the tensor cores")
+        out, tile = launched_tile("k5.instance", lambda: external_product_kernel(digits, trgsw, p))
+        check((tile[1] == "mma_s8") == cuda_launch.takes_tensor_cores(p), "single-limb digits take the tensor cores")
         tiles.add(tile)
         ref = polymul_small_by_torus(digits, trgsw, gp.half_bg)
         torch.cuda.synchronize()
@@ -1092,7 +1112,6 @@ def phase_fixture(dev) -> None:
     from rs_tfhe_tpu_torch.bootstrap import bootstrap_with_testvec
     from rs_tfhe_tpu_torch.lut import factor_test_vectors, multi_value_bootstrap
     from rs_tfhe_tpu_torch.models import circuits, netlist
-    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_step
     from rs_tfhe_tpu_torch.ops.blind_rotate import blind_rotate, rotation_exponents
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate_mb import blind_rotate_mb_kernel
     from rs_tfhe_tpu_torch.ops.extract import sample_extract
@@ -1125,9 +1144,9 @@ def phase_fixture(dev) -> None:
     a, b, m, a5, b5 = (to_torch(v[n], dev) for n in ("ct_a", "ct_b", "ct_m", "ct_a5", "ct_b5"))
     lut, lut_per_ct = to_torch(v["lut"], dev), to_torch(v["lut_per_ct"], dev)
     b_til, a_til = rotation_exponents(a, TEST_TINY)
-    k1_before = cuda_blind_rotate.launches
+    k1_before = rotation_launches()[0]
     nand_b5 = gates.nand(a5, b5, ck)  # above the multi-bit route's batch cap: the standard rotation, as in JAX
-    check(cuda_blind_rotate.launches == k1_before + 1, "a multi-bit key above the cap takes the whole-rotation kernel")
+    check(rotation_launches()[0] == k1_before + 1, "a multi-bit key above the cap takes the whole-rotation kernel")
     compare({
         "blind_rotate_mb": blind_rotate_mb_kernel(b_til, a_til, ck.testvec, ck.bsk_mb, TEST_TINY),
         "nand_b1": gates.nand(a[:1], b[:1], ck),
@@ -1172,10 +1191,10 @@ def phase_fixture(dev) -> None:
 
     v = np.load(FIXTURE_PARALLEL)
     before = rotation_launches()
-    k5_before = cuda_step.launches
+    k5_before = counters()["k5.launches"]
     compare(parallel_fixture_outputs(v, dev), v, os.path.basename(FIXTURE_PARALLEL))
     now = rotation_launches()
-    check(now[0] > before[0] and now[1] > before[1] and cuda_step.launches > k5_before,
+    check(now[0] > before[0] and now[1] > before[1] and counters()["k5.launches"] > k5_before,
           "the parallel fixture ran on both rotation kernels and the step kernel")
     print(f"[4] done {elapsed()}")
 
@@ -1723,12 +1742,12 @@ def phase_probes_vs_plain(dev) -> dict:
         instance = roll_add_instance(words)
         for reps_chain, timings in ((4, 5), (1024, 3)):
             steps = 16 * reps_chain
-            before = CP.roll_add_launches.copy()
+            before = counters()
             row = compare(f"chain_roll_add [{rows_},{cols}] {steps} steps",
                           lambda: CP.chain_roll_add(x, reps_chain), lambda: CP.chain_roll_add_plain(x, reps_chain),
                           bound(8 * x.numel(), int32_adds=steps * x.numel()), reps=timings,
                           earlier=("chain_roll_add", f"[{rows_},{cols}] {steps} steps"))
-            ran = CP.roll_add_launches - before
+            ran = {w: n for (w,), n in by_instance(counts_since(before), "probes.roll_add.instance").items()}
             check(set(ran) == {words}, f"chain_roll_add [{rows_},{cols}] ran its shape's instance "
                                        f"{instance} (launches by E, 0 shared: {dict(ran)})")
             row.update(instance=instance, ns_per_step=row["ms"] * 1e6 / steps,
@@ -1785,11 +1804,12 @@ def phase_nussbaumer_dot_vs_plain(dev) -> dict:
         def library():
             return torch.bmm(lhs.to(torch.float64), bop.to(torch.float64)).to(torch.int64).to(torch.int32)
 
-        before, shapes_before = CP.launches[NU.DOT_NAME], NU.launched_shapes.copy()
+        before = counters()
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
-        check(CP.launches[NU.DOT_NAME] - before == pts, f"the pointwise dot launched {pts} times a call")
-        shapes.update(NU.launched_shapes - shapes_before)
+        moved = counts_since(before)
+        check(moved.get(f"probes.launches.{NU.DOT_NAME}", 0) == pts, f"the pointwise dot launched {pts} times a call")
+        shapes.update(by_instance(moved, "nussbaumer.shape"))
         err = max_abs_err(out, ref)
         k_ms, p_ms, lib_ms = cuda_ms(kernel, 10), cuda_ms(plain, 10), cuda_ms(library, 10)
         nbytes = 2 * (lhs.numel() + bop.numel()) + 4 * out.numel()
@@ -2248,7 +2268,6 @@ def run_parallel(dev, label: str, smi: str) -> dict:
     from rs_tfhe_tpu_torch import params as P
     from rs_tfhe_tpu_torch.bootstrap import LutBootstrap
     from rs_tfhe_tpu_torch.key import CloudKey
-    from rs_tfhe_tpu_torch.ops import cuda_probes, cuda_step
     from rs_tfhe_tpu_torch.ops import nussbaumer as NU
     from rs_tfhe_tpu_torch.parallel.dryrun import dryrun_multichip
     from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool, lwe_decrypt_message, lwe_encrypt_bool, lwe_encrypt_message
@@ -2324,11 +2343,12 @@ def run_parallel(dev, label: str, smi: str) -> dict:
         mesh = parallel.make_mesh(tp, tp=tp, devices=[dev] * tp)
         ref = gates.nand(a_, b_, ck_)
         parallel.tensor_parallel_gate("nand", a_, b_, ck_, mesh)  # warm
-        k5, tiles_before = cuda_step.launches, cuda_step.launched_tiles.copy()
+        before = counters()
         out, ms = _host_ms(lambda: parallel.tensor_parallel_gate("nand", a_, b_, ck_, mesh))
+        moved = counts_since(before)
         j = 2 * p.trgsw_lv1.l // tp
-        check(cuda_step.launches - k5 == tp * p.n0, f"{label}: {what}: the step kernel launched n0 times a shard")
-        check({key[-1] for key in cuda_step.launched_tiles - tiles_before} == {j}, f"{label}: {what}: J = {j}")
+        check(moved.get("k5.launches", 0) == tp * p.n0, f"{label}: {what}: the step kernel launched n0 times a shard")
+        check({key[-1] for key in by_instance(moved, "k5.instance")} == {j}, f"{label}: {what}: J = {j}")
         check(torch.equal(out, ref), f"{label}: {what} equals the single-device NAND bit for bit")
         check(correct(out, sk_, ~(bits_a_ & bits_b_)) == 1.0, f"{label}: {what} decrypts correctly")
         batch = a_.shape[0]
@@ -2364,9 +2384,9 @@ def run_parallel(dev, label: str, smi: str) -> dict:
         saved = config.config.step_impl
         config.config.step_impl = "nussbaumer"
         try:
-            before = cuda_probes.launches[NU.DOT_NAME]
+            before = counters()
             out, ms = _host_ms(lambda: gates.nand(a_, b_, ck_))
-            launched = cuda_probes.launches[NU.DOT_NAME] - before
+            launched = counts_since(before).get(f"probes.launches.{NU.DOT_NAME}", 0)
         finally:
             config.config.step_impl = saved
         check(launched == 2 * NU.R * p.n0, f"{label}: the Nussbaumer route launched P1's s16 unit 2r times a step")
@@ -2730,11 +2750,9 @@ def main() -> int:
     smi = phase_environment()
     import rs_tfhe_tpu_torch  # noqa: F401  (fails outside a checkout)
     from rs_tfhe_tpu_torch import params as P
-    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_keyswitch, cuda_probes, cuda_step
-    from rs_tfhe_tpu_torch.ops import nussbaumer as NU
 
-    modules = {"blind_rotate": cuda_blind_rotate, "blind_rotate_mb": cuda_blind_rotate_mb,
-               "external_product": cuda_step, "key_switch": cuda_keyswitch}
+    # the kernels whose launches the counters keep by instance: name -> the counters' prefix
+    modules = {"blind_rotate": "k1", "blind_rotate_mb": "k4", "external_product": "k5", "key_switch": "ks"}
     probe_names = [k for k in SOURCES if k not in modules]
 
     path_tiles = {k: set() for k in modules}
@@ -2742,24 +2760,20 @@ def main() -> int:
     roll_add_instances = collections.Counter()
 
     def drive(path, fn, *args):
-        """Run one path with every launch count at 0 before it; return its
-        result and the counts after it."""
-        for m in modules.values():
-            m.launches = 0
-            m.launched_tiles.clear()
-        strip_builds = cuda_blind_rotate.strip_builds
-        NU.launched_shapes.clear()
-        cuda_probes.launches.clear()
-        cuda_probes.roll_add_launches.clear()
+        """Run one path; return its result and the launch counts it moved
+        (the counters' difference over the path)."""
+        before = counters()
         out = fn(*args)
-        counts = {k: m.launches for k, m in modules.items()}
-        counts.update({k: cuda_probes.launches[k] for k in probe_names})
-        counts["bsk.strip_builds"] = cuda_blind_rotate.strip_builds - strip_builds
-        roll_add_instances.update(cuda_probes.roll_add_launches)
-        tiles = {k: tile_list(m.launched_tiles) for k, m in modules.items()}
-        for k, m in modules.items():
-            path_tiles[k].update(m.launched_tiles)
-        path_dot_shapes.update(NU.launched_shapes)
+        moved = counts_since(before)
+        counts = {k: moved.get(f"{c}.launches", 0) for k, c in modules.items()}
+        counts.update({k: moved.get(f"probes.launches.{k}", 0) for k in probe_names})
+        counts["bsk.strip_builds"] = moved.get("bsk.strip_builds", 0)
+        roll_add_instances.update({w: n for (w,), n in by_instance(moved, "probes.roll_add.instance").items()})
+        launched = {k: by_instance(moved, f"{c}.instance") for k, c in modules.items()}
+        tiles = {k: tile_list(t) for k, t in launched.items()}
+        for k, t in launched.items():
+            path_tiles[k].update(t)
+        path_dot_shapes.update(by_instance(moved, "nussbaumer.shape"))
         print(f"[{path}] kernel launches on this path: { {k: v for k, v in counts.items() if v} }; "
               f"instances launched: {tiles}")
         return out, counts

@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from .utils.profiling import counter
+
 _PKG = Path(__file__).resolve().parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
@@ -48,7 +50,7 @@ _lib: ctypes.CDLL | None = None
 
 #: Builds in this process that ran nvcc (a library already built for these
 #: sources is loaded without one).
-nvcc_builds = 0
+_builds = counter("build", ("nvcc",))
 
 
 def find_nvcc() -> str:
@@ -97,12 +99,11 @@ def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
     The compilers' output (with ptxas' register and shared-memory report) is
     kept beside the library as build.log."""
-    global nvcc_builds
     path = library_path()
     if path.exists():
         return path
     nvcc = find_nvcc()
-    nvcc_builds += 1
+    _builds["nvcc"] += 1
     path.parent.mkdir(parents=True, exist_ok=True)
     log = path.parent / "build.log"
     log.write_text("")

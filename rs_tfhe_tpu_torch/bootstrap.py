@@ -7,7 +7,6 @@ switch, with a caller-supplied test vector for programmable bootstrapping.
 
 from __future__ import annotations
 
-import collections
 import math
 
 import torch
@@ -19,18 +18,18 @@ from .ops.blind_rotate import blind_rotate
 from .ops.extract import sample_extract
 from .ops.keyswitch import identity_key_switch
 from .utils.noise import mb_lut_route_ok
-from .utils.profiling import span
+from .utils.profiling import counter, span
 
 #: Lookup tables `LutBootstrap.bootstrap_func` built in this process (its
 #: cache's misses): one a (function, modulus, set, device) while the cache
 #: holds it.
-tables_built = 0
+_tables = counter("lut", ("tables_built",))
 
 #: Programmable (LUT) bootstraps in this process: "calls" (each
 #: `bootstrap_with_testvec` and `lut.multi_value_bootstrap` call),
 #: "ciphertexts" (the ciphertexts they rotated) and "per_row_luts" (the calls
 #: whose test vector is per ciphertext). The gate path counts none.
-pbs_counts: collections.Counter = collections.Counter()
+pbs_counts = counter("pbs", ("calls", "ciphertexts", "per_row_luts"))
 
 
 def pbs_span(ciphertexts: int, per_row: bool):
@@ -135,11 +134,10 @@ class LutBootstrap:
         self._lut_cache: dict = {}
 
     def bootstrap_func(self, ct, f, message_modulus: int, ck: CloudKey):
-        global tables_built
         key = (f, message_modulus, ck.params, ck.testvec.device)
         lut = self._lut_cache.get(key)
         if lut is None:
-            tables_built += 1
+            _tables["tables_built"] += 1
             poly = Generator(message_modulus, ck.params).generate_lookup_table(f).poly
             lut = LookupTable(poly.to(ck.testvec.device))
             if len(self._lut_cache) >= self._LUT_CACHE_MAX:

@@ -22,7 +22,6 @@ the inputs' device. The seeded transport (`encrypt_radix_seeded`,
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 
@@ -42,11 +41,11 @@ from ..tlwe import (
     message_mu,
 )
 from ..torus import f64_to_torus, i32
-from ..utils.profiling import span
+from ..utils.profiling import counter, span
 
 #: Radix operations called in this process, by name ("add", "sub",
 #: "compare", "mul"); each runs inside the span `tfhe.radix.<name>`.
-radix_ops: collections.Counter = collections.Counter()
+radix_ops = counter("radix.ops", ("add", "sub", "compare", "mul"))
 
 
 def _radix_op(name: str):

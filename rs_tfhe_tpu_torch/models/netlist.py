@@ -24,12 +24,12 @@ import torch
 
 from .. import gates as G
 from ..key import CloudKey
-from ..utils.profiling import span
+from ..utils.profiling import counter, span
 
 #: Moves of a compiled plan's index tensors to a device in this process: one
 #: a compiled circuit and device (`evaluate` makes them on every call and is
 #: not counted).
-index_placements = 0
+_placements = counter("netlist", ("index_placements",))
 
 #: op name -> (code, arity). Codes must match csrc/circuit_scheduler.cpp.
 OPS = {
@@ -267,14 +267,13 @@ def compile_circuit(circuit: Circuit, the_plan: Plan | None = None):
     per_device: dict = {}
 
     def run(inputs: torch.Tensor, ck: CloudKey) -> torch.Tensor:
-        global index_placements
         device = ck.testvec.device
         if inputs.device != device:
             raise ValueError(f"inputs on {inputs.device}, key on {device}")
         with span("tfhe.netlist.run"):
             groups = per_device.get(device)
             if groups is None:
-                index_placements += 1
+                _placements["index_placements"] += 1
                 groups = per_device[device] = _group_indices(circuit, pl_, device)
             wires = _new_wires(circuit, inputs)
             for group in groups:

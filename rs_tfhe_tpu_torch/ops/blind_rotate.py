@@ -51,7 +51,6 @@ and runs inside the span `tfhe.rotate.<route>`, the exponents included:
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import torch
@@ -59,7 +58,7 @@ import torch
 from ..config import step_impl
 from ..params import TORUS_BITS, TfheParams
 from ..torus import logical_rshift
-from ..utils.profiling import span
+from ..utils.profiling import counter, span
 from . import cuda_blind_rotate, cuda_blind_rotate_mb, cuda_step, nussbaumer
 from .decompose import gadget_decompose
 from .poly import monomial_rotate, polymul_small_by_torus
@@ -70,8 +69,8 @@ _SPANS = {route: f"tfhe.rotate.{route}" for route in ROUTES}
 
 #: Calls of `blind_rotate` by route in this process, and the ciphertexts
 #: they rotated.
-route_calls: collections.Counter = collections.Counter()
-route_ciphertexts: collections.Counter = collections.Counter()
+route_calls = counter("rotate.route.*.calls", ROUTES)
+route_ciphertexts = counter("rotate.route.*.ciphertexts", ROUTES)
 
 
 def modswitch(x: torch.Tensor, params: TfheParams) -> torch.Tensor:

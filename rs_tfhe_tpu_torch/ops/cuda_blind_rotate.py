@@ -26,8 +26,6 @@ on mma.sync.
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import functools
 import weakref
 
@@ -35,30 +33,31 @@ import torch
 
 from .. import _build
 from ..params import TfheParams
+from ..utils.profiling import counter
+from .cuda_launch import (cluster_slots, error_text, instance_cost, launched, on_device, rotation_operands,
+                          takes_tensor_cores)
 
-#: Launches of the kernel in this process (the wrapper adds one per launch).
+#: Launches by instance (ring size N, tile, cluster, unit) in this process:
+#: which instantiations of the kernel ran. The unit is "imad" (32-bit
+#: multiply-adds on the CUDA cores), "wgmma_s8x3" (s8 limb products on wgmma
+#: with 3 key limbs) or "mma_s8x3" / "mma_s8x4" (on mma.sync with 3 or 4 key
+#: limbs): `tensor_core_unit` of what launched.
+launched_tiles = counter("k1.instance", total="k1.launches")
+#: Their sum, kept as an int for tfhe_bench/program.py, which reads it.
 launches = 0
 
-#: Launches by instance (ring size N, tile, cluster, unit) in this process,
-#: beside `launches`: which instantiations of the kernel ran. The unit is
-#: "imad" (32-bit multiply-adds on the CUDA cores), "wgmma_s8x3" (s8 limb
-#: products on wgmma with 3 key limbs) or "mma_s8x3" / "mma_s8x4" (on mma.sync
-#: with 3 or 4 key limbs): `tensor_core_unit` of what launched.
-launched_tiles: collections.Counter = collections.Counter()
+#: Whole-key reads of `key_limbs` (each synchronises the host with the
+#: device): one a key tensor, unless a caller hands over a new tensor each
+#: call; and builds of the wgmma instance's strips (`key_strips`).
+_key_counts = counter("bsk", ("grid_checks", "strip_builds"))
 
 #: Keys already checked for the 2^8 grid: id(tensor) -> (weak reference to
 #: the tensor, its version counter then, on the grid?).
 _grid_checked: dict = {}
 
-#: Whole-key reads of `key_limbs` in this process (each synchronises the
-#: host with the device): one a key tensor, unless a caller hands over a new
-#: tensor each call.
-grid_checks = 0
-
 
 def _on_grid(bsk: torch.Tensor) -> bool:
-    global grid_checks
-    grid_checks += 1
+    _key_counts["grid_checks"] += 1
     return not bool((bsk & 0xFF).any())
 
 
@@ -86,39 +85,15 @@ def key_limbs(bsk: torch.Tensor, params: TfheParams) -> int:
     return 3 if entry[2] else 4
 
 
-#: Clusters of each size an NVIDIA H100 SXM (132 SMs) holds at one block an
-#: SM, as `cluster_slots` read them there: a cluster lives inside one GPC, so
-#: large clusters leave SMs idle. For planning without the card (tests).
-H100_CLUSTER_SLOTS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
-
-#: What ranks the candidates, in units of one ciphertext's multiply-adds on
-#: one SM (about 49 ms at SECURITY_128_BIT_FAST on an H100), fitted to that
-#: set's times on one H100 (PERF.md names the batches): a rotation over a
-#: cluster costs tile / cluster * _CLUSTER_FACTOR + the exchange (barriers,
-#: decomposition and key staging, about 4 ms whatever the cluster); a single
-#: block costs tile * _SINGLE_FACTOR (small tiles load more shared-memory
-#: words per multiply-add). The exchange moves N words a step where the
-#: product does N^2 multiply-adds, so in these units it is _EXCHANGE at
-#: N = 1024 and halves with each doubling of N (`_exchange`; read at N = 2048,
-#: assumed at 4096); below 1024 it stays _EXCHANGE.
-_EXCHANGE = 0.08
-_CLUSTER_FACTOR = {2: 1.0, 4: 1.03, 8: 1.07, 16: 1.12}
-_SINGLE_FACTOR = {1: 2.1, 2: 1.13, 4: 1.02, 8: 1.0}
-
 #: The tensor-core instance: a cluster of 2N / 256 blocks at N = 1024 and 2048
 #: (at 4096 the digits of 16 ciphertexts exceed a block's shared memory); 16
 #: ciphertexts a cluster, or 32 at N = 1024 where the key has three limbs and
 #: L = 2 (more limbs exceed the registers, more gadget rows the shared
-#: memory). Its cost per rotation by tile on a cluster of 8, in the same units
-#: (about 19 and 31 ms at SECURITY_128_BIT_FAST); a cluster of 16 has half the
-#: rows a block and costs half (`_mma_cost`).
+#: memory). Its cost per rotation by tile on a cluster of 8, in the units of
+#: `cuda_launch.instance_cost` (about 19 and 31 ms at SECURITY_128_BIT_FAST);
+#: a cluster of 16 has half the rows a block and costs half (`_mma_cost`).
 MMA_COLS, MMA_RING_SIZES = 256, (1024, 2048)
 _MMA_WORK = {16: 0.4, 32: 0.64}
-
-#: Strip builds in this process (`key_strips`): one each time a device's
-#: wgmma instance is handed another key than its last one, or the same key
-#: changed in place.
-strip_builds = 0
 
 #: The strips of the last key each device's wgmma instance ran with: device
 #: index -> (weak reference to the key, its version then, the strips). One
@@ -161,7 +136,6 @@ def key_strips(bsk: torch.Tensor, params: TfheParams, tile: int, limbs: int) -> 
     whatever the number of keys, and alternating keys pay a build a switch
     (PERF.md). A key made under `torch.inference_mode()` has no version
     counter and is built anew each call."""
-    global strip_builds
     if not on_wgmma(params.n1, tile, limbs):
         return None
     index = bsk.device.index
@@ -176,9 +150,7 @@ def key_strips(bsk: torch.Tensor, params: TfheParams, tile: int, limbs: int) -> 
     with on_device(bsk.device.index):
         err = lib.tfhe_blind_rotate_strips(bsk.data_ptr(), strips.data_ptr(), params.n0, log_n, g.l, tile, limbs,
                                            torch.cuda.current_stream(bsk.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"blind_rotate: strip build failed: {lib.tfhe_cuda_error_string(err).decode()} ({err})")
-    strip_builds += 1
+    launched(err, _key_counts, "strip_builds", "blind_rotate: strip build failed")
     if not bsk.is_inference():
         _strips[index] = (weakref.ref(bsk, functools.partial(_drop_strips, index)), bsk._version, strips)
     return strips
@@ -254,26 +226,9 @@ def digit_offset(rows: int, n, m):
     return ((m // 16) * (rows // 8) + n // 8) * 128 + (n % 8) * 16 + m % 16
 
 
-def _exchange(n: int) -> float:
-    return _EXCHANGE * 1024 / max(n, 1024)
-
-
 def mma_tiles(params: TfheParams, limbs: int) -> tuple:
     """The tiles the tensor-core instance has for this set and key."""
     return (16, 32) if limbs == 3 and params.trgsw_lv1.l == 2 and params.n1 == 1024 else (16,)
-
-
-def limb_accumulator_bound(params: TfheParams) -> int:
-    """The largest magnitude one s32 limb accumulator of the tensor-core
-    product can reach: 2L * N terms of |digit| <= Bg/2 times a byte <= 255."""
-    g = params.trgsw_lv1
-    return 2 * g.l * params.n1 * g.half_bg * 255
-
-
-def takes_tensor_cores(params: TfheParams) -> bool:
-    """Whether the limb product serves this set: digits of one s8 limb and
-    limb sums that stay inside s32."""
-    return params.trgsw_lv1.bgbit <= 8 and limb_accumulator_bound(params) < 1 << 31
 
 
 def rotation_unit(
@@ -294,7 +249,7 @@ def rotation_unit(
     if not any(held.values()):
         return (*instance, False)
     cost, tile = _mma_cost(batch, held, cluster)
-    if cost < _instance_cost(batch, *instance, slots, params.n1)[1]:
+    if cost < instance_cost(batch, *instance, slots, params.n1)[1]:
         return (tile, cluster, True)
     return (*instance, False)
 
@@ -306,16 +261,6 @@ def _mma_cost(batch: int, held: dict, cluster: int) -> tuple:
     return min(
         (-(-(-(-batch // tile)) // n) * _MMA_WORK[tile] * 8 / cluster, tile) for tile, n in held.items() if n > 0
     )
-
-
-def _instance_cost(batch: int, tile: int, cluster: int, slots: dict, n: int = 1024) -> tuple:
-    """(more than one wave?, waves x cost of one block's rotation) at ring size n."""
-    if cluster == 1:
-        work = tile * _SINGLE_FACTOR[tile]
-    else:
-        work = tile / cluster * _CLUSTER_FACTOR[cluster] + _exchange(n)
-    waves = -(-(-(-batch // tile)) // slots[cluster])
-    return waves > 1, waves * work
 
 
 def rotation_instance(batch: int, max_tile: int, slots: dict, n: int = 1024) -> tuple:
@@ -330,26 +275,17 @@ def rotation_instance(batch: int, max_tile: int, slots: dict, n: int = 1024) -> 
         for tile in range(1, max_tile + 1):
             if cluster == 1 and tile & (tile - 1):
                 continue
-            key = (*_instance_cost(batch, tile, cluster, slots, n), -cluster, tile)
+            key = (*instance_cost(batch, tile, cluster, slots, n), -cluster, tile)
             if best is None or key < best[0]:
                 best = (key, (tile, cluster))
     return best[1]
 
 
-@functools.lru_cache(maxsize=None)
-def cluster_slots(index: int, log_n: int) -> dict:
-    """{cluster size: clusters CUDA device `index` holds at one block an SM}
-    for the CUDA-core instances' cluster sizes at ring size 2^log_n, with the
-    SM count under 1. A size the device cannot schedule at all is left out."""
-    lib = _build.load()
-    slots = {1: torch.cuda.get_device_properties(index).multi_processor_count}
-    cluster = 2
-    while cluster <= lib.tfhe_blind_rotate_max_cluster(log_n):
-        held = max_active_clusters(index, log_n, 1, cluster)
-        if held > 0:
-            slots[cluster] = held
-        cluster *= 2
-    return slots
+def held_clusters(index: int, log_n: int, cluster: int) -> int:
+    """Clusters of `cluster` blocks of the CUDA-core instances CUDA device
+    `index` holds at one block an SM: the query `cuda_launch.cluster_slots`
+    asks for this kernel."""
+    return max_active_clusters(index, log_n, 1, cluster)
 
 
 def mma_slots(index: int, params: TfheParams, limbs: int) -> dict:
@@ -370,7 +306,7 @@ def planned_instance(index: int, batch: int, params: TfheParams, limbs: int) -> 
     from the set; `limbs` is `key_limbs` of the key, or 0 to stay on the
     CUDA cores (0 comes back wherever they are taken)."""
     log_n = params.n1.bit_length() - 1
-    slots = cluster_slots(index, log_n)
+    slots = cluster_slots(index, log_n, held_clusters)
     instance = rotation_instance(batch, _build.load().tfhe_blind_rotate_max_tile(log_n), slots, params.n1)
     if not limbs or params.n1 not in MMA_RING_SIZES or not takes_tensor_cores(params):
         return (*instance, 0)
@@ -389,39 +325,9 @@ def max_active_clusters(index: int, log_n: int, tile: int, cluster: int, limbs: 
     with torch.cuda.device(index):
         count = lib.tfhe_blind_rotate_max_active_clusters(log_n, tile, cluster, limbs, l)
     if count < 0:
-        msg = lib.tfhe_cuda_error_string(-count).decode()
-        raise RuntimeError(f"blind_rotate: no instance (tile={tile}, cluster={cluster}) at N=2^{log_n}: {msg}")
+        raise RuntimeError(f"blind_rotate: no instance (tile={tile}, cluster={cluster}) at N=2^{log_n}: "
+                           f"{error_text(-count)}")
     return count
-
-
-def on_device(index: int):
-    """A context in which CUDA device `index` is current: nothing to do (and
-    no cudaSetDevice round trip) when it already is."""
-    if torch.cuda.current_device() == index:
-        return contextlib.nullcontext()
-    return torch.cuda.device(index)
-
-
-def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    """Raise unless t is a contiguous int32 tensor of this shape on `device`
-    (the kernels' operand contract)."""
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.int32")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def check_shapes(params: TfheParams) -> None:
-    """Raise unless the kernels take this ring size and gadget."""
-    g, n = params.trgsw_lv1, params.n1
-    if n & (n - 1) or not 64 <= n <= 4096:
-        raise ValueError(f"ring size N={n}: the kernels take powers of two in [64, 4096]")
-    if not 1 <= g.bgbit <= 31 or g.l * g.bgbit > 32:
-        raise ValueError(f"gadget bgbit={g.bgbit}, L={g.l} outside the kernels' range")
 
 
 def blind_rotate_kernel(
@@ -446,28 +352,16 @@ def blind_rotate_kernel(
     plan on the CUDA cores.
     """
     global launches
-    if b_til.device.type != "cuda":
-        raise ValueError(f"blind_rotate_kernel takes CUDA tensors, got {b_til.device}")
     g = params.trgsw_lv1
     n0, n = params.n0, params.n1
-    check_shapes(params)
-    dev = b_til.device
-    batch = b_til.shape[0]
-    check_tensor("b_til", b_til, (batch,), dev)
-    check_tensor("a_til", a_til, (batch, n0), dev)
-    check_tensor("bsk", bsk, (n0, 2 * g.l, 2, n), dev)
-    if testvec.dim() == 2:
-        check_tensor("testvec", testvec, (2, n), dev)
-        tv_stride = 0
-    else:
-        check_tensor("testvec", testvec, (batch, 2, n), dev)
-        tv_stride = 2 * n
-    out = torch.empty((batch, 2, n), dtype=torch.int32, device=dev)
-    if batch == 0:
+    out, tv_stride, index = rotation_operands(
+        "blind_rotate_kernel", b_til, a_til, testvec, "bsk", bsk, (n0, 2 * g.l, 2, n), params
+    )
+    if index is None:
         return out
+    dev, batch = b_til.device, b_til.shape[0]
     lib = _build.load()
     log_n = n.bit_length() - 1
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
     limbs = 0
     if tensor_cores:
         if cluster is not None:
@@ -503,11 +397,10 @@ def blind_rotate_kernel(
             bsk.data_ptr(), strips.data_ptr() if strips is not None else None, out.data_ptr(), batch, n0, log_n,
             g.l, g.bgbit, dec_offset, tile, cluster, limbs, stream,
         )
-    if err != 0:
-        msg = lib.tfhe_cuda_error_string(err).decode()
-        raise RuntimeError(f"blind_rotate kernel launch failed (tile={tile}, cluster={cluster}): {msg} ({err})")
+    unit = tensor_core_unit(strips is not None, limbs) if limbs else "imad"
+    launched(err, launched_tiles, (n, tile, cluster, unit), "blind_rotate kernel launch failed (tile={}, cluster={})",
+             tile, cluster)
     if strips is not None:  # another key's strips may take its memory once this stream has read it
         strips.record_stream(torch.cuda.current_stream(dev))
     launches += 1
-    launched_tiles[(n, tile, cluster, tensor_core_unit(strips is not None, limbs) if limbs else "imad")] += 1
     return out

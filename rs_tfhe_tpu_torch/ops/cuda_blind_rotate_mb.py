@@ -19,21 +19,20 @@ card in one wave).
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import torch
 
 from .. import _build
 from ..params import TfheParams
-from .cuda_blind_rotate import _instance_cost, check_shapes, check_tensor, on_device
+from ..utils.profiling import counter
+from .cuda_launch import cluster_slots, error_text, instance_cost, launched, on_device, rotation_operands
 
-#: Launches of the kernel in this process (the wrapper adds one per launch).
+#: Launches by instance (ring size N, tile, cluster) in this process;
+#: cluster 1 is the single-block instance.
+launched_tiles = counter("k4.instance", total="k4.launches")
+#: Their sum, kept as an int for tfhe_bench/program.py, which reads it.
 launches = 0
-
-#: Launches by instance (ring size N, tile, cluster) in this process, beside
-#: `launches`; cluster 1 is the single-block instance.
-launched_tiles: collections.Counter = collections.Counter()
 
 #: The tiles the instances take (up to their largest at a ring size).
 TILES = (1, 2, 4)
@@ -46,14 +45,15 @@ def rotation_instance(batch: int, slots: dict, n: int, max_tile: int, max_cluste
     single-block instance's largest tile, `max_cluster_tile` the cluster
     instance's. Ranked as the whole-rotation kernel's plan ranks its
     instances (`cuda_blind_rotate.rotation_instance`): waves times the cost
-    of one block's rotation, one wave before more."""
+    of one block's rotation (`cuda_launch.instance_cost`), one wave before
+    more."""
     candidates = [
         (tile, cluster)
         for cluster in slots
         for tile in TILES
         if tile <= (max_tile if cluster == 1 else max_cluster_tile)
     ]
-    return min(candidates, key=lambda tc: (*_instance_cost(batch, *tc, slots, n), -tc[1], tc[0]))
+    return min(candidates, key=lambda tc: (*instance_cost(batch, *tc, slots, n), -tc[1], tc[0]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,31 +62,21 @@ def max_active_clusters(index: int, log_n: int, tile: int, cluster: int) -> int:
     holds at one block an SM (cudaOccupancyMaxActiveClusters, asked with the
     instance's own shared memory). Raises for an instance the kernel does not
     have."""
-    lib = _build.load()
     with torch.cuda.device(index):
-        count = lib.tfhe_blind_rotate_mb_max_active_clusters(log_n, tile, cluster)
+        count = _build.load().tfhe_blind_rotate_mb_max_active_clusters(log_n, tile, cluster)
     if count < 0:
-        msg = lib.tfhe_cuda_error_string(-count).decode()
-        raise RuntimeError(f"blind_rotate_mb: no instance (tile={tile}, cluster={cluster}) at N=2^{log_n}: {msg}")
+        raise RuntimeError(f"blind_rotate_mb: no instance (tile={tile}, cluster={cluster}) at N=2^{log_n}: "
+                           f"{error_text(-count)}")
     return count
 
 
-@functools.lru_cache(maxsize=None)
-def cluster_slots(index: int, log_n: int) -> dict:
-    """{cluster size: clusters of the cluster instance CUDA device `index`
-    holds at one block an SM}, asked at the largest tile (the most shared
-    memory), with the SM count under 1. A size the device cannot schedule is
-    left out."""
-    lib = _build.load()
-    slots = {1: torch.cuda.get_device_properties(index).multi_processor_count}
-    tile = lib.tfhe_blind_rotate_mb_max_cluster_tile(log_n)
-    cluster = 2
-    while tile and cluster <= lib.tfhe_blind_rotate_max_cluster(log_n):
-        held = max_active_clusters(index, log_n, tile, cluster)
-        if held > 0:
-            slots[cluster] = held
-        cluster *= 2
-    return slots
+def held_clusters(index: int, log_n: int, cluster: int) -> int:
+    """Clusters of `cluster` blocks of the cluster instance CUDA device
+    `index` holds at one block an SM, asked at its largest tile (the most
+    shared memory); 0 at a ring size without the cluster instance. The query
+    `cuda_launch.cluster_slots` asks for this kernel."""
+    tile = _build.load().tfhe_blind_rotate_mb_max_cluster_tile(log_n)
+    return max_active_clusters(index, log_n, tile, cluster) if tile else 0
 
 
 def planned_instance(index: int, batch: int, params: TfheParams) -> tuple:
@@ -95,7 +85,7 @@ def planned_instance(index: int, batch: int, params: TfheParams) -> tuple:
     lib = _build.load()
     log_n = params.n1.bit_length() - 1
     return rotation_instance(
-        batch, cluster_slots(index, log_n), params.n1,
+        batch, cluster_slots(index, log_n, held_clusters), params.n1,
         lib.tfhe_blind_rotate_mb_max_tile(log_n), lib.tfhe_blind_rotate_mb_max_cluster_tile(log_n),
     )
 
@@ -118,32 +108,20 @@ def blind_rotate_mb_kernel(
     `cluster` defaults to 1 (the single-block instance).
     """
     global launches
-    if b_til.device.type != "cuda":
-        raise ValueError(f"blind_rotate_mb_kernel takes CUDA tensors, got {b_til.device}")
     g = params.trgsw_lv1
     n0, n = params.n0, params.n1
     if n0 % 2:
         raise ValueError(f"multi-bit grouping needs an even n0, got {n0}")
-    check_shapes(params)
-    dev = b_til.device
-    batch = b_til.shape[0]
-    check_tensor("b_til", b_til, (batch,), dev)
-    check_tensor("a_til", a_til, (batch, n0), dev)
-    check_tensor("bsk_mb", bsk_mb, (n0 // 2, 4, 2 * g.l, 2, n), dev)
+    out, tv_stride, index = rotation_operands(
+        "blind_rotate_mb_kernel", b_til, a_til, testvec, "bsk_mb", bsk_mb, (n0 // 2, 4, 2 * g.l, 2, n), params
+    )
     if bsk_mb.data_ptr() % 16:
         raise ValueError("bsk_mb: the cluster instance copies 16-byte words; its data must be 16-byte aligned")
-    if testvec.dim() == 2:
-        check_tensor("testvec", testvec, (2, n), dev)
-        tv_stride = 0
-    else:
-        check_tensor("testvec", testvec, (batch, 2, n), dev)
-        tv_stride = 2 * n
-    out = torch.empty((batch, 2, n), dtype=torch.int32, device=dev)
-    if batch == 0:
+    if index is None:
         return out
+    dev, batch = b_til.device, b_til.shape[0]
     lib = _build.load()
     log_n = n.bit_length() - 1
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
     if tile is None:
         if cluster is not None:
             raise ValueError("blind_rotate_mb_kernel: a cluster needs its tile")
@@ -162,9 +140,7 @@ def blind_rotate_mb_kernel(
             bsk_mb.data_ptr(), out.data_ptr(), batch, n0, log_n,
             g.l, g.bgbit, dec_offset, tile, cluster, stream,
         )
-    if err != 0:
-        msg = lib.tfhe_cuda_error_string(err).decode()
-        raise RuntimeError(f"blind_rotate_mb kernel launch failed (tile={tile}, cluster={cluster}): {msg} ({err})")
+    launched(err, launched_tiles, (n, tile, cluster), "blind_rotate_mb kernel launch failed (tile={}, cluster={})",
+             tile, cluster)
     launches += 1
-    launched_tiles[(n, tile, cluster)] += 1
     return out

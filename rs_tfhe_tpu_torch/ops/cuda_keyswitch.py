@@ -12,7 +12,6 @@ it. This wrapper takes CUDA tensors only: it launches the kernel or raises.
 
 from __future__ import annotations
 
-import collections
 import functools
 import math
 
@@ -20,14 +19,12 @@ import torch
 
 from .. import _build
 from ..params import TORUS_BITS
-from .cuda_blind_rotate import on_device
+from ..utils.profiling import counter
+from .cuda_launch import launched, on_device
 
-#: Launches in this process (one a call: the selection kernel and the
-#: reduction over its slices).
-launches = 0
-
-#: Launches by instance, (ciphertexts a block,), beside `launches`.
-launched_tiles: collections.Counter = collections.Counter()
+#: Launches by instance, (ciphertexts a block,), in this process (one a
+#: call: the selection kernel and the reduction over its slices).
+launched_tiles = counter("ks.instance", total="ks.launches")
 
 #: Ciphertexts a block at most; a larger batch takes more blocks.
 MAX_BLOCK_BATCH = 16
@@ -85,7 +82,6 @@ def digit_select_kernel(
     table_limbs: int8 [n_in * t * 2^basebit, 4 * W] planar limbs, as the key
                  holds them (key.ksk_limbs_from_rows)
     """
-    global launches
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"digit_select_kernel takes CUDA tensors, got {dev}")
@@ -127,9 +123,5 @@ def digit_select_kernel(
             batch, n_in, t, basebit, 1 << (TORUS_BITS - 1 - basebit * t), w, out_width, bc, per_block, slices,
             stream,
         )
-    if err != 0:
-        msg = lib.tfhe_cuda_error_string(err).decode()
-        raise RuntimeError(f"key switch kernel launch failed (plan {(bc, per_block, slices)}): {msg} ({err})")
-    launches += 1
-    launched_tiles[(bc,)] += 1
+    launched(err, launched_tiles, (bc,), "key switch kernel launch failed (plan {})", (bc, per_block, slices))
     return out.reshape(*lead, out_width)

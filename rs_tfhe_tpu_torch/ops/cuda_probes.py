@@ -28,7 +28,6 @@ TPU scripts' tables are scripts/probe_hopper.py and scripts/bench_hopper_prims.p
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 
@@ -37,9 +36,11 @@ import torch
 
 from .. import _build
 from ..torus import wrap_i32
+from ..utils.profiling import counter
+from .cuda_launch import launched
 
 #: Launches by wrapper name in this process (a wrapper adds one per launch).
-launches: collections.Counter = collections.Counter()
+launches = counter("probes.launches")
 
 _INT_TYPES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
 _NP_TYPES = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32}
@@ -61,7 +62,7 @@ ROLL_ADD_WORDS = (1, 2, 4, 8, 16, 32, 64)
 ROLL_ADD_SHARED_COLS = 6144
 #: Launches of `chain_roll_add` by instance: its E (`roll_add_words`), 0 for
 #: the shared-memory instance.
-roll_add_launches: collections.Counter = collections.Counter()
+roll_add_launches = counter("probes.roll_add.instance")
 
 
 # ---------------------------------------------------------------------------
@@ -323,9 +324,7 @@ def _launch(name: str, symbol: str, *args, index: int) -> None:
     else:
         with torch.cuda.device(index):
             err = fn(*args, _current_stream(index))
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: {_fn('tfhe_cuda_error_string')(err).decode()} ({err})")
-    launches[name] += 1
+    launched(err, launches, name, "{} kernel launch failed", name)
 
 
 def _dot(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -23,28 +23,19 @@ card. `limb_product_plain` states the limb formulation in plain PyTorch.
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import torch
 
 from .. import _build
 from ..params import TfheParams
-from .cuda_blind_rotate import (  # noqa: F401
-    check_shapes,
-    check_tensor,
-    limb_accumulator_bound,
-    on_device,
-    takes_tensor_cores,
-)
+from ..utils.profiling import counter
+from .cuda_launch import check_shapes, check_tensor, launched, on_device, takes_tensor_cores
 from .poly import polymul_small_by_torus
 
-#: Launches of the kernel in this process (the wrapper adds one per launch).
-launches = 0
-
 #: Launches by instance (ring size N, unit, rows a block, column split) and
-#: gadget row count J, (*instance, J), in this process, beside `launches`.
-launched_tiles: collections.Counter = collections.Counter()
+#: gadget row count J, (*instance, J), in this process.
+launched_tiles = counter("k5.instance", total="k5.launches")
 
 #: Rows and output columns a block of the tensor-core instance owns.
 MMA_ROWS, MMA_COLS = 128, 64
@@ -141,7 +132,6 @@ def external_product_kernel(
     `tile` (with `split`) forces the CUDA-core instance at that tile and is
     for tests and measurement scripts only; no path of the package sets it.
     """
-    global launches
     if digits.device.type != "cuda":
         raise ValueError(f"external_product_kernel takes CUDA tensors, got {digits.device}")
     g, n = params.trgsw_lv1, params.n1
@@ -173,11 +163,7 @@ def external_product_kernel(
             scratch.data_ptr() if scratch is not None else None,
             rows, n.bit_length() - 1, j_rows, int(unit == "mma_s8"), tile, split, stream,
         )
-    if err != 0:
-        msg = lib.tfhe_cuda_error_string(err).decode()
-        raise RuntimeError(f"external_product kernel launch failed (instance={instance}): {msg} ({err})")
-    launches += 1
-    launched_tiles[(*instance, j_rows)] += 1
+    launched(err, launched_tiles, (*instance, j_rows), "external_product kernel launch failed (instance={})", instance)
     return out
 
 

@@ -23,14 +23,13 @@ of each (i, j) block of a key-switching key is zero
 
 from __future__ import annotations
 
-import collections
 import math
 
 import torch
 
 from ..params import TORUS_BITS, TfheParams
 from ..torus import i32, recombine_planar
-from ..utils.profiling import span
+from ..utils.profiling import counter, span
 from . import cuda_keyswitch
 from .poly import exact_dot_i8
 
@@ -46,8 +45,8 @@ KS_SELECT_MAX_BATCH = 256
 ROUTES = ("select", "product")
 
 #: Calls by route in this process, and the ciphertexts they switched.
-route_calls: collections.Counter = collections.Counter()
-route_ciphertexts: collections.Counter = collections.Counter()
+route_calls = counter("keyswitch.route.*.calls", ROUTES)
+route_ciphertexts = counter("keyswitch.route.*.ciphertexts", ROUTES)
 
 
 def ks_route(a: torch.Tensor) -> str:

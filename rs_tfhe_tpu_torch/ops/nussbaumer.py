@@ -28,13 +28,13 @@ as its plain version, `cuda_probes.dot_plain` (exact float64).
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import torch
 
 from ..params import TfheParams
 from ..torus import recombine_planar, split_u32_limbs, wrap_i32
+from ..utils.profiling import counter
 from . import cuda_probes
 from .poly import circulant_rows, negacyclic_extend, negacyclic_static_roll
 
@@ -47,7 +47,7 @@ DOT_NAME = "nussbaumer_dot"
 
 #: The pointwise dot's launches by shape (B, K, M) in this process, beside
 #: `cuda_probes.launches[DOT_NAME]`.
-launched_shapes: collections.Counter = collections.Counter()
+launched_shapes = counter("nussbaumer.shape")
 
 
 def check_bounds(params: TfheParams) -> bool:

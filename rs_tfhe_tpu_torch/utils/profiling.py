@@ -11,13 +11,17 @@ Beside them, the package's own instrumentation:
     otherwise. Every kernel launched inside a span, the ctypes launches of
     the CUDA kernels too, has it as an ancestor in the profiler's events,
     on the clock of the device's activity;
-  - `counters()`: one flat snapshot of every counter the package keeps
-    (kernel launches by instance, the rotation's route, work that a
-    process should do once).
+  - `counter(prefix)`: the store of the package's counters (kernel
+    launches by instance, the rotation's route, work that a process should
+    do once), each module's taken at its import; `counters()`: one flat
+    snapshot of them all.
+
+This module imports no other module of the package: every layer may use it.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 from dataclasses import dataclass, field
@@ -64,6 +68,26 @@ def span(name: str):
     return _NO_SPAN
 
 
+#: The package's counters: prefix -> the process's Counter under it
+#: (`counter`), and prefix -> the name its sum is reported under.
+_store: dict = {}
+_totals: dict = {}
+
+
+def counter(prefix: str, keys=(), total: str | None = None) -> collections.Counter:
+    """The process's Counter under `prefix`, made on first use, with `keys`
+    at 0. A module takes its counters once, at import, and counts in them;
+    `counters()` reports each count under `<prefix>.<key>` (a tuple key's
+    parts joined by '/'), or with the key in place of a '*' in the prefix,
+    and with `total` the sum of the counts under that name too."""
+    c = _store.setdefault(prefix, collections.Counter())
+    for k in keys:
+        c.setdefault(k, 0)
+    if total is not None:
+        _totals[prefix] = total
+    return c
+
+
 def counters() -> dict:
     """Every counter of the package, now, as one flat dict of name -> count:
 
@@ -84,39 +108,16 @@ def counters() -> dict:
                            the ciphertexts they rotated, those with a test vector a ciphertext
       radix.ops.<add|sub|compare|mul>                       models/arithmetic
 
-    The counts are the process's since it started; subtract two snapshots
-    for what ran between them."""
-    from .. import _build, bootstrap
-    from ..models import arithmetic, netlist
-    from ..ops import (blind_rotate, cuda_blind_rotate, cuda_blind_rotate_mb, cuda_keyswitch, cuda_probes,
-                       cuda_step, keyswitch, nussbaumer)
-
-    out = {"k1.launches": cuda_blind_rotate.launches, "k4.launches": cuda_blind_rotate_mb.launches,
-           "k5.launches": cuda_step.launches, "ks.launches": cuda_keyswitch.launches}
-    for prefix, counter in (("k1.instance", cuda_blind_rotate.launched_tiles),
-                            ("k4.instance", cuda_blind_rotate_mb.launched_tiles),
-                            ("k5.instance", cuda_step.launched_tiles),
-                            ("ks.instance", cuda_keyswitch.launched_tiles),
-                            ("probes.launches", cuda_probes.launches),
-                            ("probes.roll_add.instance", cuda_probes.roll_add_launches),
-                            ("nussbaumer.shape", nussbaumer.launched_shapes)):
-        for k, n in counter.items():
-            out[f"{prefix}.{'/'.join(map(str, k)) if isinstance(k, tuple) else k}"] = n
-    for route in blind_rotate.ROUTES:
-        out[f"rotate.route.{route}.calls"] = blind_rotate.route_calls[route]
-        out[f"rotate.route.{route}.ciphertexts"] = blind_rotate.route_ciphertexts[route]
-    for route in keyswitch.ROUTES:
-        out[f"keyswitch.route.{route}.calls"] = keyswitch.route_calls[route]
-        out[f"keyswitch.route.{route}.ciphertexts"] = keyswitch.route_ciphertexts[route]
-    out["bsk.grid_checks"] = cuda_blind_rotate.grid_checks
-    out["bsk.strip_builds"] = cuda_blind_rotate.strip_builds
-    out["netlist.index_placements"] = netlist.index_placements
-    out["build.nvcc"] = _build.nvcc_builds
-    out["lut.tables_built"] = bootstrap.tables_built
-    for k in ("calls", "ciphertexts", "per_row_luts"):
-        out[f"pbs.{k}"] = bootstrap.pbs_counts[k]
-    for op in ("add", "sub", "compare", "mul"):
-        out[f"radix.ops.{op}"] = arithmetic.radix_ops[op]
+    (`k<n>.launches` is the sum of that kernel's instance counts.) The counts
+    are the process's since it started; subtract two snapshots for what ran
+    between them."""
+    out = {}
+    for prefix, c in _store.items():
+        if prefix in _totals:
+            out[_totals[prefix]] = sum(c.values())
+        for k, n in c.items():
+            k = "/".join(map(str, k)) if isinstance(k, tuple) else str(k)
+            out[prefix.replace("*", k) if "*" in prefix else f"{prefix}.{k}"] = n
     return out
 
 

@@ -206,7 +206,7 @@ def host_path_split(device) -> dict:
     beside the raw handle; the library function looked up by name beside one
     resolved once. The ctypes calls launch the kernels."""
     from rs_tfhe_tpu_torch import _build
-    from rs_tfhe_tpu_torch.ops.cuda_blind_rotate import on_device
+    from rs_tfhe_tpu_torch.ops.cuda_launch import on_device
 
     lib = _build.load()
     index = torch.cuda.current_device() if device.index is None else device.index

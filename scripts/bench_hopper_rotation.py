@@ -32,6 +32,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rs_tfhe_tpu_torch import params as P  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_launch  # noqa: E402
+from rs_tfhe_tpu_torch.utils import profiling  # noqa: E402
 
 INSTANCES = {
     1: [(1, 16), (1, 8), (1, 4), (1, 2), (1, 1)],
@@ -63,6 +65,15 @@ def cuda_ms(fn, reps: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def launched(fn):
+    """(fn(), the whole-rotation kernel's instance it launched: (N, tile,
+    cluster, unit), from the package's counters); fn launches it once."""
+    before = profiling.counters()
+    out = fn()
+    (name,) = (k for k, v in profiling.counters().items() if k.startswith("k1.instance.") and v != before.get(k, 0))
+    return out, tuple(int(x) if x.isdigit() else x for x in name[len("k1.instance."):].split("/"))
+
+
 def inputs(p, batch: int, g, dev, on_grid: bool):
     def rnd(shape, lo=-(1 << 31), hi=1 << 31):
         return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32, device=dev)
@@ -84,7 +95,8 @@ def main(dev=None) -> dict:
     print(smi)
     g = torch.Generator(device=dev).manual_seed(7)
     fast = P.SECURITY_128_BIT_FAST
-    print(f"clusters held at one block an SM, N=1024: {CBR.cluster_slots(dev.index or 0, 10)}")
+    slots = cuda_launch.cluster_slots(dev.index or 0, 10, CBR.held_clusters)
+    print(f"clusters held at one block an SM, N=1024: {slots}")
     table = {}
     for batch, instances in INSTANCES.items():
         args = inputs(fast, batch, g, dev, on_grid=True)
@@ -112,12 +124,8 @@ def main(dev=None) -> dict:
             args = inputs(p, batch, g, dev, on_grid)
             limbs = CBR.key_limbs(args[3], p)
             tile, cluster, planned_limbs = CBR.planned_instance(dev.index or 0, batch, p, limbs)
-            before = CBR.launched_tiles.copy()
-            ref = CBR.blind_rotate_kernel(*args, p, tensor_cores=False)
-            ((_, i_tile, i_cluster, _),) = (CBR.launched_tiles - before).keys()
-            before = CBR.launched_tiles.copy()
-            out = CBR.blind_rotate_kernel(*args, p, tensor_cores=True)
-            ((_, m_tile, m_cluster, unit),) = (CBR.launched_tiles - before).keys()
+            ref, (_, i_tile, i_cluster, _) = launched(lambda: CBR.blind_rotate_kernel(*args, p, tensor_cores=False))
+            out, (_, m_tile, m_cluster, unit) = launched(lambda: CBR.blind_rotate_kernel(*args, p, tensor_cores=True))
             assert torch.equal(out, ref), (name, batch)
             imad_ms = cuda_ms(lambda: CBR.blind_rotate_kernel(*args, p, tensor_cores=False))
             mma_ms = cuda_ms(lambda: CBR.blind_rotate_kernel(*args, p, tensor_cores=True))

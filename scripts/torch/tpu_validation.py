@@ -158,13 +158,14 @@ class Validation:
         if self.device.type != "cuda":
             return
         from rs_tfhe_tpu_torch.ops import cuda_probes
+        from rs_tfhe_tpu_torch.utils import profiling
 
         rng = np.random.default_rng(0)
         info = np.iinfo(np.int16)
         pairs = [(np.ones((128, 1024), np.int16), np.ones((1024, 256), np.int16)),
                  (rng.integers(info.min, info.max + 1, (128, 1024), dtype=np.int16),
                   rng.integers(info.min, info.max + 1, (1024, 256), dtype=np.int16))]
-        before = cuda_probes.launches["probe_dot"]
+        before = profiling.counters().get("probes.launches.probe_dot", 0)
         ok = True
         for a, b in pairs:
             a, b = torch.from_numpy(a).to(self.device), torch.from_numpy(b).to(self.device)
@@ -172,7 +173,7 @@ class Validation:
         self.check(
             "P1's s16 dot [128,1024]x[1024,256] runs on this card's tensor cores and equals dot_plain "
             "(the s16 lever Mosaic withheld is available here; see scripts/probe_hopper.py)",
-            ok and cuda_probes.launches["probe_dot"] == before + len(pairs),
+            ok and profiling.counters().get("probes.launches.probe_dot", 0) == before + len(pairs),
         )
 
     # -- keys and timing -----------------------------------------------------

@@ -27,6 +27,7 @@ from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate_mb as CMB  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_probes as CP  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_keyswitch as CKS  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_launch as CL  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_step as CS  # noqa: E402
 from rs_tfhe_tpu_torch.ops import keyswitch as KS  # noqa: E402
 from rs_tfhe_tpu_torch.ops.poly import polymul_small_by_torus  # noqa: E402
@@ -41,6 +42,27 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _count(name: str) -> int:
+    """The package's counter `name` now (`profiling.counters()`; 0 where it
+    has not counted yet)."""
+    return profiling.counters().get(name, 0)
+
+
+def _moved(before: dict) -> dict:
+    """The counters that moved since the snapshot `before`, by how much."""
+    now = profiling.counters()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def _launched(before: dict, prefix: str) -> dict:
+    """The instances of the kernel counted under `prefix` (`k1.instance`,
+    ...) launched since the snapshot `before`, keyed as the wrapper keys
+    them (the name's '/'-separated parts, numbers as ints), by how often."""
+    head = prefix + "."
+    return {tuple(int(x) if x.isdigit() else x for x in k[len(head):].split("/")): n
+            for k, n in _moved(before).items() if k.startswith(head)}
 
 
 def _inputs(dev, p, batch, per_ct_tv, seed):
@@ -75,10 +97,10 @@ def test_cluster_kernel_matches_plain_every_instance(dev, tile, cluster, per_ct_
     rows past the batch, and a second wave of clusters at the small tiles."""
     batch = 2 * tile + 3
     args = _inputs(dev, P.TEST_TINY, batch, per_ct_tv, seed=100 + 10 * cluster + tile)
-    before = CBR.launched_tiles.copy()
+    before = profiling.counters()
     out = CBR.blind_rotate_kernel(*args, P.TEST_TINY, tile=tile, cluster=cluster)
     torch.cuda.synchronize()
-    assert CBR.launched_tiles - before == {(P.TEST_TINY.n1, tile, cluster, "imad"): 1}
+    assert _launched(before, "k1.instance") == {(P.TEST_TINY.n1, tile, cluster, "imad"): 1}
     assert torch.equal(out, BR.blind_rotate_plain(*args, P.TEST_TINY))
 
 
@@ -117,21 +139,21 @@ def test_kernel_launches_the_planned_instance(dev, name, batch):
     p = getattr(P, name)
     p = _short(p, 6) if p.n1 == 1024 else p
     log_n = p.n1.bit_length() - 1
-    slots = CBR.cluster_slots(dev.index or 0, log_n)
+    slots = CL.cluster_slots(dev.index or 0, log_n, CBR.held_clusters)
     assert slots[1] == torch.cuda.get_device_properties(dev).multi_processor_count
     assert all(slots[c] * c <= slots[1] for c in slots)
     args = _inputs(dev, p, batch, False, seed=batch)
-    has_mma = p.n1 in CBR.MMA_RING_SIZES and CBR.takes_tensor_cores(p)
+    has_mma = p.n1 in CBR.MMA_RING_SIZES and CL.takes_tensor_cores(p)
     limbs = CBR.key_limbs(args[3], p) if has_mma else 0
     assert limbs == (4 if has_mma else 0)  # a random key is not on the 2^8 grid
     tile, cluster, limbs = CBR.planned_instance(dev.index or 0, batch, p, limbs)
     tensor_cores = limbs > 0
     assert tensor_cores == (name == "SECURITY_128_BIT_FAST" and batch == 70)
-    before = CBR.launched_tiles.copy()
+    before = profiling.counters()
     out = CBR.blind_rotate_kernel(*args, p)
     torch.cuda.synchronize()
     unit = CBR.tensor_core_unit(CBR.on_wgmma(p.n1, tile, 4), 4) if tensor_cores else "imad"
-    assert CBR.launched_tiles - before == {(p.n1, tile, cluster, unit): 1}
+    assert _launched(before, "k1.instance") == {(p.n1, tile, cluster, unit): 1}
     assert torch.equal(out, BR.blind_rotate_plain(*args, p))
 
 
@@ -157,15 +179,15 @@ def test_tensor_core_kernel_matches_plain(dev, name, batch, on_grid, per_ct_tv):
     cluster = 2 * p.n1 // CBR.MMA_COLS
     ref = BR.blind_rotate_plain(b_til, a_til, tv, bsk, p)
     for tile in tiles:
-        before = CBR.launched_tiles.copy()
+        before = profiling.counters()
         out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=tile, tensor_cores=True)
         torch.cuda.synchronize()
-        assert CBR.launched_tiles - before == {
+        assert _launched(before, "k1.instance") == {
             (p.n1, tile, cluster, CBR.tensor_core_unit(CBR.on_wgmma(p.n1, tile, limbs), limbs)): 1}
         assert torch.equal(out, ref)
-    before = CBR.launched_tiles.copy()
+    before = profiling.counters()
     out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tensor_cores=True)
-    ((_, picked, _, _),) = (CBR.launched_tiles - before).keys()
+    ((_, picked, _, _),) = _launched(before, "k1.instance").keys()
     assert picked in tiles and torch.equal(out, ref)
     if limbs == 4:
         with pytest.raises(ValueError, match="has tiles"):
@@ -197,10 +219,10 @@ def test_tensor_core_instance_bit_equal_at_each_shape(dev, name, batch, on_grid,
     p = getattr(P, name)
     b_til, a_til, tv, bsk = _planted(dev, p, batch, batch, per_ct_tv=p.n1 == 2048)
     bsk = bsk & ~0xFF if on_grid else bsk
-    before = CBR.launched_tiles.copy()
+    before = profiling.counters()
     out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=tile, tensor_cores=True)
     torch.cuda.synchronize()
-    assert CBR.launched_tiles - before == {(p.n1, tile, 2 * p.n1 // CBR.MMA_COLS, unit): 1}
+    assert _launched(before, "k1.instance") == {(p.n1, tile, 2 * p.n1 // CBR.MMA_COLS, unit): 1}
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
 
 
@@ -215,17 +237,17 @@ def test_wgmma_strips_built_once_per_key_and_after_an_edit(dev):
     lib, g = _build.load(), p.trgsw_lv1
     assert [(n, t, k) for n in CBR.MMA_RING_SIZES for t in (16, 32) for k in (3, 4) if CBR.on_wgmma(n, t, k)] == [
         (1024, 32, 3)]
-    before = CBR.strip_builds
+    before = _count("bsk.strip_builds")
     for _ in range(2):
         out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=32, tensor_cores=True)
         assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
-    assert CBR.strip_builds - before == 1
+    assert _count("bsk.strip_builds") - before == 1
     strips = CBR.key_strips(bsk, p, 32, 3)
     assert strips.numel() == lib.tfhe_blind_rotate_strip_bytes(10, p.n0, g.l, 32, 3) == 5 * 4 * 2 * 3 * 254 * 128
     assert torch.equal(strips, CBR.key_strips_plain(bsk, 3))
     bsk[1, 2, 1, 7] += 1 << 8  # still on the grid
     out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=32, tensor_cores=True)
-    assert CBR.strip_builds - before == 2
+    assert _count("bsk.strip_builds") - before == 2
     assert torch.equal(CBR.key_strips(bsk, p, 32, 3), CBR.key_strips_plain(bsk, 3))
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
 
@@ -239,11 +261,11 @@ def test_wgmma_strips_one_key_a_device(dev):
     b_til, a_til, tv, _ = _planted(dev, p, 33, seed=12, per_ct_tv=False)
     keys = [_planted(dev, p, 1, seed=20 + t, per_ct_tv=False)[3] & ~0xFF for t in range(3)]
     refs = [BR.blind_rotate_plain(b_til, a_til, tv, bsk, p) for bsk in keys]
-    before = CBR.strip_builds
+    before = _count("bsk.strip_builds")
     for bsk, ref in [*zip(keys, refs), *zip(keys, refs)]:
         assert torch.equal(CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=32, tensor_cores=True), ref)
         assert [e[0]() is bsk for e in CBR._strips.values()] == [True]
-    assert CBR.strip_builds - before == 6
+    assert _count("bsk.strip_builds") - before == 6
     del bsk, keys
     assert b_til.device.index not in CBR._strips
 
@@ -294,9 +316,9 @@ def test_key_made_in_inference_mode_is_checked_every_call(dev):
         assert CBR.key_limbs(key, p) == 3
         key[0, 0, 0, 0] |= 1
         assert CBR.key_limbs(key, p) == 4
-    before = CBR.launched_tiles.copy()
+    before = profiling.counters()
     out = CBR.blind_rotate_kernel(b_til, a_til, tv, key, p, tensor_cores=True)
-    assert CBR.launched_tiles - before == {(p.n1, 16, 8, "mma_s8x4"): 1}
+    assert _launched(before, "k1.instance") == {(p.n1, 16, 8, "mma_s8x4"): 1}
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, key, p))
 
 
@@ -332,12 +354,13 @@ def test_dispatch_launches_kernel_and_counts(dev):
     p = P.TEST_TINY
     b_til, a_til, tv, bsk = _inputs(dev, p, 3, False, seed=7)
     ct = torch.randint(-(1 << 31), 1 << 31, (3, p.n0 + 1), dtype=torch.int32, device=dev)
-    before, tiles = CBR.launches, CBR.launched_tiles.copy()
+    before, tiles = _count("k1.launches"), profiling.counters()
     out = BR.blind_rotate(ct, tv, bsk, p)
-    assert CBR.launches == before + 1
-    planned = CBR.rotation_instance(3, 8, CBR.cluster_slots(dev.index or 0, p.n1.bit_length() - 1))  # N=64: CUDA cores
+    assert _count("k1.launches") == before + 1
+    slots = CL.cluster_slots(dev.index or 0, p.n1.bit_length() - 1, CBR.held_clusters)
+    planned = CBR.rotation_instance(3, 8, slots)  # N=64: CUDA cores
     assert planned[1] > 1  # three ciphertexts do not fill the card with single blocks
-    assert CBR.launched_tiles - tiles == {(p.n1, *planned, "imad"): 1}
+    assert _launched(tiles, "k1.instance") == {(p.n1, *planned, "imad"): 1}
     b_til, a_til = BR.rotation_exponents(ct, p)
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
 
@@ -409,10 +432,10 @@ def test_mb_cluster_kernel_matches_plain_every_instance(dev, tile, cluster, per_
     the sign extremes."""
     b_til, a_til, tv, bsk_mb = _mb_inputs(dev, P.TEST_TINY, 2 * tile + 3, per_ct_tv, seed=200 + 10 * cluster + tile)
     _mb_extremes(bsk_mb)
-    before = CMB.launched_tiles.copy()
+    before = profiling.counters()
     out = CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, P.TEST_TINY, tile=tile, cluster=cluster)
     torch.cuda.synchronize()
-    assert CMB.launched_tiles - before == {(P.TEST_TINY.n1, tile, cluster): 1}
+    assert _launched(before, "k4.instance") == {(P.TEST_TINY.n1, tile, cluster): 1}
     assert torch.equal(out, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, P.TEST_TINY))
 
 
@@ -428,10 +451,10 @@ def test_mb_cluster_kernel_matches_plain_full_width(dev, name, batch, per_ct_tv)
     b_til, a_til, tv, bsk_mb = _mb_inputs(dev, p, batch, per_ct_tv, seed=300 + batch)
     _mb_extremes(bsk_mb)
     assert CMB.planned_instance(dev.index or 0, batch, p) == (1, 16)
-    before = CMB.launched_tiles.copy()
+    before = profiling.counters()
     out = CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p)
     torch.cuda.synchronize()
-    assert CMB.launched_tiles - before == {(p.n1, 1, 16): 1}
+    assert _launched(before, "k4.instance") == {(p.n1, 1, 16): 1}
     assert torch.equal(out, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, p))
 
 
@@ -448,9 +471,9 @@ def test_blind_rotate_mb_key_launches_by_cap(dev, name):
     ct = torch.randint(-(1 << 31), 1 << 31, (cap + 1, p.n0 + 1), dtype=torch.int32, device=dev)
     for batch, multibit in ((cap, True), (cap + 1, False)):
         x = ct[:batch]
-        k1, k4 = CBR.launches, CMB.launches
+        k1, k4 = _count("k1.launches"), _count("k4.launches")
         out = BR.blind_rotate(x, tv, bsk, p, bsk_mb=bsk_mb)
-        assert (CBR.launches - k1, CMB.launches - k4) == ((0, 1) if multibit else (1, 0))
+        assert (_count("k1.launches") - k1, _count("k4.launches") - k4) == ((0, 1) if multibit else (1, 0))
         b_til, a_til = BR.rotation_exponents(x, p)
         ref = (BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, p) if multibit
                else BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
@@ -496,10 +519,10 @@ def test_step_kernel_matches_plain_every_tile(dev, tile, split):
     """The CUDA-core instance, asked for by its tile: every tile, with and
     without the column split, a ragged row count."""
     d, t = _extremes(P.TEST_TINY, *_step_inputs(dev, P.TEST_TINY, 11, seed=40 + tile))
-    before = CS.launched_tiles.copy()
+    before = profiling.counters()
     out = CS.external_product_kernel(d, t, P.TEST_TINY, tile=tile, split=split)
     torch.cuda.synchronize()
-    assert CS.launched_tiles - before == {(P.TEST_TINY.n1, "imad", tile, split, 2 * P.TEST_TINY.trgsw_lv1.l): 1}
+    assert _launched(before, "k5.instance") == {(P.TEST_TINY.n1, "imad", tile, split, 2 * P.TEST_TINY.trgsw_lv1.l): 1}
     assert torch.equal(out, polymul_small_by_torus(d, t, P.TEST_TINY.trgsw_lv1.half_bg))
 
 
@@ -514,11 +537,11 @@ def test_step_kernel_on_tensor_cores_matches_plain(dev, name, rows):
     digit range's ends, rows past the last block's 128 and few rows."""
     p = getattr(P, name)
     d, t = _extremes(p, *_step_inputs(dev, p, rows, seed=rows))
-    before = CS.launched_tiles.copy()
+    before = profiling.counters()
     out = CS.external_product_kernel(d, t, p)
     torch.cuda.synchronize()
     instance = (p.n1, "mma_s8", CS.MMA_ROWS, 2 * p.n1 // CS.MMA_COLS, 2 * p.trgsw_lv1.l)
-    assert CS.launched_tiles - before == {instance: 1}
+    assert _launched(before, "k5.instance") == {instance: 1}
     assert torch.equal(out, polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
     if p.n1 <= 64:
         assert torch.equal(out, CS.limb_product_plain(d, t))
@@ -533,10 +556,10 @@ def test_step_kernel_wide_digits_stay_on_cuda_cores(dev, name, rows):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     instance = CS.step_instance(p, rows, _build.load().tfhe_external_product_max_tile(10), sms)
     assert instance[1] == "imad" and (instance[3] == 8) == (-(-rows // 8) < sms)
-    before = CS.launched_tiles.copy()
+    before = profiling.counters()
     out = CS.external_product_kernel(d, t, p)
     torch.cuda.synchronize()
-    assert CS.launched_tiles - before == {(*instance, 2 * p.trgsw_lv1.l): 1}
+    assert _launched(before, "k5.instance") == {(*instance, 2 * p.trgsw_lv1.l): 1}
     assert torch.equal(out, polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
 
 
@@ -549,16 +572,16 @@ def test_routes_launch_their_kernels_and_count(dev):
     _, _, _, bsk = _inputs(dev, p, 3, False, seed=51)
     ct = torch.randint(-(1 << 31), 1 << 31, (3, p.n0 + 1), dtype=torch.int32, device=dev)
     b_til, a_til = BR.rotation_exponents(ct, p)
-    before = CMB.launches
+    before = _count("k4.launches")
     out = BR.blind_rotate(ct, tv, bsk, p, bsk_mb=bsk_mb)
-    assert CMB.launches == before + 1
+    assert _count("k4.launches") == before + 1
     assert torch.equal(out, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, p))
     saved = PC.config.step_impl
     PC.config.step_impl = "pallas"
     try:
-        before = CS.launches
+        before = _count("k5.launches")
         out = BR.blind_rotate(ct, tv, bsk, p)
-        assert CS.launches == before + p.n0
+        assert _count("k5.launches") == before + p.n0
     finally:
         PC.config.step_impl = saved
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
@@ -577,13 +600,13 @@ def test_fused_small_mb_without_multibit_key_launches_the_whole_rotation(dev):
     saved = PC.config.step_impl
     PC.config.step_impl = "fused_small_mb"
     try:
-        before = CBR.launches, CMB.launches
+        before = _count("k1.launches"), _count("k4.launches")
         out = BR.blind_rotate(ct, tv, bsk, p)
         torch.cuda.synchronize()
-        assert (CBR.launches, CMB.launches) == (before[0] + 1, before[1])
+        assert (_count("k1.launches"), _count("k4.launches")) == (before[0] + 1, before[1])
         out_mb = BR.blind_rotate(ct, tv, bsk, p, bsk_mb=bsk_mb)
         torch.cuda.synchronize()
-        assert (CBR.launches, CMB.launches) == (before[0] + 1, before[1] + 1)
+        assert (_count("k1.launches"), _count("k4.launches")) == (before[0] + 1, before[1] + 1)
     finally:
         PC.config.step_impl = saved
     assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
@@ -603,10 +626,10 @@ def test_xla_route_runs_the_plain_rotation_on_the_card(dev):
     saved = PC.config.step_impl
     PC.config.step_impl = "xla"
     try:
-        before = CBR.launches, CMB.launches
+        before = _count("k1.launches"), _count("k4.launches")
         outs = [BR.blind_rotate(ct, tv, bsk, p), BR.blind_rotate(ct, tv, bsk, p, bsk_mb=bsk_mb)]
         torch.cuda.synchronize()
-        assert (CBR.launches, CMB.launches) == before
+        assert (_count("k1.launches"), _count("k4.launches")) == before
     finally:
         PC.config.step_impl = saved
     assert all(out.is_cuda and torch.equal(out, ref) for out in outs)
@@ -658,10 +681,10 @@ def test_step_kernel_every_gadget_row_count(dev, name, rows):
     d, t = _extremes(p, *_step_inputs(dev, p, rows, seed=90 + rows))
     for j in range(1, 2 * p.trgsw_lv1.l + 1):
         dj, tj = d[:, :j].contiguous(), t[:j].contiguous()
-        before = CS.launched_tiles.copy()
+        before = profiling.counters()
         out = CS.external_product_kernel(dj, tj, p)
         torch.cuda.synchronize()
-        (key,) = (CS.launched_tiles - before).keys()
+        (key,) = _launched(before, "k5.instance").keys()
         assert key[-1] == j
         assert torch.equal(out, polymul_small_by_torus(dj, tj, p.trgsw_lv1.half_bg)), j
 
@@ -685,11 +708,11 @@ def _nussbaumer_dot_case(dev, batch, k):
 
     lhs = _plant_extremes(_rand(dev, (16, batch, k), torch.int16, 98))
     bop = _plant_extremes(_rand(dev, (16, k, 1024), torch.int16, 99))
-    before, shapes = CP.launches[NU.DOT_NAME], NU.launched_shapes.copy()
+    before, shapes = _count(f"probes.launches.{NU.DOT_NAME}"), profiling.counters()
     out = NU.pointwise_dot(lhs, bop)
     torch.cuda.synchronize()
-    assert CP.launches[NU.DOT_NAME] == before + 16
-    assert NU.launched_shapes - shapes == {(batch, k, 1024): 16}
+    assert _count(f"probes.launches.{NU.DOT_NAME}") == before + 16
+    assert _launched(shapes, "nussbaumer.shape") == {(batch, k, 1024): 16}
     assert torch.equal(out, torch.stack([CP.dot_plain(lhs[t], bop[t]) for t in range(16)]))
 
 
@@ -731,10 +754,10 @@ def test_nussbaumer_step_and_parallel_paths_on_the_card(dev):
         PC.config.step_impl = saved
     assert torch.equal(parallel.data_parallel_gate("nand", a, b, ck, parallel.make_mesh(2, devices=[dev] * 2)),
                        single)
-    before = CS.launches
+    before = _count("k5.launches")
     mesh = parallel.make_mesh(2, tp=2, devices=[dev] * 2)
     assert torch.equal(parallel.tensor_parallel_gate("nand", a, b, ck, mesh), single)
-    assert CS.launches == before + 2 * p.n0
+    assert _count("k5.launches") == before + 2 * p.n0
 
 
 # ---------------------------------------------------------------------------
@@ -757,10 +780,10 @@ def test_probe_dot_matches_plain(dev, dtype, shape):
     permuted product, and ones would hide it."""
     m, k, n = shape
     a, b = _rand(dev, (m, k), dtype, 60), _rand(dev, (k, n), dtype, 61)
-    before = CP.launches["probe_dot"]
+    before = _count("probes.launches.probe_dot")
     out = CP.probe_dot(a, b)
     torch.cuda.synchronize()
-    assert CP.launches["probe_dot"] == before + 1
+    assert _count("probes.launches.probe_dot") == before + 1
     assert torch.equal(out, CP.dot_plain(a, b))
     assert torch.equal(out.cpu(), CP.dot_plain(a.cpu(), b.cpu()))
 
@@ -778,10 +801,10 @@ def test_probe_dot_s8_tile_edges(dev, shape):
     a, b = _rand(dev, (m, k), torch.int8, 72), _rand(dev, (k, n), torch.int8, 73)
     a[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
     b[:2, -1] = torch.tensor([-128, 127], dtype=torch.int8)
-    before = CP.launches["probe_dot"]
+    before = _count("probes.launches.probe_dot")
     out = CP.probe_dot(a, b)
     torch.cuda.synchronize()
-    assert CP.launches["probe_dot"] == before + 1
+    assert _count("probes.launches.probe_dot") == before + 1
     assert torch.equal(out, CP.dot_plain(a, b))
 
 
@@ -812,18 +835,18 @@ def test_probe_dot_limbs_matches_plain(dev, dtype, shape):
     operands with both extremes and -1 planted."""
     m, k, n = shape
     a, b = _plant_extremes(_rand(dev, (m, k), dtype, 76)), _plant_extremes(_rand(dev, (k, n), dtype, 77))
-    before = CP.launches["probe_dot"]
+    before = _count("probes.launches.probe_dot")
     out = CP.probe_dot(a, b)
     torch.cuda.synchronize()
-    assert CP.launches["probe_dot"] == before + 1
+    assert _count("probes.launches.probe_dot") == before + 1
     assert torch.equal(out, CP.dot_plain(a, b))
 
 
 @pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["s8", "s16", "s32"])
 def test_probe_dot_wraps_mod_2_32(dev, dtype):
-    before = CP.launches["probe_dot_correct_s16"]
+    before = _count("probes.launches.probe_dot_correct_s16")
     CP.probe_dot_correct_s16(dev, dtype)
-    assert CP.launches["probe_dot_correct_s16"] == before + 1
+    assert _count("probes.launches.probe_dot_correct_s16") == before + 1
 
 
 @pytest.mark.parametrize("dtype", list(_INT_RANGE), ids=["int8", "int16", "int32"])
@@ -845,10 +868,10 @@ def _shift(shift, cols):
 
 
 def _roll_matches(x, shift):
-    before = CP.launches["probe_roll"]
+    before = _count("probes.launches.probe_roll")
     out = CP.probe_roll(x, shift)
     torch.cuda.synchronize()
-    assert CP.launches["probe_roll"] == before + 1
+    assert _count("probes.launches.probe_roll") == before + 1
     assert torch.equal(out, CP.roll_plain(x, shift))
 
 
@@ -878,10 +901,10 @@ def test_probe_roll_any_base(dev, dtype, offset, shift):
 
 
 def _bitcast_matches(x):
-    before = CP.launches["probe_bitcast_i32_to_i8"]
+    before = _count("probes.launches.probe_bitcast_i32_to_i8")
     out = CP.probe_bitcast_i32_to_i8(x)
     torch.cuda.synchronize()
-    assert CP.launches["probe_bitcast_i32_to_i8"] == before + 1
+    assert _count("probes.launches.probe_bitcast_i32_to_i8") == before + 1
     assert torch.equal(out, CP.bitcast_i32_to_i8_plain(x))
     assert torch.equal(out, x.view(torch.int8))
 
@@ -915,10 +938,10 @@ def test_probe_bitcast_fast_key_size(dev):
 
 
 def _unpack_matches(x):
-    before = CP.launches["probe_unpack_s16"]
+    before = _count("probes.launches.probe_unpack_s16")
     lo, hi = CP.probe_unpack_s16(x)
     torch.cuda.synchronize()
-    assert CP.launches["probe_unpack_s16"] == before + 1
+    assert _count("probes.launches.probe_unpack_s16") == before + 1
     plo, phi = CP.unpack_s16_plain(x)
     assert torch.equal(lo, plo) and torch.equal(hi, phi)
 
@@ -960,10 +983,10 @@ def test_chain_dot_matches_plain(dev, shape, unit):
     (8-row column sums) form, on random operands."""
     m, k, n = shape
     a0, b = _rand(dev, (m, k), torch.int8, 64), _rand(dev, (k, n), torch.int8, 65)
-    before = CP.launches["chain_dot"]
+    before = _count("probes.launches.chain_dot")
     res = CP.chain_dot(a0, b, 5, unit=unit)
     torch.cuda.synchronize()
-    assert CP.launches["chain_dot"] == before + 1
+    assert _count("probes.launches.chain_dot") == before + 1
     acc, fb = CP.chain_dot_plain(a0, b, 5)
     assert torch.equal(res.acc, acc)
     assert torch.equal(res.fb, fb)
@@ -984,10 +1007,10 @@ def test_chain_dot_tensor_more_tiles_than_sms(dev, shape):
     tiles = CP.dot_tiles(m, n, "tensor")
     assert tiles > torch.cuda.get_device_properties(dev).multi_processor_count
     assert CP.chain_shape(m, k)[0] == (shape == (2048, 512, 2048))
-    before = CP.launches["chain_dot"]
+    before = _count("probes.launches.chain_dot")
     res = CP.chain_dot(a0, b, 5, unit="tensor")
     torch.cuda.synchronize()
-    assert CP.launches["chain_dot"] == before + 1
+    assert _count("probes.launches.chain_dot") == before + 1
     acc, fb = CP.chain_dot_plain(a0, b, 5)
     assert torch.equal(res.acc, acc)
     assert torch.equal(res.fb, fb)
@@ -1007,10 +1030,10 @@ def test_chain_roll_add_matches_plain(dev, shape, reps):
     x[0, :2] = torch.tensor([-(1 << 31), -1], dtype=torch.int32)
     words = CP.roll_add_words(shape[1])
     assert (words > 0) == (shape[1] in (32, 64, 128, 256, 512, 1024, 2048))
-    before = CP.roll_add_launches.copy()
+    before = profiling.counters()
     out = CP.chain_roll_add(x, reps)
     torch.cuda.synchronize()
-    assert CP.roll_add_launches - before == {words: 1}
+    assert _launched(before, "probes.roll_add.instance") == {(words,): 1}
     assert torch.equal(out, CP.chain_roll_add_plain(x, reps))
 
 
@@ -1096,11 +1119,6 @@ def _ks_product(a, body, table, t, basebit, out_width):
     return ref
 
 
-def _ks_moved(before: dict) -> dict:
-    now = profiling.counters()
-    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
-
-
 @pytest.mark.parametrize("kind", ["random", "digits_0", "digits_max"])
 @pytest.mark.parametrize("batch", [1, 2, 3, 16, "cap", "cap+1"])
 @pytest.mark.parametrize("name", list(_KS_SHAPES))
@@ -1127,7 +1145,7 @@ def test_key_switch_select_matches_product(dev, name, batch, kind):
     expect = {f"keyswitch.route.{route}.calls": 1, f"keyswitch.route.{route}.ciphertexts": batch}
     if route == "select":
         expect.update({"ks.launches": 1, f"ks.instance.{min(16, 1 << (batch - 1).bit_length())}": 1})
-    assert _ks_moved(before) == expect
+    assert _moved(before) == expect
     assert out.shape == (batch, out_width) and out.dtype == torch.int32
     assert torch.equal(out, _ks_product(a, body, table, t, basebit, out_width))
 
@@ -1158,7 +1176,7 @@ def test_key_switch_keeps_leading_dimensions_and_the_key_switch_path(dev):
     out = KS.identity_key_switch(ct, table, p)
     one = KS.identity_key_switch(ct[1, 2], table, p)
     torch.cuda.synchronize()
-    assert _ks_moved(before) == {"keyswitch.route.select.calls": 2, "keyswitch.route.select.ciphertexts": 7,
+    assert _moved(before) == {"keyswitch.route.select.calls": 2, "keyswitch.route.select.ciphertexts": 7,
                                  "ks.launches": 2, "ks.instance.8": 1, "ks.instance.1": 1}
     g = p.trgsw_lv1
     ref = _ks_product(ct[..., :p.n1], ct[..., p.n1], table, g.iks_t, g.basebit, p.n0 + 1)

@@ -20,6 +20,7 @@ from rs_tfhe_tpu.torus import split_u32_limbs  # noqa: E402
 from rs_tfhe_tpu_torch import _build  # noqa: E402
 from rs_tfhe_tpu_torch import params as P  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_launch as CL  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_step as CS  # noqa: E402
 from rs_tfhe_tpu_torch.ops.poly import polymul_small_by_torus  # noqa: E402
 from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
@@ -59,7 +60,7 @@ def test_limb_product_equals_plain_product(name):
     p = _SETS[name]
     d, t = _operands(p, 2, seed=200)
     single = p.trgsw_lv1.bgbit <= 8
-    assert CS.takes_tensor_cores(p) == single
+    assert CL.takes_tensor_cores(p) == single
     out = CS.limb_product_plain(d, t, s32=single)
     assert torch.equal(out, polymul_small_by_torus(d, t, p.trgsw_lv1.half_bg))
     if not single:
@@ -100,12 +101,12 @@ def test_accumulator_bound_decides_the_unit(name):
     10-23) do not."""
     p = _SETS[name]
     g = p.trgsw_lv1
-    bound = CS.limb_accumulator_bound(p)
+    bound = CL.limb_accumulator_bound(p)
     assert bound == 2 * g.l * p.n1 * (1 << (g.bgbit - 1)) * 255
     if g.bgbit <= 8:
-        assert bound < 1 << 31 and CS.takes_tensor_cores(p)
+        assert bound < 1 << 31 and CL.takes_tensor_cores(p)
     else:
-        assert name.startswith("SECURITY_UINT") and not CS.takes_tensor_cores(p)
+        assert name.startswith("SECURITY_UINT") and not CL.takes_tensor_cores(p)
     expected = {"SECURITY_128_BIT_FAST": 133_693_440, "SECURITY_128_BIT_NIBBLE": 802_160_640}
     assert bound == expected.get(name, bound)
 
@@ -120,7 +121,7 @@ def test_accumulator_bound_is_reached_and_holds():
     out = CS.limb_product_plain(d, t)
     assert torch.equal(out, polymul_small_by_torus(d, t, g.half_bg))
     ext_bytes_255 = n  # column N-1 of the product meets the +p half at every m
-    assert 2 * g.l * ext_bytes_255 * g.half_bg * 255 == CS.limb_accumulator_bound(p)
+    assert 2 * g.l * ext_bytes_255 * g.half_bg * 255 == CL.limb_accumulator_bound(p)
 
 
 @pytest.mark.parametrize(
@@ -239,7 +240,7 @@ def test_step_instance_per_set(name):
     for rows in (1, 8, 131, 132 * 8 - 1, 132 * 8, 4096):
         n, unit, tile, split = CS.step_instance(p, rows, max_tile, 132)
         assert n == p.n1
-        if CS.takes_tensor_cores(p):
+        if CL.takes_tensor_cores(p):
             assert (unit, tile, split) == ("mma_s8", 128, 2 * p.n1 // 64)
         else:
             assert unit == "imad" and tile in (1, 2, 4, 8)[: max_tile.bit_length()] and split in (1, 8)
@@ -253,7 +254,7 @@ def test_rotation_instance_every_batch(max_tile, n):
     """Every batch in 1..4096 with an H100's cluster slots: the instance is
     one the kernel has, covers the batch, and runs in one wave wherever some
     instance can."""
-    slots = CBR.H100_CLUSTER_SLOTS
+    slots = CL.H100_CLUSTER_SLOTS
     for batch in range(1, 4097):
         tile, cluster = CBR.rotation_instance(batch, max_tile, slots, n)
         assert cluster in slots and 1 <= tile <= max_tile
@@ -268,7 +269,7 @@ def test_rotation_instance_small_batches_take_clusters():
     """One ciphertext runs on 16 SMs; a circuit's batches stay on clusters;
     B = 256 is one wave (it no longer takes twice B = 128's time); a batch
     that fills the card with tiles of 8 keeps single blocks."""
-    slots = CBR.H100_CLUSTER_SLOTS
+    slots = CL.H100_CLUSTER_SLOTS
     assert CBR.rotation_instance(1, 8, slots) == (1, 16)
     assert CBR.rotation_instance(7, 8, slots) == (1, 16)
     assert all(CBR.rotation_instance(b, 8, slots)[1] >= 2 for b in range(1, 129))
@@ -287,7 +288,7 @@ def test_rotation_unit_takes_tensor_cores_where_they_win():
     (16 ciphertexts a cluster; 32 at N = 1024 with a three-limb key and L = 2): from the
     batch where its waves cost less than the CUDA-core instance's; never for
     wide digits, other ring sizes or a card that holds no cluster of 8."""
-    slots = CBR.H100_CLUSTER_SLOTS
+    slots = CL.H100_CLUSTER_SLOTS
     fast, strict = P.SECURITY_128_BIT_FAST, P.SECURITY_128_BIT
 
     def unit(p, batch, slots=slots, limbs=4):
@@ -353,7 +354,7 @@ def test_rotation_unit_counts_waves_from_the_tensor_core_slots():
     """`held`, the clusters of the tensor-core instance the card holds per
     tile, decides its waves: a tile with none is no candidate, and with none
     at all the CUDA cores keep the batch."""
-    slots = CBR.H100_CLUSTER_SLOTS
+    slots = CL.H100_CLUSTER_SLOTS
     fast = P.SECURITY_128_BIT_FAST
 
     def unit(batch, held):

@@ -44,8 +44,8 @@ from rs_tfhe_tpu_torch import gates as PGa  # noqa: E402
 from rs_tfhe_tpu_torch import key as PK  # noqa: E402
 from rs_tfhe_tpu_torch import tlwe as PT  # noqa: E402
 from rs_tfhe_tpu_torch.ops import blind_rotate as PBR  # noqa: E402
-from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate_mb as CMB  # noqa: E402
+from rs_tfhe_tpu_torch.ops import cuda_launch as CL  # noqa: E402
 from rs_tfhe_tpu_torch.ops.extract import sample_extract  # noqa: E402
 from rs_tfhe_tpu_torch.ops.keyswitch import identity_key_switch  # noqa: E402
 from rs_tfhe_tpu_torch.params import params_from  # noqa: E402
@@ -164,7 +164,7 @@ def test_mb_kernel_plan_small_batches():
     cluster instances: a tile the instance has, one wave, a cluster of 16
     SMs per ciphertext at the batches "auto" sends (at most 4); and the
     single-block instance where clusters no longer fill the card in one wave."""
-    slots = CBR.H100_CLUSTER_SLOTS
+    slots = CL.H100_CLUSTER_SLOTS
     for n, max_tile, max_cluster_tile in ((64, 4, 4), (1024, 4, 4), (2048, 2, 4), (4096, 1, 1)):
         ring_slots = {c: h for c, h in slots.items() if c <= (8 if n == 64 else 16)}
         for batch in range(1, 17):

@@ -27,6 +27,7 @@ from rs_tfhe_tpu_torch.ops.poly import polymul_small_by_torus  # noqa: E402
 from rs_tfhe_tpu_torch.params import TEST_TINY, params_from  # noqa: E402
 from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool  # noqa: E402
 from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
+from rs_tfhe_tpu_torch.utils import profiling  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -139,9 +140,10 @@ def test_pointwise_dot_plain_and_k_check():
     g = torch.Generator().manual_seed(8)
     lhs = torch.randint(-(1 << 15), 1 << 15, (4, 3, 32), generator=g, dtype=torch.int16)
     bop = torch.randint(-(1 << 15), 1 << 15, (4, 32, 24), generator=g, dtype=torch.int16)
-    before = cuda_probes.launches[PN.DOT_NAME]
+    name = f"probes.launches.{PN.DOT_NAME}"
+    before = profiling.counters().get(name, 0)
     out = PN.pointwise_dot(lhs, bop)
-    assert cuda_probes.launches[PN.DOT_NAME] == before
+    assert profiling.counters().get(name, 0) == before
     assert torch.equal(out, torch.stack([cuda_probes.dot_plain(lhs[t], bop[t]) for t in range(4)]))
     with pytest.raises(ValueError, match="multiple of 16"):
         PN.pointwise_dot(lhs[..., :24], bop[:, :24])

@@ -19,11 +19,11 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from rs_tfhe_tpu_torch import bootstrap, gates, key, parallel  # noqa: E402
-from rs_tfhe_tpu_torch.ops import cuda_step  # noqa: E402
 from rs_tfhe_tpu_torch.params import TEST_TINY  # noqa: E402
 from rs_tfhe_tpu_torch.parallel import dryrun  # noqa: E402
 from rs_tfhe_tpu_torch.tlwe import lwe_decrypt_bool, lwe_decrypt_message  # noqa: E402
 from rs_tfhe_tpu_torch.torus import to_numpy, to_torch  # noqa: E402
+from rs_tfhe_tpu_torch.utils import profiling  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -102,9 +102,9 @@ def test_tensor_parallel_bitexact_vs_single_device(fx, tp):
     bootstrap bit for bit; with J = 2L/tp = 3 rows a shard."""
     v, _, ck, _, ct = fx
     a, b = ct["ct_a"][:8], ct["ct_b"][:8]
-    before = cuda_step.launches
+    before = profiling.counters()["k5.launches"]
     out = parallel.tensor_parallel_gate("and", a, b, ck, _mesh(8, tp=tp))
-    assert cuda_step.launches == before  # the plain product on CPU tensors
+    assert profiling.counters()["k5.launches"] == before  # the plain product on CPU tensors
     _equal(out, v, "tp_and_b8_on4x2")
     assert torch.equal(out, gates.and_(a, b, ck))
 

@@ -27,6 +27,7 @@ import numpy as np  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
 from rs_tfhe_tpu_torch.ops import cuda_probes as CP  # noqa: E402
+from rs_tfhe_tpu_torch.utils import profiling  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -624,7 +625,7 @@ def test_roll_add_plan_selects_the_instance_by_shape():
     for cols in (6145, 8192):
         with pytest.raises(ValueError, match="6144"):
             CP.roll_add_words(cols)
-    before = CP.roll_add_launches.copy()
+    before = profiling.counters()
     x = _t(_roll_add_input(np.random.default_rng(112), (2, 64)))
     assert torch.equal(CP.chain_roll_add(x, 2), CP.chain_roll_add_plain(x, 2))
-    assert CP.roll_add_launches == before
+    assert profiling.counters() == before

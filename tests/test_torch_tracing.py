@@ -4,7 +4,12 @@ multi-bit cloud key: the spans' nesting under `torch.profiler`, that no span
 opens a profiler range when nothing traces, and each counter where its
 event happens."""
 
+import ast
 import collections
+import json
+import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -169,10 +174,10 @@ def test_compiled_plan_is_placed_once(keys):
     ckt = netlist.ripple_carry_adder(2)[0]
     run = netlist.compile_circuit(ckt)
     inputs = _adder_inputs(sk, seed=10)
-    before = netlist.index_placements
+    before = profiling.counters()["netlist.index_placements"]
     first = run(inputs, ck)
     assert torch.equal(run(inputs, ck), first)
-    assert netlist.index_placements - before == 1
+    assert profiling.counters()["netlist.index_placements"] - before == 1
     netlist.evaluate(ckt, inputs, ck)  # places its indices on every call, uncounted
     assert profiling.counters()["netlist.index_placements"] - before == 1
 
@@ -207,20 +212,31 @@ def test_lut_table_is_built_once(keys):
 
 
 def test_counters_hold_the_launch_counters(monkeypatch):
-    """Every launch counter the kernels' wrappers keep, under its name in
-    the one snapshot."""
-    monkeypatch.setattr(cuda_blind_rotate, "launches", 5)
-    monkeypatch.setattr(cuda_blind_rotate, "launched_tiles", collections.Counter({(1024, 1, 16, "imad"): 3,
-                                                                                  (1024, 32, 8, "mma_s8x3"): 2}))
-    monkeypatch.setattr(cuda_blind_rotate_mb, "launches", 4)
-    monkeypatch.setattr(cuda_blind_rotate_mb, "launched_tiles", collections.Counter({(1024, 1, 16): 4}))
-    monkeypatch.setattr(cuda_step, "launches", 7)
-    monkeypatch.setattr(cuda_step, "launched_tiles", collections.Counter({(1024, "mma_s8", 8, 1, 4): 7}))
-    monkeypatch.setattr(cuda_keyswitch, "launches", 3)
-    monkeypatch.setattr(cuda_keyswitch, "launched_tiles", collections.Counter({(1,): 2, (16,): 1}))
-    monkeypatch.setattr(cuda_probes, "launches", collections.Counter({"nussbaumer_dot": 16, "roll": 1}))
-    monkeypatch.setattr(cuda_probes, "roll_add_launches", collections.Counter({32: 2}))
-    monkeypatch.setattr(nussbaumer, "launched_shapes", collections.Counter({(8, 512, 1024): 16}))
+    """Every launch counter the kernels' wrappers keep in the store, under
+    its name in the one snapshot; a kernel's launches are the sum of its
+    instances'."""
+    fills = {
+        "k1.instance": {(1024, 1, 16, "imad"): 3, (1024, 32, 8, "mma_s8x3"): 2},
+        "k4.instance": {(1024, 1, 16): 4},
+        "k5.instance": {(1024, "mma_s8", 8, 1, 4): 7},
+        "ks.instance": {(1,): 2, (16,): 1},
+        "probes.launches": {"nussbaumer_dot": 16, "roll": 1},
+        "probes.roll_add.instance": {32: 2},
+        "nussbaumer.shape": {(8, 512, 1024): 16},
+    }
+    for prefix, counts in fills.items():
+        store = profiling.counter(prefix)
+        for k in list(store):
+            monkeypatch.delitem(store, k)
+        for k, n in counts.items():
+            monkeypatch.setitem(store, k, n)
+    assert profiling.counter("k1.instance") is cuda_blind_rotate.launched_tiles
+    assert profiling.counter("k4.instance") is cuda_blind_rotate_mb.launched_tiles
+    assert profiling.counter("k5.instance") is cuda_step.launched_tiles
+    assert profiling.counter("ks.instance") is cuda_keyswitch.launched_tiles
+    assert profiling.counter("probes.launches") is cuda_probes.launches
+    assert profiling.counter("probes.roll_add.instance") is cuda_probes.roll_add_launches
+    assert profiling.counter("nussbaumer.shape") is nussbaumer.launched_shapes
     got = profiling.counters()
     assert {k: v for k, v in got.items() if k.split(".")[0] in ("k1", "k4", "k5", "ks", "probes", "nussbaumer")} == {
         "k1.launches": 5, "k1.instance.1024/1/16/imad": 3, "k1.instance.1024/32/8/mma_s8x3": 2,
@@ -231,3 +247,64 @@ def test_counters_hold_the_launch_counters(monkeypatch):
         "nussbaumer.shape.8/512/1024": 16}
     assert {"bsk.grid_checks", "netlist.index_placements", "build.nvcc", "lut.tables_built"} <= set(got)
     assert all(isinstance(v, int) for v in got.values())
+
+
+#: The snapshot's names right after `import rs_tfhe_tpu_torch`: every
+#: counter a module seeds at import.
+_KEYS_AT_IMPORT = [
+    "bsk.grid_checks", "bsk.strip_builds", "build.nvcc", "k1.launches", "k4.launches", "k5.launches",
+    "keyswitch.route.product.calls", "keyswitch.route.product.ciphertexts", "keyswitch.route.select.calls",
+    "keyswitch.route.select.ciphertexts", "ks.launches", "lut.tables_built", "netlist.index_placements",
+    "pbs.calls", "pbs.ciphertexts", "pbs.per_row_luts", "radix.ops.add", "radix.ops.compare", "radix.ops.mul",
+    "radix.ops.sub", "rotate.route.k1.calls", "rotate.route.k1.ciphertexts", "rotate.route.k4.calls",
+    "rotate.route.k4.ciphertexts", "rotate.route.nussbaumer.calls", "rotate.route.nussbaumer.ciphertexts",
+    "rotate.route.plain.calls", "rotate.route.plain.ciphertexts", "rotate.route.plain_mb.calls",
+    "rotate.route.plain_mb.ciphertexts", "rotate.route.step.calls", "rotate.route.step.ciphertexts",
+]
+
+
+def _package_imports(path: pathlib.Path) -> set:
+    """The modules of rs_tfhe_tpu_torch that the file at `path` imports,
+    inside functions too, as dotted names below the package ("<package>"
+    for the package itself); an imported name counts as its module."""
+    here = path.relative_to(pathlib.Path(pt.__file__).parent).parent.parts
+    found = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            if node.level:
+                base = ".".join(("rs_tfhe_tpu_torch", *here[: len(here) - node.level + 1]))
+                mod = f"{base}.{mod}" if mod else base
+            names = [mod, *(f"{mod}.{a.name}" for a in node.names)]
+        else:
+            continue
+        found |= {n.partition(".")[2] or "<package>" for n in names if n.split(".")[0] == "rs_tfhe_tpu_torch"}
+    return found
+
+
+@pytest.mark.parametrize("case", ["layering", "keys_at_import"])
+def test_counter_store_layering(case):
+    """`utils/profiling`, which holds the counter store, imports no module of
+    the package, and no kernel wrapper (`ops/cuda_*.py`) imports another:
+    each imports `ops/cuda_launch`. And the snapshot right after the
+    package's import (a fresh process) has exactly `_KEYS_AT_IMPORT`, each
+    at 0."""
+    if case == "layering":
+        pkg = pathlib.Path(pt.__file__).parent
+        assert _package_imports(pkg / "utils" / "profiling.py") == set()
+        wrappers = {p.stem for p in (pkg / "ops").glob("cuda_*.py")} - {"cuda_launch"}
+        assert {"cuda_blind_rotate", "cuda_blind_rotate_mb", "cuda_step", "cuda_keyswitch", "cuda_probes"} <= wrappers
+        for w in sorted(wrappers):
+            imported = _package_imports(pkg / "ops" / f"{w}.py")
+            assert not {f"ops.{o}" for o in wrappers} & imported, w
+            assert any(m.startswith("ops.cuda_launch") for m in imported), w
+        return
+    code = ("import json, rs_tfhe_tpu_torch\nfrom rs_tfhe_tpu_torch.utils import profiling\n"
+            "print(json.dumps(profiling.counters()))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, timeout=300,
+                         cwd=pathlib.Path(pt.__file__).parent.parent)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(got) == _KEYS_AT_IMPORT
+    assert set(got.values()) == {0}

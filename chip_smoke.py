@@ -803,12 +803,17 @@ def phase_kernel_vs_plain(dev) -> dict:
 
     def instance_of(p, batch, bsk):
         """The instance the wrapper picks: tile and cluster from the batch and the clusters the
-        card holds, the unit from the parameter set, the key's limbs from the key."""
-        has_mma = p.n1 in cuda_blind_rotate.MMA_RING_SIZES and cuda_launch.takes_tensor_cores(p)
-        limbs = cuda_blind_rotate.key_limbs(bsk, p) if has_mma else 0
+        card holds, the unit from the parameter set (the fold for a cluster's tile of one), the
+        key's limbs from the key."""
+        takes = p.n1 >= cuda_launch.FOLD_MIN_RING and cuda_launch.takes_tensor_cores(p)
+        limbs = cuda_blind_rotate.key_limbs(bsk, p) if takes else 0
         tile, cluster, limbs = cuda_blind_rotate.planned_instance(dev.index or 0, batch, p, limbs)
-        unit = cuda_blind_rotate.tensor_core_unit(cuda_blind_rotate.on_wgmma(p.n1, tile, limbs), limbs)
-        return (p.n1, tile, cluster, unit if limbs else "imad")
+        if not limbs:
+            return (p.n1, tile, cluster, "imad")
+        if tile == 1:
+            return (p.n1, tile, cluster, cuda_launch.fold_unit(limbs))
+        return (p.n1, tile, cluster,
+                cuda_blind_rotate.tensor_core_unit(cuda_blind_rotate.on_wgmma(p.n1, tile, limbs), limbs))
 
     # the wgmma instance's key operand (FAST, three limbs) against its plain build, byte for byte, a
     # stretch of steps at a time; the build's time against the bytes it writes and reads
@@ -938,7 +943,7 @@ def phase_kernel_vs_plain(dev) -> dict:
 def phase_mb_kernel_vs_plain(dev) -> dict:
     from rs_tfhe_tpu_torch import params as P
     from rs_tfhe_tpu_torch.key import SecretKey, gen_bootstrapping_key_mb
-    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate_mb
+    from rs_tfhe_tpu_torch.ops import cuda_blind_rotate_mb, cuda_launch
     from rs_tfhe_tpu_torch.ops.blind_rotate import blind_rotate_mb_plain
     from rs_tfhe_tpu_torch.ops.cuda_blind_rotate_mb import blind_rotate_mb_kernel
 
@@ -953,6 +958,14 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         key = rnd((p.n0 // 2, 4, 2 * p.trgsw_lv1.l, 2, p.n1))
         key[:, :, 0, 0, ::7], key[:, :, -1, 1, 3::11] = -(1 << 31), -1
         return key
+
+    def instance_of(p, batch, key):
+        """The instance the wrapper picks: tile and cluster from the batch and the clusters the
+        card holds, the unit from the set (the fold for a cluster's tile of one) and the key."""
+        tile, cluster = cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p)
+        if cuda_launch.takes_fold(p, tile, cluster):
+            return (p.n1, tile, cluster, cuda_launch.fold_unit(cuda_launch.key_limbs(key, p)))
+        return (p.n1, tile, cluster, "imad")
 
     strict, radix, nibble = P.SECURITY_128_BIT, P.SECURITY_128_BIT_RADIX, P.SECURITY_128_BIT_NIBBLE
     strict_mb, radix_mb = random_key(strict), random_key(radix)
@@ -970,14 +983,13 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
     # phase 20 (VALIDATION_MB_BATCHES) that the cases above do not take, each at the smallest batch that takes it; the cluster check below is
     # the route's rule for the batches `auto` sends, so it holds the cases above only
     auto_cases = len(cases)
-    held = {(p.n1, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p)) for p, _, batch, _ in cases}
+    held = {instance_of(p, batch, key) for p, key, batch, _ in cases}
     for p, key in ((fast, fast_mb), (strict, strict_mb)):
         for batch in (*BENCH_MB_BATCHES[_name(p)], *VALIDATION_MB_BATCHES[_name(p)]):
-            inst = (p.n1, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p))
+            inst = instance_of(p, batch, key)
             if inst not in held:
                 held.add(inst)
-                first = next(b for b in range(1, batch + 1)
-                             if (p.n1, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, b, p)) == inst)
+                first = next(b for b in range(1, batch + 1) if instance_of(p, b, key) == inst)
                 cases.append((p, key, first, False))
     max_err, rows, tiles = 0, {}, set()
     for i, (p, key, batch, per_ct) in enumerate(cases):
@@ -986,8 +998,7 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         bnd = rotation_bound(p, batch, tv.numel(), multibit=True)
         b_til, a_til = rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n)
         out, tile = launched_tile("k4.instance", lambda: blind_rotate_mb_kernel(b_til, a_til, tv, key, p))
-        check(tile == (n, *cuda_blind_rotate_mb.planned_instance(dev.index or 0, batch, p)),
-              f"the multi-bit wrapper launched the planned instance at B={batch}")
+        check(tile == instance_of(p, batch, key), f"the multi-bit wrapper launched the planned instance at B={batch}")
         if i < auto_cases:
             check((tile[2] > 1) == (batch <= 4), "the batches auto sends take the cluster instance")
         tiles.add(tile)
@@ -1005,7 +1016,8 @@ def phase_mb_kernel_vs_plain(dev) -> dict:
         case = f"{name} B={batch}" + (" per-ct testvec" if per_ct else "")
         print(
             f"[3b] blind_rotate_mb {name} B={batch} testvec={'per-ct' if per_ct else 'shared'} "
-            f"(N={tile[0]}, tile {tile[1]}, cluster {tile[2]}): equal={torch.equal(out, ref)} max_abs_err={err} "
+            f"(N={tile[0]}, tile {tile[1]}, cluster {tile[2]}, unit {tile[3]}): equal={torch.equal(out, ref)} "
+            f"max_abs_err={err} "
             f"kernel {k_ms:.3f} ms{show_earlier('blind_rotate_mb', case)}, plain {p_ms:.3f} ms, {show_bound(bnd)}"
         )
         check(torch.equal(out, ref), f"multi-bit kernel == plain at {name} B={batch}")

@@ -124,10 +124,10 @@ def build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tfhe_blind_rotate_mb.argtypes = [
-        p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, i, p,
+        p, p, p, ctypes.c_longlong, p, p, i, i, i, i, i, ctypes.c_uint, i, i, i, p,
     ]
     lib.tfhe_blind_rotate_mb.restype = i
-    lib.tfhe_blind_rotate_mb_max_active_clusters.argtypes = [i, i, i]
+    lib.tfhe_blind_rotate_mb_max_active_clusters.argtypes = [i, i, i, i]
     lib.tfhe_blind_rotate_mb_max_active_clusters.restype = i
     lib.tfhe_blind_rotate_mb_max_cluster_tile.argtypes = [i]
     lib.tfhe_blind_rotate_mb_max_cluster_tile.restype = i

@@ -54,6 +54,13 @@
 // block's memory alive until its peers' pushes have landed. The slicing, the
 // window loop, the barrier and the push are csrc/cluster_rotation.cuh's,
 // shared with the multi-bit rotation's cluster instance.
+// A tile of one ciphertext with single-limb digits from N = 1024 up (the
+// batches of one to a few ciphertexts: a circuit's dependent gates) runs step
+// 2 as the fold (cluster_rotation.cuh): s8 digits in 16 rows shifted by 8
+// against the LIMBS byte planes of the key window, on mma.sync, the window
+// staged from 16-byte prefetches. Its gadget rows are a two-stage pipeline:
+// row j + 1's window and digits go into the other of two buffers while row j
+// multiplies, one block barrier a row; the exchange is the same.
 // Shared memory per block: (3T + 1) * N + 2N / CL + 32 (T + 1) words, 102 KB
 // at N = 1024, T = 8, CL = 8.
 //
@@ -259,18 +266,24 @@ blind_rotate_kernel(const int32_t* __restrict__ b_til,     // [B]
 // ---------------------------------------------------------------------------
 
 // The (T, CL) pairs the wrapper's plan can pick: any tile up to the largest
-// at any cluster up to the largest (cluster_rotation.cuh's max_cluster).
-constexpr bool cluster_instance(int n, int tile, int cl) {
-  return tile <= max_tile(n) && cl <= max_cluster(n);
+// at any cluster up to the largest (cluster_rotation.cuh's max_cluster); with
+// LIMBS key limbs (3 or 4) the tile of one ciphertext on the fold
+// (cluster_rotation.cuh's has_fold), LIMBS 0 on the CUDA cores.
+constexpr bool cluster_instance(int n, int tile, int cl, int limbs) {
+  return limbs == 0 ? tile <= max_tile(n) && cl <= max_cluster(n) : tile == 1 && cr::has_fold(n, cl);
 }
 
-constexpr size_t cluster_smem_bytes(int n, int tile, int cl) {
+constexpr size_t cluster_smem_bytes(int n, int tile, int cl, int limbs) {
+  if (limbs != 0)  // accumulator, two s8 digit planes, two key windows of limb planes, exponents
+    return static_cast<size_t>(2 * n + 2 * (n + 2 * cr::kFoldPad) / 4 + 2 * limbs * (n + 2 * n / cl - 120) / 4) *
+               sizeof(uint32_t) +
+           2 * sizeof(int);
   return static_cast<size_t>(tile * 2 * n + tile * (n + kLanes) + 2 * n / cl + n + kLanes) *
              sizeof(uint32_t) +
          2 * tile * sizeof(int);
 }
 
-template <int LOG_N, int T, int CL>
+template <int LOG_N, int T, int CL, int LIMBS>
 __global__ void __launch_bounds__((1 << LOG_N) / 4)
 blind_rotate_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
                             const int32_t* __restrict__ a_til,     // [B, n0]
@@ -286,17 +299,26 @@ blind_rotate_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
   constexpr int W = SL::W;
   constexpr int DIG = SL::DIG;
   constexpr int EXT = SL::EXT;
-  constexpr int PF = (EXT + THREADS - 1) / THREADS;  // key words a thread prefetches
+  constexpr bool FOLD = LIMBS != 0;
+  using FD = cr::Fold<FOLD ? LOG_N : 10, FOLD ? CL : 16, FOLD ? LIMBS : 4>;  // read only where FOLD
+  static_assert(!FOLD || T == 1, "the fold takes a tile of one ciphertext");
+  // words of a digit plane and of a key window, buffers of each (the fold's rows are a
+  // two-stage pipeline), key words a thread prefetches
+  constexpr int DIG_WORDS = FOLD ? FD::DIG_WORDS : T * DIG;
+  constexpr int KEY_WORDS = FOLD ? LIMBS * FD::REV_WORDS : EXT;
+  constexpr int BUFS = FOLD ? 2 : 1;
+  constexpr int PF = FOLD ? 4 * FD::QR : (EXT + THREADS - 1) / THREADS;
 
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* acc_s = smem;                // [T][2][N] the tile's accumulator (this block's copy)
-  uint32_t* dig_s = acc_s + T * 2 * N;   // [T][DIG]  one digit plane, extended
-  uint32_t* ext_s = dig_s + T * DIG;     // [EXT]     one gadget row's key window
-  int* a_s = reinterpret_cast<int*>(ext_s + EXT);  // [2][T] this and the next step's exponents
+  uint32_t* acc_s = smem;                     // [T][2][N] the tile's accumulator (this block's copy)
+  uint32_t* dig_s = acc_s + T * 2 * N;        // [T][DIG] one digit plane, extended; the fold: [2] s8, padded
+  uint32_t* ext_s = dig_s + BUFS * DIG_WORDS;  // [EXT] one gadget row's key window; the fold: [2][LIMBS][REV_WORDS]
+  int* a_s = reinterpret_cast<int*>(ext_s + BUFS * KEY_WORDS);  // [2][T] this and the next step's exponents
 
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const SL sl(static_cast<int>(cluster.block_rank()), tid);
+  const FD fd(tid);
   const int o = sl.o;
   const int b0 = (blockIdx.x / CL) * T;
   const uint32_t digit_mask = (1u << bgbit) - 1u;
@@ -316,70 +338,153 @@ blind_rotate_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
     acc_s[x] = v;
   }
   if (tid < T) a_s[tid] = b0 + tid < batch ? (a_til[static_cast<size_t>(b0 + tid) * n0] & TWO_N_MASK) : 0;
+  if constexpr (FOLD) {  // the planes' zero pads, never written again
+    for (int x = tid; x < 4 * cr::kFoldPad / 4; x += THREADS)
+      dig_s[x / 64 * DIG_WORDS + (x % 64 < 32 ? x % 64 : x % 64 + N / 4)] = 0u;
+  }
 
-  // E(k) = p[k] (k >= 0), -p[k + N] (-N <= k < 0), p[k + 2N] (k < -N)
+  // E(k) = p[k] (k >= 0), -p[k + N] (-N <= k < 0), p[k + 2N] (k < -N). The
+  // fold prefetches its window words raw, four aligned key words each (one
+  // 16-byte load), and signs them as it stages them.
   uint32_t pf[PF];
   auto prefetch = [&](int i, int j) {
     const uint32_t* row = bsk + ((static_cast<size_t>(i) * 2 * l + j) * 2 + o) * N;
 #pragma unroll
     for (int q = 0; q < PF; ++q) {
-      const int x = q * THREADS + tid;
-      const int kk = sl.window_k2n(x);
-      uint32_t v = 0u;
-      if (x < EXT) {
-        v = row[kk & (N - 1)];
-        if ((kk >> LOG_N) == 1) v = 0u - v;
+      if constexpr (FOLD) {
+        const int x = q / 4 * THREADS + tid;
+        if (q % 4 == 0 && x < FD::REV_WORDS) {
+          const uint4 w = *reinterpret_cast<const uint4*>(row + (FD::window_lo(sl.s0, x) & (N - 1)));
+          pf[q] = w.x;
+          pf[q + 1] = w.y;
+          pf[q + 2] = w.z;
+          pf[q + 3] = w.w;
+        }
+      } else {
+        const int x = q * THREADS + tid;
+        const int kk = sl.window_k2n(x);
+        uint32_t v = 0u;
+        if (x < EXT) {
+          v = row[kk & (N - 1)];
+          if ((kk >> LOG_N) == 1) v = 0u - v;
+        }
+        pf[q] = v;
       }
-      pf[q] = v;
     }
   };
   prefetch(0, 0);
 
   uint32_t part[T][kR];
+  int pos[FOLD ? LIMBS : 1][4], neg[FOLD ? LIMBS : 1][4];
 #pragma unroll
   for (int t = 0; t < T; ++t)
 #pragma unroll
     for (int r = 0; r < kR; ++r) part[t][r] = 0u;
+#pragma unroll
+  for (int k = 0; k < (FOLD ? LIMBS : 1); ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pos[k][i] = neg[k][i] = 0;
 
+  if constexpr (FOLD) __syncthreads();  // the accumulator, the exponents and the pads are written
   for (int i = 0; i < n0; ++i) {
     int a_next = 0;
     if (tid < T && i + 1 < n0 && b0 + tid < batch)
       a_next = a_til[static_cast<size_t>(b0 + tid) * n0 + i + 1] & TWO_N_MASK;
     const int* a_now = a_s + (i & 1) * T;
 
-    for (int j = 0; j < 2 * l; ++j) {
-      const int poly = j / l;
-      const int shift = 32 - (j % l + 1) * bgbit;
-      __syncthreads();  // the accumulator copy is whole; previous row's readers done
+    if constexpr (FOLD) {
+      // Row j's key window (from the prefetch registers, which then fetch the row after it)
+      // and digit plane, into buffer j & 1.
+      auto prepare = [&](int j) {
+        uint32_t* rev = ext_s + (j & 1) * KEY_WORDS;
 #pragma unroll
-      for (int q = 0; q < PF; ++q) {
-        const int x = q * THREADS + tid;
-        if (x < EXT) ext_s[x] = pf[q];
+        for (int q = 0; q < FD::QR; ++q) {
+          const int x = q * THREADS + tid;
+          if (x < FD::REV_WORDS) {
+            uint4 w = make_uint4(pf[4 * q], pf[4 * q + 1], pf[4 * q + 2], pf[4 * q + 3]);
+            if (FD::window_lo(sl.s0, x) < 0) w = make_uint4(0u - w.x, 0u - w.y, 0u - w.z, 0u - w.w);
+            cr::store_window_word<LIMBS, FD::REV_WORDS>(rev, x, w);
+          }
+        }
+        if (j + 1 < 2 * l) prefetch(i, j + 1);  // the next step's first row: after the cluster arrive
+        // four consecutive digits a thread (N / 4 threads), one word of the s8 plane: X^{a~}
+        // acc at m .. m + 3 is E(b .. b + 3), b = m - a~, read as the two aligned quads that
+        // hold it (each quad of E one sign), so every read is a 16-byte load on distinct banks
+        const uint32_t* src = acc_s + (j / l) * N;
+        const int m = 4 * tid;
+        const int b = (m - a_now[0] + 2 * N) & TWO_N_MASK;
+        const int b0 = b & ~3, s = b & 3;  // s: the same in every thread
+        uint4 lo = *reinterpret_cast<const uint4*>(src + (b0 & (N - 1)));
+        uint4 hi = *reinterpret_cast<const uint4*>(src + ((b0 + 4) & (N - 1)));
+        if (b0 >= N) lo = make_uint4(0u - lo.x, 0u - lo.y, 0u - lo.z, 0u - lo.w);
+        if (((b0 + 4) & TWO_N_MASK) >= N) hi = make_uint4(0u - hi.x, 0u - hi.y, 0u - hi.z, 0u - hi.w);
+        const uint32_t e[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        const uint4 own = *reinterpret_cast<const uint4*>(src + m);
+        const uint32_t mine[4] = {own.x, own.y, own.z, own.w};
+        uint32_t v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t rot = s == 0 ? e[q] : s == 1 ? e[q + 1] : s == 2 ? e[q + 2] : e[q + 3];
+          v[q] = rot - mine[q] + dec_offset;
+        }
+        dig_s[(j & 1) * DIG_WORDS + cr::kFoldPad / 4 + tid] =
+            cr::digit_bytes(v, 32 - (j % l + 1) * bgbit, digit_mask, half_bg);
+      };
+      // The rows as a two-stage pipeline: row j + 1 is prepared while row j multiplies, one
+      // block barrier a row. The step's first row is prepared after the exchange that ended
+      // the step before, whose cluster barriers follow the last product that read the buffers.
+      prepare(0);
+      for (int j = 0; j < 2 * l; ++j) {
+        __syncthreads();  // row j is prepared; row j - 1's product is done with the buffers of row j + 1
+        if (j == 2 * l - 1) {
+          // This block no longer reads its copy in this step. The arrive releases what the
+          // thread read before it, so the next step's key window is fetched after it.
+          cluster_arrive();
+          if (i + 1 < n0) prefetch(i + 1, 0);
+        }
+        if (j + 1 < 2 * l) prepare(j + 1);
+        cr::fold_product<FD, LIMBS>(pos, neg, reinterpret_cast<const uint8_t*>(dig_s + (j & 1) * DIG_WORDS),
+                                    ext_s + (j & 1) * KEY_WORDS, fd);
       }
-      for (int x = tid; x < T * N; x += THREADS) {
-        const int t = x / N;
-        const int m = x & (N - 1);
-        const uint32_t* src = acc_s + (t * 2 + poly) * N;
-        const int k = (m - a_now[t] + 2 * N) & TWO_N_MASK;
-        const uint32_t w = src[k & (N - 1)];
-        const uint32_t v = (k >= N ? 0u - w : w) - src[m] + dec_offset;
-        const uint32_t d =
-            static_cast<uint32_t>(static_cast<int32_t>((v >> shift) & digit_mask) - half_bg);
-        dig_s[t * DIG + m] = d;
-        if (m < kLanes) dig_s[t * DIG + N + m] = 0u - d;  // X^N = -1
+    } else {
+      for (int j = 0; j < 2 * l; ++j) {
+        const int poly = j / l;
+        const int shift = 32 - (j % l + 1) * bgbit;
+        __syncthreads();  // the accumulator copy is whole; previous row's readers done
+#pragma unroll
+        for (int q = 0; q < PF; ++q) {
+          const int x = q * THREADS + tid;
+          if (x < EXT) ext_s[x] = pf[q];
+        }
+        for (int x = tid; x < T * N; x += THREADS) {
+          const int t = x / N;
+          const int m = x & (N - 1);
+          const uint32_t* src = acc_s + (t * 2 + poly) * N;
+          const int k = (m - a_now[t] + 2 * N) & TWO_N_MASK;
+          const uint32_t w = src[k & (N - 1)];
+          const uint32_t v = (k >= N ? 0u - w : w) - src[m] + dec_offset;
+          const uint32_t d =
+              static_cast<uint32_t>(static_cast<int32_t>((v >> shift) & digit_mask) - half_bg);
+          dig_s[t * DIG + m] = d;
+          if (m < kLanes) dig_s[t * DIG + N + m] = 0u - d;  // X^N = -1
+        }
+        __syncthreads();
+        if (j == 2 * l - 1) cluster_arrive();  // this block no longer reads its copy in this step
+        if (j + 1 < 2 * l) {
+          prefetch(i, j + 1);
+        } else if (i + 1 < n0) {
+          prefetch(i + 1, 0);
+        }
+        cr::window_product<T, SL::S, DIG, 0>(part, sl.window(ext_s), sl.digits(dig_s));
       }
-      __syncthreads();
-      if (j == 2 * l - 1) cluster_arrive();  // this block no longer reads its copy in this step
-      if (j + 1 < 2 * l) {
-        prefetch(i, j + 1);
-      } else if (i + 1 < n0) {
-        prefetch(i + 1, 0);
-      }
-      cr::window_product<T, SL::S, DIG, 0>(part, sl.window(ext_s), sl.digits(dig_s));
     }
 
     if (tid < T) a_s[((i + 1) & 1) * T + tid] = a_next;
-    cr::add_partial_sums<T, N>(part, acc_s, o, sl.s0 + kR * sl.cgi);
+    if constexpr (FOLD) {
+      cr::add_fold_sums<FD, LIMBS>(pos, neg, acc_s + o * N + sl.s0, fd);
+    } else {
+      cr::add_partial_sums<T, N>(part, acc_s, o, sl.s0 + kR * sl.cgi);
+    }
     __syncthreads();
     cluster_wait();  // every peer has read its copy for the last time in this step
     cr::push_slice<T, N, W, CL, THREADS>(cluster, acc_s, sl.rank, o, sl.s0, tid);
@@ -1022,13 +1127,13 @@ int launch(const Args& a) {
   }
 }
 
-template <int LOG_N, int T, int CL>
+template <int LOG_N, int T, int CL, int LIMBS>
 cudaError_t cluster_config(cudaLaunchConfig_t* config, cudaLaunchAttribute* attr, int batch,
                            cudaStream_t stream) {
   constexpr int N = 1 << LOG_N;
-  constexpr size_t smem = cluster_smem_bytes(N, T, CL);
+  constexpr size_t smem = cluster_smem_bytes(N, T, CL, LIMBS);
   static_assert(smem <= kMaxSmem, "tile does not fit in shared memory");
-  auto kern = blind_rotate_cluster_kernel<LOG_N, T, CL>;
+  auto kern = blind_rotate_cluster_kernel<LOG_N, T, CL, LIMBS>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -1050,19 +1155,20 @@ cudaError_t cluster_config(cudaLaunchConfig_t* config, cudaLaunchAttribute* attr
   return cudaSuccess;
 }
 
-// Launch the cluster instance, or (query) only ask how many of its clusters
-// the device can hold at once: the count goes to *active.
-template <int LOG_N, int T, int CL>
+// Launch the cluster instance (LIMBS 0: on the CUDA cores; 3 or 4: the fold),
+// or (query) only ask how many of its clusters the device can hold at once:
+// the count goes to *active.
+template <int LOG_N, int T, int CL, int LIMBS = 0>
 int launch_cluster(const Args& a, int* active) {
   constexpr int N = 1 << LOG_N;
-  if constexpr (!cluster_instance(N, T, CL)) {
+  if constexpr (!cluster_instance(N, T, CL, LIMBS)) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     cudaLaunchConfig_t config;
     cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config<LOG_N, T, CL>(&config, &attr, a.batch, a.stream);
+    cudaError_t err = cluster_config<LOG_N, T, CL, LIMBS>(&config, &attr, a.batch, a.stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    auto kern = blind_rotate_cluster_kernel<LOG_N, T, CL>;
+    auto kern = blind_rotate_cluster_kernel<LOG_N, T, CL, LIMBS>;
     if (active != nullptr) {
       if (config.dynamicSmemBytes < kExclusiveSmem) {
         config.dynamicSmemBytes = kExclusiveSmem;
@@ -1165,12 +1271,28 @@ constexpr bool runs_on_wgmma(int log_n, int tile, int limbs) {
   return (tile == 16 || tile == 32) && has_wgmma_instance(log_n, limbs, tile / 16);
 }
 
-// limbs 0: the CUDA-core instances; 3 or 4: the tensor-core instance with
-// that many key limbs (N = 1024 and 2048, cluster 2N / 256): 16 ciphertexts a
-// cluster, or 32 with 3 limbs at N = 1024.
+// The fold: a tile of one ciphertext on the tensor cores, LIMBS key limbs.
+template <int LOG_N, int LIMBS>
+int launch_fold(const Args& a, int cluster, int* active) {
+  switch (cluster) {
+    case 2: return launch_cluster<LOG_N, 1, 2, LIMBS>(a, active);
+    case 4: return launch_cluster<LOG_N, 1, 4, LIMBS>(a, active);
+    case 8: return launch_cluster<LOG_N, 1, 8, LIMBS>(a, active);
+    case 16: return launch_cluster<LOG_N, 1, 16, LIMBS>(a, active);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// limbs 0: the CUDA-core instances; 3 or 4: with that many key limbs, the
+// fold at tile 1 (a cluster instance's tile of one ciphertext, from N = 1024
+// up), else the tensor-core instance (N = 1024 and 2048, cluster 2N / 256):
+// 16 ciphertexts a cluster, or 32 with 3 limbs at N = 1024.
 template <int LOG_N>
 int launch_unit(const Args& a, int tile, int cluster, int limbs, int* active) {
   if (limbs == 0) return launch_tile<LOG_N>(a, tile, cluster, active);
+  if (tile == 1) {
+    return limbs == 3 ? launch_fold<LOG_N, 3>(a, cluster, active) : launch_fold<LOG_N, 4>(a, cluster, active);
+  }
   if constexpr (has_mma_instance(LOG_N)) {
     if (cluster != 2 * (1 << LOG_N) / kMmaCols) return static_cast<int>(cudaErrorInvalidValue);
     if (tile == 16 && limbs == 3) return launch_mma<LOG_N, 3, 1>(a, active);

@@ -59,6 +59,13 @@
 //   3. multiplies: part[t] += digits (x) E_t, the window loop with a window
 //      per ciphertext (2 shared-memory words per 8 multiply-adds);
 //   4. after the last row: atomics into its slice, push, barrier.
+// A tile of one ciphertext with single-limb digits from N = 1024 up (the
+// batches `auto` sends: each ciphertext a cluster of 16) runs step 3 as the
+// fold (cluster_rotation.cuh: s8 digits in 16 rows shifted by 8 against the
+// LIMBS byte planes of E, on mma.sync), builds E into those planes, and
+// stages the pattern rows by the copy engine (four bulk copies a row,
+// fold_stages(N) rows ahead, completing on an mbarrier a slot); its gadget
+// rows are a two-stage pipeline, as in csrc/blind_rotate.cu's fold.
 // Shared memory per block: 4N + T (2N + N + 32 + W + N + 32) words
 // (cluster_smem_bytes): 83 KiB at N = 1024, T = 4, CL = 16; 193 KiB at
 // N = 2048, T = 4, CL = 2; 144 KiB at N = 4096, T = 1, CL = 2. Tiles 1, 2
@@ -101,12 +108,14 @@
 
 #include "cluster_rotation.cuh"
 #include "negacyclic_mma.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 namespace cr = cluster_rotation;
 namespace nm = negacyclic;
+namespace wg8 = wgmma_s8;
 
 using cr::cluster_arrive;
 using cr::cluster_wait;
@@ -130,12 +139,28 @@ constexpr int max_tile(int n) { return n <= 1024 ? 4 : 4096 / n; }
 // and 64 at 4096, where a tile of 2 spills.
 constexpr int cluster_max_tile(int n) { return n <= 2048 ? 4 : 1; }
 
-constexpr bool cluster_instance(int n, int tile, int cl) {
-  return (tile == 1 || tile == 2 || tile == 4) && tile <= cluster_max_tile(n) && cl >= 2 &&
-         cl <= max_cluster(n);
+// LIMBS 0: on the CUDA cores; 3 or 4: the fold (cluster_rotation.cuh), a tile
+// of one ciphertext with that many key limbs.
+constexpr bool cluster_instance(int n, int tile, int cl, int limbs) {
+  return limbs == 0 ? (tile == 1 || tile == 2 || tile == 4) && tile <= cluster_max_tile(n) && cl >= 2 &&
+                          cl <= max_cluster(n)
+                    : tile == 1 && cr::has_fold(n, cl);
 }
 
-constexpr size_t cluster_smem_bytes(int n, int tile, int cl) {
+// The fold's gadget rows of the four patterns come by the copy engine into
+// fold_stages(N) slots, up to that many rows ahead (its product is too short
+// to hide a row's copy from L2, and cp.async's issue would hold every
+// thread); its digit planes and key windows are double-buffered (a two-stage
+// pipeline of rows). At N = 4096 one slot of 64 KB leaves room for a
+// cluster of 2's key windows.
+__host__ __device__ constexpr int fold_stages(int n) { return n >= 4096 ? 1 : 3; }
+
+constexpr size_t cluster_smem_bytes(int n, int tile, int cl, int limbs) {
+  if (limbs != 0)  // staged rows, accumulator, two s8 digit planes, two key windows, exponents, barriers
+    return static_cast<size_t>(fold_stages(n) * 4 * n + 2 * n + 2 * (n + 2 * cr::kFoldPad) / 4 +
+                               2 * limbs * (n + 2 * n / cl - 120) / 4) *
+               sizeof(uint32_t) +
+           4 * sizeof(int) + fold_stages(n) * sizeof(uint64_t);
   return static_cast<size_t>(4 * n + tile * (2 * n + (n + kLanes) + (2 * n / cl + n + kLanes))) *
              sizeof(uint32_t) +
          4 * tile * sizeof(int);
@@ -287,7 +312,7 @@ blind_rotate_mb_kernel(const int32_t* __restrict__ b_til,     // [B]
   }
 }
 
-template <int LOG_N, int T, int CL>
+template <int LOG_N, int T, int CL, int LIMBS>
 __global__ void __launch_bounds__((1 << LOG_N) / 4, 1)
 blind_rotate_mb_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
                                const int32_t* __restrict__ a_til,     // [B, n0]
@@ -303,17 +328,26 @@ blind_rotate_mb_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
   constexpr int W = SL::W;
   constexpr int DIG = SL::DIG;
   constexpr int EXT = SL::EXT;
+  constexpr bool FOLD = LIMBS != 0;
+  using FD = cr::Fold<FOLD ? LOG_N : 10, FOLD ? CL : 16, FOLD ? LIMBS : 4>;  // read only where FOLD
+  static_assert(!FOLD || T == 1, "the fold takes a tile of one ciphertext");
+  constexpr int STAGES = FOLD ? fold_stages(N) : 1;  // gadget rows staged
+  constexpr int BUFS = FOLD ? 2 : 1;                  // digit planes and key windows
+  constexpr int DIG_WORDS = FOLD ? FD::DIG_WORDS : T * DIG;
+  constexpr int KEY_WORDS = FOLD ? LIMBS * FD::REV_WORDS : T * EXT;
 
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* stage_s = smem;              // [4][N]     gadget row j of the four patterns, polynomial o
-  uint32_t* acc_s = stage_s + 4 * N;     // [T][2][N]  the tile's accumulator (this block's copy)
-  uint32_t* dig_s = acc_s + T * 2 * N;   // [T][DIG]   one digit plane, extended
-  uint32_t* ext_s = dig_s + T * DIG;     // [T][EXT]   comb_j's key window per ciphertext
-  int* a_s = reinterpret_cast<int*>(ext_s + T * EXT);  // [2][T][2] this and the next group's a~
+  uint32_t* stage_s = smem;                    // [STAGES][4][N] gadget rows of the four patterns, polynomial o
+  uint32_t* acc_s = stage_s + STAGES * 4 * N;  // [T][2][N]  the tile's accumulator (this block's copy)
+  uint32_t* dig_s = acc_s + T * 2 * N;         // [T][DIG]   one digit plane, extended; the fold: [2] s8, padded
+  uint32_t* ext_s = dig_s + BUFS * DIG_WORDS;  // [T][EXT]   comb_j's key window; the fold: [2][LIMBS][REV_WORDS]
+  int* a_s = reinterpret_cast<int*>(ext_s + BUFS * KEY_WORDS);  // [2][T][2] this and the next group's a~
+  uint64_t* staged = reinterpret_cast<uint64_t*>(a_s + 4 * T);  // the fold: [STAGES] a slot's copies landed
 
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const SL sl(static_cast<int>(cluster.block_rank()), tid);
+  const FD fd(tid);
   const int o = sl.o;
   const int b0 = (blockIdx.x / CL) * T;
   const int groups = n0 / 2;
@@ -322,15 +356,24 @@ blind_rotate_mb_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
   const size_t row_words = static_cast<size_t>(2) * N;  // one gadget row of one pattern
   const size_t pattern_words = static_cast<size_t>(2 * l) * row_words;
 
-  // gadget row j of group g's four patterns, polynomial o, into stage_s (async)
-  auto stage = [&](int g, int j) {
+  // gadget row j of group g's four patterns, polynomial o, into stage slot u (async): the
+  // fold's by four bulk copies, one from the first lane of each of four warps, which complete
+  // on staged[u]; else by cp.async
+  auto stage = [&](int g, int j, int u) {
     const uint32_t* row = bsk_mb + static_cast<size_t>(g) * 4 * pattern_words + j * row_words + o * N;
-    for (int x = tid; x < N; x += THREADS) {  // N copies of 4 words
-      const int v = x / (N / 4);
-      const int c = (x % (N / 4)) * 4;
-      nm::cp_async_16(stage_s + v * N + c, row + v * pattern_words + c, true);
+    uint32_t* dst = stage_s + u * 4 * N;
+    if constexpr (FOLD) {
+      const int v = tid / 32;
+      wg8::bulk_load_if(dst + (v & 3) * N, row + (v & 3) * pattern_words, N * sizeof(uint32_t), staged + u,
+                        tid % 32 == 0 && v < 4);
+    } else {
+      for (int x = tid; x < N; x += THREADS) {  // N copies of 4 words
+        const int v = x / (N / 4);
+        const int c = (x % (N / 4)) * 4;
+        nm::cp_async_16(dst + v * N + c, row + v * pattern_words + c, true);
+      }
+      nm::cp_async_commit();
     }
-    nm::cp_async_commit();
   };
   auto exponent = [&](int g, int h) -> int {  // a~[2g + h] of this thread's ciphertext
     const int b = b0 + tid;
@@ -354,13 +397,30 @@ blind_rotate_mb_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
     a_s[2 * tid] = exponent(0, 0);
     a_s[2 * tid + 1] = exponent(0, 1);
   }
-  stage(0, 0);
+  if constexpr (FOLD) {
+    if (tid == 0) {
+      for (int u = 0; u < STAGES; ++u) wg8::mbar_init(staged + u, 4);  // four copies a row
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    for (int r = 0; r < STAGES && r < groups * 2 * l; ++r) stage(r / (2 * l), r % (2 * l), r);
+    for (int x = tid; x < 4 * cr::kFoldPad / 4; x += THREADS)  // the planes' zero pads, never written again
+      dig_s[x / 64 * DIG_WORDS + (x % 64 < 32 ? x % 64 : x % 64 + N / 4)] = 0u;
+    __syncthreads();  // the accumulator, the exponents and the pads are written
+  } else {
+    stage(0, 0, 0);
+  }
 
   uint32_t part[T][kR];
+  int pos[FOLD ? LIMBS : 1][4], neg[FOLD ? LIMBS : 1][4];
 #pragma unroll
   for (int t = 0; t < T; ++t)
 #pragma unroll
     for (int r = 0; r < kR; ++r) part[t][r] = 0u;
+#pragma unroll
+  for (int k = 0; k < (FOLD ? LIMBS : 1); ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pos[k][i] = neg[k][i] = 0;
 
   for (int g = 0; g < groups; ++g) {
     int a_next[2] = {0, 0};
@@ -370,56 +430,115 @@ blind_rotate_mb_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
     }
     const int* a_now = a_s + (g & 1) * 2 * T;
 
-    for (int j = 0; j < 2 * l; ++j) {
-      const int poly = j / l;
-      const int shift = 32 - (j % l + 1) * bgbit;
-      nm::cp_async_wait<0>();
-      __syncthreads();  // row j is staged; the accumulator copy is whole; previous row's readers done
-
-      // 1. E_t(k) for k = x + s0 - N - 31: with y = k + 4N - k_v > 0, the sign is
-      //    bit LOG_N of y (X^N = -1 and X^{2N} = 1) and the word G_v[y mod N]
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const int k1 = a_now[2 * t], k2 = a_now[2 * t + 1];
+    if constexpr (FOLD) {
+      // Row j's key window and digit plane, into buffer j & 1: its four pattern rows landed in
+      // slot R % STAGES (R = g 2L + j counts the rows of the rotation), the slot's (R / STAGES)-th use.
+      auto prepare = [&](int j) {
+        const int rr = g * 2 * l + j;
+        wg8::mbar_wait(staged + rr % STAGES, (rr / STAGES) & 1);
+        const uint32_t* st = stage_s + rr % STAGES * 4 * N;
+        // 1. the key window, a byte of every limb plane a word: byte y holds
+        //    E(k) = sum_v (-1)^floor((k - k_v) / N) G_v[(k - k_v) mod N], k = s0 + CW - 1 - y
+        //    (consecutive words on distinct banks; a warp's bytes of a plane are eight words)
+        const int k1 = a_now[0], k2 = a_now[1];
         const int k3 = (k1 + k2) & TWO_N_MASK;
-        for (int x = tid; x < EXT; x += THREADS) {
-          const int y = sl.window_k2n(x) + 2 * N;
-          uint32_t sum = 0u;
-          auto term = [&](int v, int yv) {
-            const uint32_t w = stage_s[v * N + (yv & (N - 1))];
-            sum += (yv >> LOG_N) & 1 ? 0u - w : w;
-          };
-          term(0, y);
-          term(1, y - k1);
-          term(2, y - k2);
-          term(3, y - k3);
-          ext_s[t * EXT + x] = sum;
+        uint8_t* rev = reinterpret_cast<uint8_t*>(ext_s + (j & 1) * KEY_WORDS);
+#pragma unroll
+        for (int q = 0; q < (4 * FD::REV_WORDS + THREADS - 1) / THREADS; ++q) {
+          const int y = q * THREADS + tid;
+          if (y < 4 * FD::REV_WORDS) {
+            const int yk = sl.s0 + FD::CW - 1 - y + 4 * N;  // k + 4N > 0
+            uint32_t sum = 0u;
+            auto term = [&](int v, int yv) {
+              const uint32_t w = st[v * N + (yv & (N - 1))];
+              sum += (yv >> LOG_N) & 1 ? 0u - w : w;
+            };
+            term(0, yk);
+            term(1, yk - k1);
+            term(2, yk - k2);
+            term(3, yk - k3);
+#pragma unroll
+            for (int k = 0; k < LIMBS; ++k)
+              rev[k * 4 * FD::REV_WORDS + y] = static_cast<uint8_t>(sum >> (8 * (k + nm::kLimbs - LIMBS)));
+          }
         }
+        // 2. four consecutive digits a thread; the last level of polynomial o zeroes this block's slice
+        const int poly = j / l;
+        uint32_t* src = acc_s + poly * N;
+        const int m = 4 * tid;
+        const uint4 own = *reinterpret_cast<const uint4*>(src + m);
+        const uint32_t v[4] = {own.x + dec_offset, own.y + dec_offset, own.z + dec_offset, own.w + dec_offset};
+        dig_s[(j & 1) * DIG_WORDS + cr::kFoldPad / 4 + tid] =
+            cr::digit_bytes(v, 32 - (j % l + 1) * bgbit, digit_mask, half_bg);
+        if (poly == o && j % l == l - 1 && static_cast<unsigned>(m - sl.s0) < static_cast<unsigned>(W))
+          *reinterpret_cast<uint4*>(src + m) = make_uint4(0u, 0u, 0u, 0u);
+      };
+      // The rows as a two-stage pipeline, as in the CMUX rotation's fold: row j + 1 is
+      // prepared while row j multiplies, one block barrier a row. Once a row is prepared its
+      // slot takes the row STAGES further on.
+      prepare(0);
+      for (int j = 0; j < 2 * l; ++j) {
+        __syncthreads();  // row j is prepared; row j - 1's product is done with the buffers of row j + 1
+        if (j == 2 * l - 1) cluster_arrive();  // this block no longer reads its copy in this group
+        const int ahead = g * 2 * l + j + STAGES;  // into the slot row g 2L + j has left
+        if (ahead < groups * 2 * l) stage(ahead / (2 * l), ahead % (2 * l), ahead % STAGES);
+        if (j + 1 < 2 * l) prepare(j + 1);
+        // 3. pos/neg += digits (x) E
+        cr::fold_product<FD, LIMBS>(pos, neg, reinterpret_cast<const uint8_t*>(dig_s + (j & 1) * DIG_WORDS),
+                                    ext_s + (j & 1) * KEY_WORDS, fd);
       }
+    } else {
+      for (int j = 0; j < 2 * l; ++j) {
+        const int poly = j / l;
+        const int shift = 32 - (j % l + 1) * bgbit;
+        const bool last_read_of_slice = poly == o && j % l == l - 1;
+        nm::cp_async_wait<0>();
+        __syncthreads();  // row j is staged; the accumulator copy is whole; previous row's readers done
 
-      // 2. digit plane j of Dec(acc); the last level of polynomial o zeroes this block's slice
-      const bool last_read_of_slice = poly == o && j % l == l - 1;
-      for (int x = tid; x < T * N; x += THREADS) {
-        const int t = x / N;
-        const int m = x & (N - 1);
-        uint32_t* src = acc_s + (t * 2 + poly) * N;
-        const uint32_t v = src[m] + dec_offset;
-        const uint32_t d =
-            static_cast<uint32_t>(static_cast<int32_t>((v >> shift) & digit_mask) - half_bg);
-        dig_s[t * DIG + m] = d;
-        if (m < kLanes) dig_s[t * DIG + N + m] = 0u - d;  // X^N = -1
-        if (last_read_of_slice && static_cast<unsigned>(m - sl.s0) < static_cast<unsigned>(W)) src[m] = 0u;
-      }
-      __syncthreads();
-      if (j == 2 * l - 1) cluster_arrive();  // this block no longer reads its copy in this group
-      if (j + 1 < 2 * l) {
-        stage(g, j + 1);
-      } else if (g + 1 < groups) {
-        stage(g + 1, 0);
-      }
+        // 1. E_t(k) for k = x + s0 - N - 31: with y = k + 4N - k_v > 0, the sign is
+        //    bit LOG_N of y (X^N = -1 and X^{2N} = 1) and the word G_v[y mod N]
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          const int k1 = a_now[2 * t], k2 = a_now[2 * t + 1];
+          const int k3 = (k1 + k2) & TWO_N_MASK;
+          for (int x = tid; x < EXT; x += THREADS) {
+            const int y = sl.window_k2n(x) + 2 * N;
+            uint32_t sum = 0u;
+            auto term = [&](int v, int yv) {
+              const uint32_t w = stage_s[v * N + (yv & (N - 1))];
+              sum += (yv >> LOG_N) & 1 ? 0u - w : w;
+            };
+            term(0, y);
+            term(1, y - k1);
+            term(2, y - k2);
+            term(3, y - k3);
+            ext_s[t * EXT + x] = sum;
+          }
+        }
 
-      // 3. part[t] += digits (x) E_t
-      cr::window_product<T, SL::S, DIG, EXT>(part, sl.window(ext_s), sl.digits(dig_s));
+        // 2. digit plane j of Dec(acc); the last level of polynomial o zeroes this block's slice
+        for (int x = tid; x < T * N; x += THREADS) {
+          const int t = x / N;
+          const int m = x & (N - 1);
+          uint32_t* src = acc_s + (t * 2 + poly) * N;
+          const uint32_t v = src[m] + dec_offset;
+          const uint32_t d =
+              static_cast<uint32_t>(static_cast<int32_t>((v >> shift) & digit_mask) - half_bg);
+          dig_s[t * DIG + m] = d;
+          if (m < kLanes) dig_s[t * DIG + N + m] = 0u - d;  // X^N = -1
+          if (last_read_of_slice && static_cast<unsigned>(m - sl.s0) < static_cast<unsigned>(W)) src[m] = 0u;
+        }
+        __syncthreads();
+        if (j == 2 * l - 1) cluster_arrive();  // this block no longer reads its copy in this group
+        if (j + 1 < 2 * l) {
+          stage(g, j + 1, 0);
+        } else if (g + 1 < groups) {
+          stage(g + 1, 0, 0);
+        }
+
+        // 3. part[t] += digits (x) E_t
+        cr::window_product<T, SL::S, DIG, EXT>(part, sl.window(ext_s), sl.digits(dig_s));
+      }
     }
 
     // 4. the group's product replaces the accumulator
@@ -427,7 +546,11 @@ blind_rotate_mb_cluster_kernel(const int32_t* __restrict__ b_til,     // [B]
       a_s[((g + 1) & 1) * 2 * T + 2 * tid] = a_next[0];
       a_s[((g + 1) & 1) * 2 * T + 2 * tid + 1] = a_next[1];
     }
-    cr::add_partial_sums<T, N>(part, acc_s, o, sl.s0 + kR * sl.cgi);
+    if constexpr (FOLD) {
+      cr::add_fold_sums<FD, LIMBS>(pos, neg, acc_s + o * N + sl.s0, fd);
+    } else {
+      cr::add_partial_sums<T, N>(part, acc_s, o, sl.s0 + kR * sl.cgi);
+    }
     __syncthreads();
     cluster_wait();  // every peer has read its copy for the last time in this group
     cr::push_slice<T, N, W, CL, THREADS>(cluster, acc_s, sl.rank, o, sl.s0, tid);
@@ -474,17 +597,18 @@ int launch(const Args& a) {
   }
 }
 
-// Launch the cluster instance, or (query) only ask how many of its clusters
-// the device can hold at once at one block an SM: the count goes to *active.
-template <int LOG_N, int T, int CL>
+// Launch the cluster instance (LIMBS 0: on the CUDA cores; 3 or 4: the fold),
+// or (query) only ask how many of its clusters the device can hold at once at
+// one block an SM: the count goes to *active.
+template <int LOG_N, int T, int CL, int LIMBS = 0>
 int launch_cluster(const Args& a, int* active) {
   constexpr int N = 1 << LOG_N;
-  if constexpr (!cluster_instance(N, T, CL)) {
+  if constexpr (!cluster_instance(N, T, CL, LIMBS)) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    constexpr size_t smem = cluster_smem_bytes(N, T, CL);
+    constexpr size_t smem = cluster_smem_bytes(N, T, CL, LIMBS);
     static_assert(smem <= kMaxSmem, "tile does not fit in shared memory");
-    auto kern = blind_rotate_mb_cluster_kernel<LOG_N, T, CL>;
+    auto kern = blind_rotate_mb_cluster_kernel<LOG_N, T, CL, LIMBS>;
     const size_t asked = active != nullptr && smem < kExclusiveSmem ? kExclusiveSmem : smem;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(asked));
@@ -525,8 +649,25 @@ int launch_instance(const Args& a, int cluster, int* active) {
   }
 }
 
+// The fold: a tile of one ciphertext on the tensor cores, LIMBS key limbs.
+template <int LOG_N, int LIMBS>
+int launch_fold(const Args& a, int cluster, int* active) {
+  switch (cluster) {
+    case 2: return launch_cluster<LOG_N, 1, 2, LIMBS>(a, active);
+    case 4: return launch_cluster<LOG_N, 1, 4, LIMBS>(a, active);
+    case 8: return launch_cluster<LOG_N, 1, 8, LIMBS>(a, active);
+    case 16: return launch_cluster<LOG_N, 1, 16, LIMBS>(a, active);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// limbs 0: the CUDA-core instances; 3 or 4: the fold with that many key limbs.
 template <int LOG_N>
-int launch_tile(const Args& a, int tile, int cluster, int* active) {
+int launch_tile(const Args& a, int tile, int cluster, int limbs, int* active) {
+  if (limbs != 0) {
+    if (tile != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return limbs == 3 ? launch_fold<LOG_N, 3>(a, cluster, active) : launch_fold<LOG_N, 4>(a, cluster, active);
+  }
   switch (tile) {
     case 1: return launch_instance<LOG_N, 1>(a, cluster, active);
     case 2: return launch_instance<LOG_N, 2>(a, cluster, active);
@@ -547,33 +688,33 @@ int launch_tile(const Args& a, int tile, int cluster, int* active) {
 #define TFHE_MB_CAT(a, b) TFHE_MB_CAT2(a, b)
 #define TFHE_MB_RING_FN(log_n) TFHE_MB_CAT(tfhe_blind_rotate_mb_ring_, log_n)
 
-extern "C" int TFHE_MB_RING_FN(TFHE_LOG_N)(const void* args, int tile, int cluster, int* active) {
-  return launch_tile<TFHE_LOG_N>(*static_cast<const Args*>(args), tile, cluster, active);
+extern "C" int TFHE_MB_RING_FN(TFHE_LOG_N)(const void* args, int tile, int cluster, int limbs, int* active) {
+  return launch_tile<TFHE_LOG_N>(*static_cast<const Args*>(args), tile, cluster, limbs, active);
 }
 
 #ifdef TFHE_MAIN
 
 extern "C" {
-int tfhe_blind_rotate_mb_ring_6(const void*, int, int, int*);
-int tfhe_blind_rotate_mb_ring_7(const void*, int, int, int*);
-int tfhe_blind_rotate_mb_ring_8(const void*, int, int, int*);
-int tfhe_blind_rotate_mb_ring_9(const void*, int, int, int*);
-int tfhe_blind_rotate_mb_ring_10(const void*, int, int, int*);
-int tfhe_blind_rotate_mb_ring_11(const void*, int, int, int*);
-int tfhe_blind_rotate_mb_ring_12(const void*, int, int, int*);
+int tfhe_blind_rotate_mb_ring_6(const void*, int, int, int, int*);
+int tfhe_blind_rotate_mb_ring_7(const void*, int, int, int, int*);
+int tfhe_blind_rotate_mb_ring_8(const void*, int, int, int, int*);
+int tfhe_blind_rotate_mb_ring_9(const void*, int, int, int, int*);
+int tfhe_blind_rotate_mb_ring_10(const void*, int, int, int, int*);
+int tfhe_blind_rotate_mb_ring_11(const void*, int, int, int, int*);
+int tfhe_blind_rotate_mb_ring_12(const void*, int, int, int, int*);
 }
 
 namespace {
 
-int dispatch(const Args& a, int log_n, int tile, int cluster, int* active) {
+int dispatch(const Args& a, int log_n, int tile, int cluster, int limbs, int* active) {
   switch (log_n) {
-    case 6: return tfhe_blind_rotate_mb_ring_6(&a, tile, cluster, active);
-    case 7: return tfhe_blind_rotate_mb_ring_7(&a, tile, cluster, active);
-    case 8: return tfhe_blind_rotate_mb_ring_8(&a, tile, cluster, active);
-    case 9: return tfhe_blind_rotate_mb_ring_9(&a, tile, cluster, active);
-    case 10: return tfhe_blind_rotate_mb_ring_10(&a, tile, cluster, active);
-    case 11: return tfhe_blind_rotate_mb_ring_11(&a, tile, cluster, active);
-    case 12: return tfhe_blind_rotate_mb_ring_12(&a, tile, cluster, active);
+    case 6: return tfhe_blind_rotate_mb_ring_6(&a, tile, cluster, limbs, active);
+    case 7: return tfhe_blind_rotate_mb_ring_7(&a, tile, cluster, limbs, active);
+    case 8: return tfhe_blind_rotate_mb_ring_8(&a, tile, cluster, limbs, active);
+    case 9: return tfhe_blind_rotate_mb_ring_9(&a, tile, cluster, limbs, active);
+    case 10: return tfhe_blind_rotate_mb_ring_10(&a, tile, cluster, limbs, active);
+    case 11: return tfhe_blind_rotate_mb_ring_11(&a, tile, cluster, limbs, active);
+    case 12: return tfhe_blind_rotate_mb_ring_12(&a, tile, cluster, limbs, active);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -583,30 +724,32 @@ int dispatch(const Args& a, int log_n, int tile, int cluster, int* active) {
 extern "C" {
 
 // Launches the multi-bit blind rotation on `stream`: `tile` ciphertexts a
-// cluster of `cluster` blocks (1: the single-block instance). Returns
-// cudaGetLastError() after the launch (0 on success) or
+// cluster of `cluster` blocks (1: the single-block instance); `limbs` 0 for
+// the CUDA cores, 3 or 4 for the fold with that many key limbs (tile 1; the
+// caller has checked the accumulator bound, and for 3 that the key is on the
+// 2^8 grid). Returns cudaGetLastError() after the launch (0 on success) or
 // cudaErrorInvalidValue for a shape it does not take. Does not synchronise
 // and allocates nothing.
 int tfhe_blind_rotate_mb(const void* b_til, const void* a_til, const void* testvec,
                          long long tv_stride, const void* bsk_mb, void* out, int batch, int n0,
                          int log_n, int l, int bgbit, unsigned int dec_offset, int tile,
-                         int cluster, void* stream) {
+                         int cluster, int limbs, void* stream) {
   if (n0 % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int32_t*>(b_til), static_cast<const int32_t*>(a_til),
                static_cast<const uint32_t*>(testvec), tv_stride,
                static_cast<const uint32_t*>(bsk_mb), static_cast<uint32_t*>(out),
                batch, n0, l, bgbit, dec_offset, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, log_n, tile, cluster, nullptr);
+  return dispatch(a, log_n, tile, cluster, limbs, nullptr);
 }
 
-// How many clusters of the (tile, cluster >= 2) instance the current device
-// can hold at once at one block an SM (asked with the instance's own shared
-// memory, or more than half an SM's where it has less), or -(error code).
-int tfhe_blind_rotate_mb_max_active_clusters(int log_n, int tile, int cluster) {
+// How many clusters of the (tile, cluster >= 2, limbs) instance the current
+// device can hold at once at one block an SM (asked with the instance's own
+// shared memory, or more than half an SM's where it has less), or -(error code).
+int tfhe_blind_rotate_mb_max_active_clusters(int log_n, int tile, int cluster, int limbs) {
   Args a{};
   a.batch = tile;
   int active = 0;
-  const int err = dispatch(a, log_n, tile, cluster, &active);
+  const int err = dispatch(a, log_n, tile, cluster, limbs, &active);
   return err != 0 ? -err : active;
 }
 

@@ -12,7 +12,10 @@ thread-block cluster of `cluster` blocks owns a tile of `tile` ciphertexts
 and splits the 2N output columns between its blocks (one ciphertext on up to
 16 SMs); with cluster 1 a single block owns the tile. `rotation_instance`
 picks tile and cluster from the batch and from how many clusters of each
-size the card holds, in one wave where the batch allows. On the tensor cores
+size the card holds, in one wave where the batch allows. A cluster's tile of
+one ciphertext multiplies on the tensor cores instead where the set allows
+(`cuda_launch.takes_fold`: the fold, s8 digits against the key's byte limbs,
+N >= 1024), with the same exchange. On the tensor cores
 (N = 1024 and 2048, single-limb digits) a cluster of 2N / 256 blocks owns 16
 ciphertexts, or 32 at N = 1024 with a three-limb key and L = 2, and multiplies s8 digits by the key's
 byte limbs; `rotation_unit` takes it from the batch where its waves cost
@@ -34,55 +37,23 @@ import torch
 from .. import _build
 from ..params import TfheParams
 from ..utils.profiling import counter
-from .cuda_launch import (cluster_slots, error_text, instance_cost, launched, on_device, rotation_operands,
-                          takes_tensor_cores)
+from .cuda_launch import (FOLD_MIN_RING, cluster_slots, error_text, fold_unit, instance_cost, key_limbs, launched,
+                          on_device, rotation_operands, takes_fold, takes_tensor_cores)
 
 #: Launches by instance (ring size N, tile, cluster, unit) in this process:
 #: which instantiations of the kernel ran. The unit is "imad" (32-bit
 #: multiply-adds on the CUDA cores), "wgmma_s8x3" (s8 limb products on wgmma
-#: with 3 key limbs) or "mma_s8x3" / "mma_s8x4" (on mma.sync with 3 or 4 key
-#: limbs): `tensor_core_unit` of what launched.
+#: with 3 key limbs), "mma_s8x3" / "mma_s8x4" (on mma.sync with 3 or 4 key
+#: limbs; `tensor_core_unit` of what launched) or "mma_fold_s8x3" /
+#: "mma_fold_s8x4" (the fold of a cluster instance's tile of one ciphertext:
+#: `cuda_launch.fold_unit`).
 launched_tiles = counter("k1.instance", total="k1.launches")
 #: Their sum, kept as an int for tfhe_bench/program.py, which reads it.
 launches = 0
 
-#: Whole-key reads of `key_limbs` (each synchronises the host with the
-#: device): one a key tensor, unless a caller hands over a new tensor each
-#: call; and builds of the wgmma instance's strips (`key_strips`).
-_key_counts = counter("bsk", ("grid_checks", "strip_builds"))
-
-#: Keys already checked for the 2^8 grid: id(tensor) -> (weak reference to
-#: the tensor, its version counter then, on the grid?).
-_grid_checked: dict = {}
-
-
-def _on_grid(bsk: torch.Tensor) -> bool:
-    _key_counts["grid_checks"] += 1
-    return not bool((bsk & 0xFF).any())
-
-
-def key_limbs(bsk: torch.Tensor, params: TfheParams) -> int:
-    """How many byte limbs of the key the tensor-core instance multiplies: 3
-    where the set rounds its key to the 2^8 grid (`bsk_round_bits` = 8) AND
-    this key's words really have a zero lowest byte; else 4. A limb the data
-    has is never dropped.
-
-    The check reads the whole key and synchronises, so its answer is kept per
-    key tensor and version counter: a cloud key's `bsk` pays it once. A caller
-    that hands over a new tensor object each call (a fresh view or copy of the
-    key) pays it each call; so does a key made under `torch.inference_mode()`,
-    which has no version counter to tell an edit in place by."""
-    if params.bsk_round_bits < 8:
-        return 4
-    if bsk.is_inference():
-        return 3 if _on_grid(bsk) else 4
-    ident = id(bsk)
-    entry = _grid_checked.get(ident)
-    if entry is None or entry[0]() is not bsk or entry[1] != bsk._version:
-        on_grid = _on_grid(bsk)
-        entry = (weakref.ref(bsk, lambda _, ident=ident: _grid_checked.pop(ident, None)), bsk._version, on_grid)
-        _grid_checked[ident] = entry
-    return 3 if entry[2] else 4
+#: Builds of the wgmma instance's strips (`key_strips`); `bsk.grid_checks`,
+#: the whole-key reads of `key_limbs`, counts beside them.
+_key_counts = counter("bsk", ("strip_builds",))
 
 
 #: The tensor-core instance: a cluster of 2N / 256 blocks at N = 1024 and 2048
@@ -304,14 +275,19 @@ def planned_instance(index: int, batch: int, params: TfheParams, limbs: int) -> 
     """(tile, cluster, limbs) the wrapper launches for a batch on CUDA device
     `index`: tile and cluster from the clusters the device holds, the unit
     from the set; `limbs` is `key_limbs` of the key, or 0 to stay on the
-    CUDA cores (0 comes back wherever they are taken)."""
+    CUDA cores (0 comes back wherever they are taken). With limbs the tile
+    is the tensor-core instance's (16 or 32), or 1 on a cluster: the fold."""
     log_n = params.n1.bit_length() - 1
     slots = cluster_slots(index, log_n, held_clusters)
     instance = rotation_instance(batch, _build.load().tfhe_blind_rotate_max_tile(log_n), slots, params.n1)
-    if not limbs or params.n1 not in MMA_RING_SIZES or not takes_tensor_cores(params):
+    if not limbs or not takes_tensor_cores(params):
         return (*instance, 0)
-    tile, cluster, tensor_cores = rotation_unit(batch, params, instance, slots, limbs, mma_slots(index, params, limbs))
-    return tile, cluster, limbs if tensor_cores else 0
+    if params.n1 in MMA_RING_SIZES:
+        tile, cluster, tensor_cores = rotation_unit(
+            batch, params, instance, slots, limbs, mma_slots(index, params, limbs))
+        if tensor_cores:
+            return tile, cluster, limbs
+    return (*instance, limbs if takes_fold(params, *instance) else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -339,17 +315,18 @@ def blind_rotate_kernel(
 
     b_til: int32 [B] and a_til: int32 [B, n0], the mod-switched exponents in
     [0, 2N); testvec: int32 [2, N] (shared) or [B, 2, N] (per ciphertext);
-    bsk: int32 [n0, 2L, 2, N] raw torus words. Returns int32 [B, 2, N] on the
-    same device, launched on the current stream without synchronising. Tile,
-    cluster and unit come from `planned_instance`; a cluster shape the device
-    cannot schedule raises.
+    bsk: int32 [n0, 2L, 2, N] raw torus words, 16-byte aligned where the
+    fold runs. Returns int32 [B, 2, N] on the same device, launched on the
+    current stream without synchronising. Tile, cluster and unit come from
+    `planned_instance`; a cluster shape the device cannot schedule raises.
 
     `tile`, `cluster` and `tensor_cores` force an instance and are for tests
     and measurement scripts only; no path of the package sets them. With
-    `tile` given `cluster` defaults to 1 and the CUDA cores are used;
+    `tile` given `cluster` defaults to 1; a tile of one on a cluster takes the
+    fold where `takes_fold` allows, the CUDA cores otherwise.
     `tensor_cores=True` takes the tensor-core instance (at `tile` 16 or 32 if
-    given) and raises for a set, ring size or key without it; False keeps the
-    plan on the CUDA cores.
+    given) and raises for a set, ring size or key without it; False keeps
+    every tile on the CUDA cores, the fold's included.
     """
     global launches
     g = params.trgsw_lv1
@@ -379,15 +356,19 @@ def blind_rotate_kernel(
     elif tile is None:
         if cluster is not None:
             raise ValueError("blind_rotate_kernel: a cluster needs its tile")
-        if tensor_cores is None and n in MMA_RING_SIZES and takes_tensor_cores(params):
+        if tensor_cores is None and n >= FOLD_MIN_RING and takes_tensor_cores(params):
             limbs = key_limbs(bsk, params)
         tile, cluster, limbs = planned_instance(index, batch, params, limbs)
-    elif cluster is None:
-        cluster = 1
+    else:
+        cluster = 1 if cluster is None else cluster
+        if tensor_cores is None and takes_fold(params, tile, cluster):
+            limbs = key_limbs(bsk, params)
     if cluster > 1 and max_active_clusters(index, log_n, tile, cluster, limbs, g.l if limbs else 0) < 1:
         raise RuntimeError(
             f"blind_rotate: the device cannot schedule a cluster of {cluster} blocks at N={n}, tile={tile}"
         )
+    if limbs and tile == 1 and bsk.data_ptr() % 16:
+        raise ValueError("bsk: the fold reads the key in 16-byte words; its data must be 16-byte aligned")
     dec_offset = (params.decomposition_offset + params.decomposition_round_bit) & 0xFFFFFFFF
     strips = key_strips(bsk, params, tile, limbs) if limbs else None
     with on_device(index):
@@ -397,7 +378,7 @@ def blind_rotate_kernel(
             bsk.data_ptr(), strips.data_ptr() if strips is not None else None, out.data_ptr(), batch, n0, log_n,
             g.l, g.bgbit, dec_offset, tile, cluster, limbs, stream,
         )
-    unit = tensor_core_unit(strips is not None, limbs) if limbs else "imad"
+    unit = "imad" if not limbs else fold_unit(limbs) if tile == 1 else tensor_core_unit(strips is not None, limbs)
     launched(err, launched_tiles, (n, tile, cluster, unit), "blind_rotate kernel launch failed (tile={}, cluster={})",
              tile, cluster)
     if strips is not None:  # another key's strips may take its memory once this stream has read it

@@ -11,6 +11,9 @@ that owns a tile of `tile` ciphertexts (1, 2 or 4) and splits the 2N output
 columns between its blocks, and, with cluster 1, a single block per tile.
 `planned_instance` picks tile and cluster from the batch and from how many
 clusters of each size the card holds, in one wave where the batch allows.
+A cluster's tile of one ciphertext multiplies on the tensor cores where the
+set allows (`cuda_launch.takes_fold`: the fold, s8 digits against the byte
+limbs of the key's combination, N >= 1024), with the same exchange.
 `ops.blind_rotate.blind_rotate` sends a multi-bit key here under "auto" only
 up to `mb_route_batch_cap` ciphertexts (one cluster each), and at any batch
 under "fused_small_mb" (the single blocks once clusters no longer fill the
@@ -26,10 +29,13 @@ import torch
 from .. import _build
 from ..params import TfheParams
 from ..utils.profiling import counter
-from .cuda_launch import cluster_slots, error_text, instance_cost, launched, on_device, rotation_operands
+from .cuda_launch import (cluster_slots, error_text, fold_unit, instance_cost, key_limbs, launched, on_device,
+                          rotation_operands, takes_fold)
 
-#: Launches by instance (ring size N, tile, cluster) in this process;
-#: cluster 1 is the single-block instance.
+#: Launches by instance (ring size N, tile, cluster, unit) in this process;
+#: cluster 1 is the single-block instance. The unit is "imad" (32-bit
+#: multiply-adds on the CUDA cores) or "mma_fold_s8x3" / "mma_fold_s8x4" (the
+#: fold with 3 or 4 key limbs: `cuda_launch.fold_unit`).
 launched_tiles = counter("k4.instance", total="k4.launches")
 #: Their sum, kept as an int for tfhe_bench/program.py, which reads it.
 launches = 0
@@ -57,13 +63,13 @@ def rotation_instance(batch: int, slots: dict, n: int, max_tile: int, max_cluste
 
 
 @functools.lru_cache(maxsize=None)
-def max_active_clusters(index: int, log_n: int, tile: int, cluster: int) -> int:
+def max_active_clusters(index: int, log_n: int, tile: int, cluster: int, limbs: int = 0) -> int:
     """How many clusters of the (tile, cluster) instance CUDA device `index`
     holds at one block an SM (cudaOccupancyMaxActiveClusters, asked with the
-    instance's own shared memory). Raises for an instance the kernel does not
-    have."""
+    instance's own shared memory); `limbs` 0 on the CUDA cores, 3 or 4 for
+    the fold. Raises for an instance the kernel does not have."""
     with torch.cuda.device(index):
-        count = _build.load().tfhe_blind_rotate_mb_max_active_clusters(log_n, tile, cluster)
+        count = _build.load().tfhe_blind_rotate_mb_max_active_clusters(log_n, tile, cluster, limbs)
     if count < 0:
         raise RuntimeError(f"blind_rotate_mb: no instance (tile={tile}, cluster={cluster}) at N=2^{log_n}: "
                            f"{error_text(-count)}")
@@ -101,7 +107,8 @@ def blind_rotate_mb_kernel(
     bsk_mb: int32 [n0/2, 4, 2L, 2, N] raw torus words, 16-byte aligned.
     Returns int32 [B, 2, N] on the same device, launched on the current
     stream without synchronising. Tile and cluster come from
-    `planned_instance`; a cluster the device cannot schedule raises.
+    `planned_instance`, the unit from `takes_fold`; a cluster the device
+    cannot schedule raises.
 
     `tile` and `cluster` force an instance and are for tests and measurement
     scripts only; no path of the package sets them. With `tile` given
@@ -128,7 +135,8 @@ def blind_rotate_mb_kernel(
         tile, cluster = planned_instance(index, batch, params)
     elif cluster is None:
         cluster = 1
-    if cluster > 1 and max_active_clusters(index, log_n, tile, cluster) < 1:
+    limbs = key_limbs(bsk_mb, params) if takes_fold(params, tile, cluster) else 0
+    if cluster > 1 and max_active_clusters(index, log_n, tile, cluster, limbs) < 1:
         raise RuntimeError(
             f"blind_rotate_mb: the device cannot schedule a cluster of {cluster} blocks at N={n}, tile={tile}"
         )
@@ -138,9 +146,9 @@ def blind_rotate_mb_kernel(
         err = lib.tfhe_blind_rotate_mb(
             b_til.data_ptr(), a_til.data_ptr(), testvec.data_ptr(), tv_stride,
             bsk_mb.data_ptr(), out.data_ptr(), batch, n0, log_n,
-            g.l, g.bgbit, dec_offset, tile, cluster, stream,
+            g.l, g.bgbit, dec_offset, tile, cluster, limbs, stream,
         )
-    launched(err, launched_tiles, (n, tile, cluster), "blind_rotate_mb kernel launch failed (tile={}, cluster={})",
-             tile, cluster)
+    launched(err, launched_tiles, (n, tile, cluster, fold_unit(limbs) if limbs else "imad"),
+             "blind_rotate_mb kernel launch failed (tile={}, cluster={})", tile, cluster)
     launches += 1
     return out

@@ -1,6 +1,7 @@
 """What the kernels' wrappers (`ops/cuda_*.py`) share: the operand checks,
 the device switch, the tail of a launch, the whole rotation's operand
-contract, the clusters a card holds and the cost that ranks the rotation
+contract, the key's byte limbs and when the rotations multiply on the tensor
+cores, the clusters a card holds and the cost that ranks the rotation
 kernels' CUDA-core instances. No wrapper imports another; each imports this.
 """
 
@@ -9,11 +10,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import weakref
 
 import torch
 
 from .. import _build
 from ..params import TfheParams
+from ..utils.profiling import counter
 
 
 def on_device(index: int):
@@ -104,6 +107,117 @@ def takes_tensor_cores(params: TfheParams) -> bool:
     """Whether the limb product serves this set: digits of one s8 limb and
     limb sums that stay inside s32."""
     return params.trgsw_lv1.bgbit <= 8 and limb_accumulator_bound(params) < 1 << 31
+
+
+#: The fold (`csrc/cluster_rotation.cuh`): a cluster instance's tile of one
+#: ciphertext multiplied on the tensor cores, its digit plane folded into 16
+#: rows shifted by 8 digits, against the byte limbs of the block's key window.
+#: A block's 2N / cluster columns must fill a 16 x 8 tile: N >= 1024.
+FOLD_MIN_RING = 1024
+
+
+def takes_fold(params: TfheParams, tile: int, cluster: int) -> bool:
+    """Whether the rotation kernels run their (tile, cluster) instance as the
+    fold for this set: one ciphertext on a cluster, N >= FOLD_MIN_RING, and
+    `takes_tensor_cores`. The fold keeps K = N digits a gadget row (the
+    wrapped digits go to a second sum, `neg`, and no row is padded), so a
+    limb sum has the 2L * N terms of `limb_accumulator_bound`."""
+    return tile == 1 and cluster >= 2 and params.n1 >= FOLD_MIN_RING and takes_tensor_cores(params)
+
+
+def fold_unit(limbs: int) -> str:
+    """The unit name the rotations' launch counters give the fold with
+    `limbs` key limbs."""
+    return f"mma_fold_s8x{limbs}"
+
+
+#: The fold's tile columns (an m16n8 tile's 16 rows of 8) and the zero digits
+#: on each side of its s8 digit plane (`kFoldCols`, `kFoldPad`).
+FOLD_COLS, FOLD_PAD = 128, 128
+
+
+def fold_product_plain(digits: torch.Tensor, keys: torch.Tensor, s0: int, cols: int, limbs: int = 4) -> torch.Tensor:
+    """One step's product for a cluster block's columns [s0, s0 + cols) by the
+    fold's addressing: the s8 plane of each gadget row (FOLD_PAD zeros, the
+    digits, FOLD_PAD zeros); A[f][r] = plane[FOLD_PAD + 8 f + r], the 16 rows
+    shifted by 8 digits, into `pos`, and over the last 128 digits of a row
+    A'[f][r] = plane[FOLD_PAD + 8 f + r - N], the wrapped digits, into `neg`;
+    the key window's word q (lo = s0 + CW - 4 - 4q, CW = 128 (NT - 1) + 8,
+    NT = cols / 128) holding bytes E(lo + 3), ..., E(lo) per limb, E(k) = p[k]
+    for k >= 0 and -p[k + N] below; B_h[r][e] = rev[CW - 1 - 128 h - e + r];
+    one s32 sum per limb over every gadget row (raises where pos or neg would
+    leave s32), (pos - neg) << 8k summed mod 2^32 into column 128 h + 8 f + e.
+
+    digits: int [J, N] with |d| <= 128; keys: int32 [J, N], row j's key
+    polynomial (or combination); cols a multiple of 128, s0 + cols <= N.
+    `limbs` 3 drops the key's low byte. Returns int32 [cols]. For tests:
+    `ops.poly.polymul_small_by_torus` is the plain product."""
+    j_rows, n = digits.shape
+    if cols % FOLD_COLS or s0 % 4 or s0 + cols > n or n < FOLD_MIN_RING:
+        raise ValueError(f"fold_product_plain: cols {cols} at s0={s0}, N={n}")
+    nt = cols // FOLD_COLS
+    cw = FOLD_COLS * (nt - 1) + 8
+    plane = torch.zeros((j_rows, n + 2 * FOLD_PAD), dtype=torch.float64)
+    plane[:, FOLD_PAD:FOLD_PAD + n] = digits.to(torch.float64)
+    f, r = torch.arange(16)[:, None], torch.arange(n)[None, :]
+    a_pos = plane[:, FOLD_PAD + 8 * f + r]
+    a_neg = torch.where(r >= n - 128, plane[:, (FOLD_PAD + 8 * f + r - n).clamp(min=0)], 0.0)
+    lo = s0 + cw - 4 - 4 * torch.arange((n + cw) // 4)
+    x = (lo[:, None] + 3 - torch.arange(4)[None, :]).reshape(-1)  # rev[y] = E(s0 + CW - 1 - y)
+    words = keys.to(torch.int64) & 0xFFFFFFFF
+    e_x = torch.where(x >= 0, words[:, x % n], (-words[:, x % n]) & 0xFFFFFFFF)  # [J, N + CW]
+    e, y = torch.arange(8), torch.arange(n)[:, None]
+    out = torch.zeros(cols, dtype=torch.int64)
+    for k in range(4 - limbs, 4):
+        rev = ((e_x >> (8 * k)) & 0xFF).to(torch.float64)
+        for h in range(nt):
+            b = rev[:, cw - 1 - FOLD_COLS * h - e[None, :] + y]  # [J, N, 8]
+            pos = torch.einsum("jfr,jre->fe", a_pos, b).to(torch.int64)
+            neg = torch.einsum("jfr,jre->fe", a_neg, b).to(torch.int64)
+            if max(int(pos.abs().max()), int(neg.abs().max())) >= 1 << 31:
+                raise ValueError("fold limb sum leaves s32")
+            out[FOLD_COLS * h:FOLD_COLS * (h + 1)] += (pos - neg).reshape(-1) << (8 * k)
+    out &= 0xFFFFFFFF
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+#: Whole-key reads of `key_limbs` (each synchronises the host with the
+#: device): one a key tensor, unless a caller hands over a new tensor each call.
+_grid_counts = counter("bsk", ("grid_checks",))
+
+#: Keys already checked for the 2^8 grid: id(tensor) -> (weak reference to
+#: the tensor, its version counter then, on the grid?).
+_grid_checked: dict = {}
+
+
+def _on_grid(key: torch.Tensor) -> bool:
+    _grid_counts["grid_checks"] += 1
+    return not bool((key & 0xFF).any())
+
+
+def key_limbs(key: torch.Tensor, params: TfheParams) -> int:
+    """How many byte limbs of a rotation key (`bsk`, or `bsk_mb`, whose
+    combinations keep a zero low byte) the tensor cores multiply: 3 where
+    the set rounds its key to the 2^8 grid (`bsk_round_bits` = 8) AND this
+    key's words really have a zero lowest byte; else 4. A limb the data has
+    is never dropped.
+
+    The check reads the whole key and synchronises, so its answer is kept per
+    key tensor and version counter: a cloud key's key pays it once. A caller
+    that hands over a new tensor object each call (a fresh view or copy of the
+    key) pays it each call; so does a key made under `torch.inference_mode()`,
+    which has no version counter to tell an edit in place by."""
+    if params.bsk_round_bits < 8:
+        return 4
+    if key.is_inference():
+        return 3 if _on_grid(key) else 4
+    ident = id(key)
+    entry = _grid_checked.get(ident)
+    if entry is None or entry[0]() is not key or entry[1] != key._version:
+        on_grid = _on_grid(key)
+        entry = (weakref.ref(key, lambda _, ident=ident: _grid_checked.pop(ident, None)), key._version, on_grid)
+        _grid_checked[ident] = entry
+    return 3 if entry[2] else 4
 
 
 #: Clusters of each size an NVIDIA H100 SXM (132 SMs) holds at one block an

@@ -92,7 +92,7 @@ def counters() -> dict:
     """Every counter of the package, now, as one flat dict of name -> count:
 
       k1.launches, k1.instance.<N>/<tile>/<cluster>/<unit>   ops/cuda_blind_rotate
-      k4.launches, k4.instance.<N>/<tile>/<cluster>          ops/cuda_blind_rotate_mb
+      k4.launches, k4.instance.<N>/<tile>/<cluster>/<unit>   ops/cuda_blind_rotate_mb
       k5.launches, k5.instance.<N>/<unit>/<tile>/<split>/<J> ops/cuda_step
       ks.launches, ks.instance.<ciphertexts a block>         ops/cuda_keyswitch
       probes.launches.<wrapper>, probes.roll_add.instance.<E>  ops/cuda_probes

@@ -133,9 +133,10 @@ def _short(p, n0):
 )
 def test_kernel_launches_the_planned_instance(dev, name, batch):
     """With no tile given the wrapper launches what `planned_instance` picks
-    from the clusters this card holds: the CUDA cores at small batches and
-    for wide digits, the tensor cores from a few dozen single-limb
-    ciphertexts up."""
+    from the clusters this card holds: the fold for a cluster's tile of one
+    single-limb ciphertext, the CUDA cores at other small batches and for
+    wide digits, the tensor cores from a few dozen single-limb ciphertexts
+    up."""
     p = getattr(P, name)
     p = _short(p, 6) if p.n1 == 1024 else p
     log_n = p.n1.bit_length() - 1
@@ -147,12 +148,14 @@ def test_kernel_launches_the_planned_instance(dev, name, batch):
     limbs = CBR.key_limbs(args[3], p) if has_mma else 0
     assert limbs == (4 if has_mma else 0)  # a random key is not on the 2^8 grid
     tile, cluster, limbs = CBR.planned_instance(dev.index or 0, batch, p, limbs)
-    tensor_cores = limbs > 0
+    tensor_cores = limbs > 0 and tile > 1
     assert tensor_cores == (name == "SECURITY_128_BIT_FAST" and batch == 70)
+    assert (limbs > 0 and tile == 1) == (name == "SECURITY_128_BIT_FAST" and batch == 1)
     before = profiling.counters()
     out = CBR.blind_rotate_kernel(*args, p)
     torch.cuda.synchronize()
-    unit = CBR.tensor_core_unit(CBR.on_wgmma(p.n1, tile, 4), 4) if tensor_cores else "imad"
+    unit = (CBR.tensor_core_unit(CBR.on_wgmma(p.n1, tile, 4), 4) if tensor_cores
+            else CL.fold_unit(4) if limbs else "imad")
     assert _launched(before, "k1.instance") == {(p.n1, tile, cluster, unit): 1}
     assert torch.equal(out, BR.blind_rotate_plain(*args, p))
 
@@ -435,7 +438,7 @@ def test_mb_cluster_kernel_matches_plain_every_instance(dev, tile, cluster, per_
     before = profiling.counters()
     out = CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, P.TEST_TINY, tile=tile, cluster=cluster)
     torch.cuda.synchronize()
-    assert _launched(before, "k4.instance") == {(P.TEST_TINY.n1, tile, cluster): 1}
+    assert _launched(before, "k4.instance") == {(P.TEST_TINY.n1, tile, cluster, "imad"): 1}
     assert torch.equal(out, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, P.TEST_TINY))
 
 
@@ -446,7 +449,8 @@ def test_mb_cluster_kernel_matches_plain_every_instance(dev, tile, cluster, per_
 )
 def test_mb_cluster_kernel_matches_plain_full_width(dev, name, batch, per_ct_tv):
     """The batches `auto` sends the multi-bit kernel, at the real ring sizes:
-    the plan gives each ciphertext a cluster of 16."""
+    the plan gives each ciphertext a cluster of 16, which the fold takes (the
+    random key keeps four limbs)."""
     p = getattr(P, name)
     b_til, a_til, tv, bsk_mb = _mb_inputs(dev, p, batch, per_ct_tv, seed=300 + batch)
     _mb_extremes(bsk_mb)
@@ -454,7 +458,7 @@ def test_mb_cluster_kernel_matches_plain_full_width(dev, name, batch, per_ct_tv)
     before = profiling.counters()
     out = CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p)
     torch.cuda.synchronize()
-    assert _launched(before, "k4.instance") == {(p.n1, 1, 16): 1}
+    assert _launched(before, "k4.instance") == {(p.n1, 1, 16, CL.fold_unit(4)): 1}
     assert torch.equal(out, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, p))
 
 
@@ -494,6 +498,96 @@ def test_mb_cluster_tiles_and_refusals(dev):
         CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p, tile=3, cluster=2)
     with pytest.raises(ValueError, match="needs its tile"):
         CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p, cluster=2)
+
+
+_FOLD_CASES = [
+    ("k1", "SECURITY_128_BIT_FAST", 1, True), ("k1", "SECURITY_128_BIT_FAST", 1, False),
+    ("k1", "SECURITY_128_BIT", 1, False), ("k1", "SECURITY_128_BIT_RADIX", 2, False),
+    ("k4", "SECURITY_128_BIT_FAST", 2, True), ("k4", "SECURITY_128_BIT", 1, False), ("k4", "SECURITY_128_BIT", 2, False),
+    ("k4", "SECURITY_128_BIT_RADIX", 1, False), ("k4", "SECURITY_128_BIT_RADIX", 2, False),
+    ("k1", "SECURITY_128_BIT_NIBBLE", 1, False), ("k4", "SECURITY_128_BIT_NIBBLE", 1, False),
+]
+
+
+def _fold_kernel(kernel):
+    """(wrapper, plain version, counter prefix, the arguments that force the
+    CUDA cores' instance of the same ciphertexts) of K1 or K4: K1 keeps its
+    tile of one on the CUDA cores with `tensor_cores=False`; K4 has no such
+    tile off the fold, so its CUDA cores take the ciphertexts as a tile of
+    two (as one block each at N = 4096, whose clusters take one)."""
+    if kernel == "k1":
+        return CBR.blind_rotate_kernel, BR.blind_rotate_plain, "k1.instance", lambda n: {"tensor_cores": False}
+    return (CMB.blind_rotate_mb_kernel, BR.blind_rotate_mb_plain, "k4.instance",
+            lambda n: {"tile": 2, "cluster": 16} if n < 4096 else {"tile": 1, "cluster": 1})
+
+
+@pytest.mark.parametrize("kernel,name,batch,on_grid", _FOLD_CASES, ids=lambda v: str(v))
+def test_fold_bit_equal_to_plain_and_to_imad(dev, kernel, name, batch, on_grid):
+    """A cluster's tile of one ciphertext on the fold, whole rotations at the
+    batches `auto` sends (each ciphertext a cluster of 16): bit-equal to the
+    plain version and to the CUDA cores' product of the same ciphertexts
+    (unit `imad`); 0x80000000 and 0xFFFFFFFF planted in the key (0xFFFFFF00
+    where it lies on the 2^8 grid, three limbs) and in the test vectors, one
+    a ciphertext at N = 2048 (the radix add's per-row tables). The counters
+    name the fold and its limbs."""
+    p = getattr(P, name)
+    b_til, a_til, tv, bsk = _planted(dev, p, batch, seed=batch + p.n1, per_ct_tv=p.n1 == 2048)
+    if kernel == "k4":
+        bsk = _mb_extremes(_mb_inputs(dev, p, batch, False, seed=batch + p.n1)[3])
+        bsk.view(-1)[7::89] = -256
+    if on_grid:
+        bsk &= ~0xFF
+    limbs = 3 if on_grid and p.bsk_round_bits == 8 else 4
+    fn, plain, prefix, on_cuda_cores = _fold_kernel(kernel)
+    before = profiling.counters()
+    out = fn(b_til, a_til, tv, bsk, p)
+    torch.cuda.synchronize()
+    assert _launched(before, prefix) == {(p.n1, 1, 16, CL.fold_unit(limbs)): 1}
+    before = profiling.counters()
+    imad = fn(b_til, a_til, tv, bsk, p, **on_cuda_cores(p.n1))
+    torch.cuda.synchronize()
+    ((unit,),) = {k[3:] for k in _launched(before, prefix)}
+    assert unit == "imad"
+    assert torch.equal(out, imad)
+    assert torch.equal(out, plain(b_til, a_til, tv, bsk, p))
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k4"])
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+def test_fold_every_cluster_size(dev, kernel, cluster):
+    """The fold at every cluster of a tile of one (n8 tiles of 16 rows 1, 2,
+    4 and 8 a block; warps a tile 8, 4, 2, 1), forced, against the plain
+    version and the CUDA cores, at strict with a short rotation."""
+    p = _short(P.SECURITY_128_BIT, 6)
+    b_til, a_til, tv, bsk = _planted(dev, p, 3, seed=cluster, per_ct_tv=True)
+    if kernel == "k4":
+        bsk = _mb_extremes(_mb_inputs(dev, p, 3, False, seed=cluster)[3])
+    fn, plain, prefix, on_cuda_cores = _fold_kernel(kernel)
+    before = profiling.counters()
+    out = fn(b_til, a_til, tv, bsk, p, tile=1, cluster=cluster)
+    torch.cuda.synchronize()
+    assert _launched(before, prefix) == {(p.n1, 1, cluster, CL.fold_unit(4)): 1}
+    assert torch.equal(out, fn(b_til, a_til, tv, bsk, p, **on_cuda_cores(p.n1)))
+    assert torch.equal(out, plain(b_til, a_til, tv, bsk, p))
+
+
+def test_fold_not_where_it_does_not_apply(dev):
+    """Tiles over one, N = 64 and digits over 8 bits keep the CUDA cores
+    whatever is forced, in both kernels."""
+    uint4 = _short(P.SECURITY_UINT4, 6)
+    for p, tile, cluster in ((_short(P.SECURITY_128_BIT, 6), 2, 16), (P.TEST_TINY, 1, 8), (uint4, 1, 16)):
+        b_til, a_til, tv, bsk = _inputs(dev, p, 3, False, seed=tile + cluster)
+        before = profiling.counters()
+        out = CBR.blind_rotate_kernel(b_til, a_til, tv, bsk, p, tile=tile, cluster=cluster)
+        torch.cuda.synchronize()
+        assert _launched(before, "k1.instance") == {(p.n1, tile, cluster, "imad"): 1}
+        assert torch.equal(out, BR.blind_rotate_plain(b_til, a_til, tv, bsk, p))
+        b_til, a_til, tv, bsk_mb = _mb_inputs(dev, p, 3, False, seed=tile + cluster)
+        before = profiling.counters()
+        out = CMB.blind_rotate_mb_kernel(b_til, a_til, tv, bsk_mb, p, tile=tile, cluster=cluster)
+        torch.cuda.synchronize()
+        assert _launched(before, "k4.instance") == {(p.n1, tile, cluster, "imad"): 1}
+        assert torch.equal(out, BR.blind_rotate_mb_plain(b_til, a_til, tv, bsk_mb, p))
 
 
 def _step_inputs(dev, p, rows, seed):

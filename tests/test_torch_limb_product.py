@@ -180,6 +180,87 @@ def test_tensor_core_unit_names_the_instruction():
     assert CBR.tensor_core_unit(False, 3) == "mma_s8x3" and CBR.tensor_core_unit(False, 4) == "mma_s8x4"
 
 
+@pytest.mark.parametrize(
+    "n,cluster,bgbit,limbs",
+    [(1024, 16, 8, 3), (1024, 16, 8, 4), (1024, 16, 6, 4), (2048, 16, 8, 4), (2048, 16, 6, 3), (1024, 4, 8, 4),
+     (1024, 2, 6, 3)],
+)
+def test_fold_addressing_equals_the_negacyclic_product(n, cluster, bgbit, limbs):
+    """The fold's operands as `fold_product_plain` addresses them (16 digit
+    rows shifted by 8, the wrapped digits of a row's last 128 in a second
+    sum, the key window's reversed byte planes cut as Toeplitz n8 tiles) give
+    every block's columns of both output polynomials, summed over the gadget
+    rows, bit for bit: digits at both ends of their range (-128 has no s8
+    negation), key words 0x80000000, 0xFFFFFFFF and 0xFFFFFF00 planted, a key
+    on the 2^8 grid with three limbs."""
+    half, rows = 1 << (bgbit - 1), 4 if bgbit == 8 else 6
+    rng = np.random.default_rng(n + cluster + bgbit + limbs)
+    d = torch.from_numpy(rng.integers(-half, half, (rows, n)).astype(np.int32))
+    d[0, ::3], d[-1, 1::2], d[1, n - 128:] = -half, half - 1, -half
+    keys = to_torch(rng.integers(0, 1 << 32, (rows, 2, n), dtype=np.uint32), "cpu")
+    keys[:, :, ::5], keys[:, :, 1::7], keys[:, :, 2::11] = -(1 << 31), -1, -256
+    if limbs == 3:
+        keys &= ~0xFF
+    ref = polymul_small_by_torus(d, keys, half)
+    w = 2 * n // cluster
+    for rank in range(cluster):
+        o, s0 = rank * w // n, rank * w % n
+        assert torch.equal(CL.fold_product_plain(d, keys[:, o], s0, w, limbs), ref[o, s0:s0 + w]), rank
+
+
+def test_fold_limb_sums_stay_in_s32_at_the_bound():
+    """The fold's K is N a gadget row, as the whole product's: at
+    `limb_accumulator_bound`'s extreme (every digit -128; key words 1,
+    whose negation, the wrapped half of a low column's window, is
+    0xFFFFFFFF) its limb sums stay in s32 for the sets that take the tensor
+    cores, and the model refuses a product whose sums would not (70 gadget
+    rows: 70 * 1024 * 128 * 255 > 2^31)."""
+    strict = P.SECURITY_128_BIT
+    n, rows = strict.n1, 2 * strict.trgsw_lv1.l
+    d = torch.full((rows, n), -128, dtype=torch.int32)
+    keys = torch.ones((rows, n), dtype=torch.int32)
+    ref = polymul_small_by_torus(d, keys[:, None], 128)[0]
+    assert torch.equal(CL.fold_product_plain(d, keys, 0, 128), ref[:128])
+    with pytest.raises(ValueError, match="leaves s32"):
+        CL.fold_product_plain(torch.full((70, n), -128, dtype=torch.int32), torch.ones((70, n), dtype=torch.int32), 0, 128)
+
+
+@pytest.mark.parametrize(
+    "name,tile,cluster,fold",
+    [("SECURITY_128_BIT_FAST", 1, 16, True), ("SECURITY_128_BIT", 1, 16, True), ("SECURITY_128_BIT_RADIX", 1, 16, True),
+     ("SECURITY_128_BIT_FAST", 1, 8, True), ("SECURITY_128_BIT_FAST", 1, 2, True), ("SECURITY_128_BIT_FAST", 3, 16, False),
+     ("SECURITY_128_BIT", 2, 16, False), ("SECURITY_128_BIT_FAST", 1, 1, False), ("TEST_TINY", 1, 8, False),
+     ("SECURITY_UINT1", 1, 16, False), ("SECURITY_UINT4", 1, 16, False)],
+)
+def test_fold_takes_tiles_of_one_from_1024_with_byte_digits(name, tile, cluster, fold):
+    """The wrappers' unit for a (tile, cluster) instance: a tile of one on a
+    cluster at N >= 1024 with digits of at most 8 bits takes the fold; a tile
+    of three, a single block, N = 64 and digits over 8 bits (UINT1's 10,
+    UINT4's 22) keep the CUDA cores (`imad`)."""
+    assert CL.takes_fold(_SETS[name], tile, cluster) is fold
+
+
+def test_fold_unit_in_the_add_cells_plan():
+    """On an H100's clusters the plan gives a 16-bit add's B=1 groups (1, 16),
+    which the fold takes, and its B=16 groups (3, 16), which keep `imad`; the
+    unit names carry the key limbs."""
+    for name in ("SECURITY_128_BIT_FAST", "SECURITY_128_BIT", "SECURITY_128_BIT_RADIX"):
+        p = _SETS[name]
+        assert CBR.rotation_instance(1, 8 if p.n1 == 1024 else 4, CL.H100_CLUSTER_SLOTS, p.n1) == (1, 16)
+        assert CL.takes_fold(p, *CBR.rotation_instance(1, 8, CL.H100_CLUSTER_SLOTS, p.n1))
+    assert CBR.rotation_instance(16, 8, CL.H100_CLUSTER_SLOTS, 1024) == (3, 16)
+    assert not CL.takes_fold(P.SECURITY_128_BIT_FAST, 3, 16)
+    assert (CL.fold_unit(3), CL.fold_unit(4)) == ("mma_fold_s8x3", "mma_fold_s8x4")
+
+
+def test_fold_model_refuses_shapes_off_its_tiles():
+    d, p = torch.zeros((2, 1024), dtype=torch.int32), torch.zeros((2, 1024), dtype=torch.int32)
+    with pytest.raises(ValueError, match="cols 64"):
+        CL.fold_product_plain(d, p, 0, 64)
+    with pytest.raises(ValueError, match="N=64"):
+        CL.fold_product_plain(d[:, :64], p[:, :64], 0, 128)
+
+
 def _block_strip(poly: torch.Tensor, s0: int, cols: int, limb: int) -> torch.Tensor:
     """A block's strip built from its own reversed window alone, core by
     core: core delta, row r, byte b is byte `limb` of ext[s0 + cols - 1 + N -
@@ -347,7 +428,7 @@ def test_key_limbs_of_a_key_made_in_inference_mode():
         key[0, 0, 0, 0] |= 1
     assert key.is_inference()
     assert CBR.key_limbs(key, fast) == 4
-    assert id(key) not in CBR._grid_checked
+    assert id(key) not in CL._grid_checked
 
 
 def test_rotation_unit_counts_waves_from_the_tensor_core_slots():

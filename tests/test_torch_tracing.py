@@ -216,8 +216,8 @@ def test_counters_hold_the_launch_counters(monkeypatch):
     its name in the one snapshot; a kernel's launches are the sum of its
     instances'."""
     fills = {
-        "k1.instance": {(1024, 1, 16, "imad"): 3, (1024, 32, 8, "mma_s8x3"): 2},
-        "k4.instance": {(1024, 1, 16): 4},
+        "k1.instance": {(1024, 1, 16, "mma_fold_s8x3"): 3, (1024, 32, 8, "mma_s8x3"): 2},
+        "k4.instance": {(1024, 1, 16, "mma_fold_s8x4"): 4},
         "k5.instance": {(1024, "mma_s8", 8, 1, 4): 7},
         "ks.instance": {(1,): 2, (16,): 1},
         "probes.launches": {"nussbaumer_dot": 16, "roll": 1},
@@ -239,8 +239,8 @@ def test_counters_hold_the_launch_counters(monkeypatch):
     assert profiling.counter("nussbaumer.shape") is nussbaumer.launched_shapes
     got = profiling.counters()
     assert {k: v for k, v in got.items() if k.split(".")[0] in ("k1", "k4", "k5", "ks", "probes", "nussbaumer")} == {
-        "k1.launches": 5, "k1.instance.1024/1/16/imad": 3, "k1.instance.1024/32/8/mma_s8x3": 2,
-        "k4.launches": 4, "k4.instance.1024/1/16": 4,
+        "k1.launches": 5, "k1.instance.1024/1/16/mma_fold_s8x3": 3, "k1.instance.1024/32/8/mma_s8x3": 2,
+        "k4.launches": 4, "k4.instance.1024/1/16/mma_fold_s8x4": 4,
         "k5.launches": 7, "k5.instance.1024/mma_s8/8/1/4": 7,
         "ks.launches": 3, "ks.instance.1": 2, "ks.instance.16": 1,
         "probes.launches.nussbaumer_dot": 16, "probes.launches.roll": 1, "probes.roll_add.instance.32": 2,

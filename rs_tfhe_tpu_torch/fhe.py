@@ -324,10 +324,12 @@ class FheUintRadix:
     programmable bootstraps, `*` the full-width product (2D digits), `apply`
     any per-digit function in one batched PBS.
 
-    Use SECURITY_128_BIT_RADIX (base_bits <= 3) or SECURITY_128_BIT_NIBBLE
-    (base_bits = 4). multi_value=True sends `+`, `-` and the comparison tree
-    through the multi-value bootstrap (about half the rotations, the same
-    decoded results); results inherit it.
+    Use SECURITY_128_BIT_RADIX (base_bits <= 3) or SECURITY_128_BIT_NIBBLE,
+    whose N=4096 ring `*` needs: the product runs there at base_bits = 2,
+    its column stage decoding at modulus 2 * 4^2 = 32. multi_value=True
+    sends `+`, `-` and the comparison tree through the multi-value bootstrap
+    (about half the rotations, the same decoded results); results inherit
+    it.
     """
 
     __slots__ = ("digits", "base_bits", "ck", "multi_value")

@@ -47,6 +47,11 @@ from ..utils.profiling import counter, span
 #: "compare", "mul"); each runs inside the span `tfhe.radix.<name>`.
 radix_ops = counter("radix.ops", ("add", "sub", "compare", "mul"))
 
+#: mul_radix's column stage in this process: "column_calls" (its
+#: programmable bootstraps, those of the normalization rounds included) and
+#: "norm_rounds" (the normalization rounds).
+radix_mul = counter("radix.mul", ("column_calls", "norm_rounds"))
+
 
 def _radix_op(name: str):
     """Count each call of the decorated operation under `name` and run it
@@ -332,7 +337,9 @@ def mul_radix(a: torch.Tensor, b: torch.Tensor, ck: CloudKey, base_bits: int = 2
          where a column's worst case exceeds the modulus-2*base^2 range.
 
     2D^2 + 6D programmable bootstraps without normalization. Margins as
-    rs_tfhe_tpu/models/arithmetic.py:273-320.
+    rs_tfhe_tpu/models/arithmetic.py:273-320. The three stages run inside
+    the spans `tfhe.radix.mul.encode`, `.pairs` and `.columns`; the column
+    stage counts its calls and rounds in `radix_mul`.
     """
     d, n = a.shape[-2], a.shape[-1]
     base = 1 << base_bits
@@ -341,55 +348,61 @@ def mul_radix(a: torch.Tensor, b: torch.Tensor, ck: CloudKey, base_bits: int = 2
     luts = _mul_luts(base_bits, ck.params, a.device)
 
     # stage 1: re-encode digits for pairing
-    both = torch.cat([a, b], dim=-2)  # [..., 2D, n+1]
-    enc = bootstrap_with_testvec(both, _per_ct([luts["a"], luts["b"]], [a.shape[:-1], b.shape[:-1]]), ck)
-    a2, b2 = enc[..., :d, :], enc[..., d:, :]
+    with span("tfhe.radix.mul.encode"):
+        both = torch.cat([a, b], dim=-2)  # [..., 2D, n+1]
+        enc = bootstrap_with_testvec(both, _per_ct([luts["a"], luts["b"]], [a.shape[:-1], b.shape[:-1]]), ck)
+        a2, b2 = enc[..., :d, :], enc[..., d:, :]
 
     # stage 2: all D^2 pairs, lo/hi products via per-ciphertext LUTs
-    pairs = a2[..., :, None, :] + b2[..., None, :, :]  # [..., D, D, n+1]
-    pairs = pairs.reshape(*pairs.shape[:-3], d * d, n)
-    if multi_value:
-        prod = multi_value_bootstrap(pairs, _mul_mv(base_bits, ck.params, a.device)["pair"], ck)
-        lo = prod[..., 0, :].reshape(*a.shape[:-2], d, d, n)
-        hi = prod[..., 1, :].reshape(*a.shape[:-2], d, d, n)
-    else:
-        pp = torch.cat([pairs, pairs], dim=-2)  # lo block then hi block
-        prod = bootstrap_with_testvec(pp, _per_ct([luts["lo"], luts["hi"]], [pairs.shape[:-1]] * 2), ck)
-        lo = prod[..., : d * d, :].reshape(*a.shape[:-2], d, d, n)
-        hi = prod[..., d * d :, :].reshape(*a.shape[:-2], d, d, n)
+    with span("tfhe.radix.mul.pairs"):
+        pairs = a2[..., :, None, :] + b2[..., None, :, :]  # [..., D, D, n+1]
+        pairs = pairs.reshape(*pairs.shape[:-3], d * d, n)
+        if multi_value:
+            prod = multi_value_bootstrap(pairs, _mul_mv(base_bits, ck.params, a.device)["pair"], ck)
+            lo = prod[..., 0, :].reshape(*a.shape[:-2], d, d, n)
+            hi = prod[..., 1, :].reshape(*a.shape[:-2], d, d, n)
+        else:
+            pp = torch.cat([pairs, pairs], dim=-2)  # lo block then hi block
+            prod = bootstrap_with_testvec(pp, _per_ct([luts["lo"], luts["hi"]], [pairs.shape[:-1]] * 2), ck)
+            lo = prod[..., : d * d, :].reshape(*a.shape[:-2], d, d, n)
+            hi = prod[..., d * d :, :].reshape(*a.shape[:-2], d, d, n)
 
     # stage 3: column carry-save with normalization (input modulus m_col)
-    pmax = base - 1
-    terms = [[] for _ in range(2 * d + 1)]  # [(ct, worst-case value)]
-    for i in range(d):
-        for j in range(d):
-            terms[i + j].append((lo[..., i, j, :], pmax))
-            terms[i + j + 1].append((hi[..., i, j, :], pmax))
-    pair_tv = torch.stack([luts["dig"], luts["car"]])
-    outs = []
-    for k in range(2 * d):
-        tk = terms[k]
-        while True:
-            chunks = _greedy_chunks(tk, m_col - 1, max_chunk_terms)
-            if len(chunks) == 1:
-                break
-            # one batched per-ct-LUT PBS re-splits every chunk into a
-            # column-scale digit (re-enters this column) and a carry
-            cs = torch.stack([_sum(ct_list) for ct_list, _ in chunks], dim=-2)  # [..., C, n0+1]
-            n_c = len(chunks)
-            cc = torch.cat([cs, cs], dim=-2)
-            res = bootstrap_with_testvec(cc, _per_ct([luts["dig_col"], luts["car"]], [cs.shape[:-1]] * 2), ck)
-            tk = [(res[..., i, :], pmax) for i in range(n_c)]
-            terms[k + 1].extend((res[..., n_c + i, :], chunks[i][1] // base) for i in range(n_c))
-        chunk_cts, total = chunks[0]
-        s = _sum(chunk_cts)
-        if k + 1 < 2 * d and total >= base:
-            pair = torch.stack([s, s], dim=-2)
-            res = bootstrap_with_testvec(pair, pair_tv.expand(*s.shape[:-1], *pair_tv.shape), ck)
-            outs.append(res[..., 0, :])
-            terms[k + 1].append((res[..., 1, :], total // base))
-        else:
-            outs.append(bootstrap_with_testvec(s, luts["dig"], ck))
+    with span("tfhe.radix.mul.columns"):
+        pmax = base - 1
+        terms = [[] for _ in range(2 * d + 1)]  # [(ct, worst-case value)]
+        for i in range(d):
+            for j in range(d):
+                terms[i + j].append((lo[..., i, j, :], pmax))
+                terms[i + j + 1].append((hi[..., i, j, :], pmax))
+        pair_tv = torch.stack([luts["dig"], luts["car"]])
+        outs = []
+        for k in range(2 * d):
+            tk = terms[k]
+            while True:
+                chunks = _greedy_chunks(tk, m_col - 1, max_chunk_terms)
+                if len(chunks) == 1:
+                    break
+                # one batched per-ct-LUT PBS re-splits every chunk into a
+                # column-scale digit (re-enters this column) and a carry
+                radix_mul["norm_rounds"] += 1
+                radix_mul["column_calls"] += 1
+                cs = torch.stack([_sum(ct_list) for ct_list, _ in chunks], dim=-2)  # [..., C, n0+1]
+                n_c = len(chunks)
+                cc = torch.cat([cs, cs], dim=-2)
+                res = bootstrap_with_testvec(cc, _per_ct([luts["dig_col"], luts["car"]], [cs.shape[:-1]] * 2), ck)
+                tk = [(res[..., i, :], pmax) for i in range(n_c)]
+                terms[k + 1].extend((res[..., n_c + i, :], chunks[i][1] // base) for i in range(n_c))
+            chunk_cts, total = chunks[0]
+            s = _sum(chunk_cts)
+            radix_mul["column_calls"] += 1
+            if k + 1 < 2 * d and total >= base:
+                pair = torch.stack([s, s], dim=-2)
+                res = bootstrap_with_testvec(pair, pair_tv.expand(*s.shape[:-1], *pair_tv.shape), ck)
+                outs.append(res[..., 0, :])
+                terms[k + 1].append((res[..., 1, :], total // base))
+            else:
+                outs.append(bootstrap_with_testvec(s, luts["dig"], ck))
     return torch.stack(outs, dim=-2)
 
 

@@ -5,7 +5,8 @@ metric), and a `torch.profiler` trace written as a Chrome trace.
 Beside them, the package's own instrumentation:
 
   - `span(name)`: a named range of the program (`tfhe.netlist.run`,
-    `tfhe.netlist.group`, `tfhe.gate`, `tfhe.radix.<op>`, `tfhe.pbs`,
+    `tfhe.netlist.group`, `tfhe.gate`, `tfhe.radix.<op>`, the product's
+    stages `tfhe.radix.mul.<encode|pairs|columns>`, `tfhe.pbs`,
     `tfhe.rotate.<route>`, `tfhe.extract`, `tfhe.keyswitch`), recorded as
     a `torch.profiler` event while a profiler records and a shared no-op
     otherwise. Every kernel launched inside a span, the ctypes launches of
@@ -107,6 +108,8 @@ def counters() -> dict:
       pbs.calls, pbs.ciphertexts, pbs.per_row_luts          bootstrap: LUT bootstraps,
                            the ciphertexts they rotated, those with a test vector a ciphertext
       radix.ops.<add|sub|compare|mul>                       models/arithmetic
+      radix.mul.column_calls, radix.mul.norm_rounds         models/arithmetic: the product's
+                           column-stage LUT bootstraps and its normalization rounds
 
     (`k<n>.launches` is the sum of that kernel's instance counts.) The counts
     are the process's since it started; subtract two snapshots for what ran

@@ -16,6 +16,14 @@ Usage, from the root of a checkout:  python scripts/bench_hopper_rotation.py
    CUDA-core instance the plan picks and the tensor-core instance, both
    forced and timed, beside the unit the plan takes: a row says whether the
    plan took the faster one and what the other would have cost.
+3. With `--planner`: the plan at SECURITY_128_BIT_NIBBLE (N = 4096, the
+   batches of the 8x8-bit radix product: 16, 32, 128, 512). For each batch,
+   the instance the wrapper plans (`planned_instance`) beside the CUDA-core
+   candidates the planner prices lowest (`instance_cost`; tile 1 on a
+   cluster both on the fold and on the CUDA cores), each forced through
+   `tile`, `cluster` and `tensor_cores`, timed once after one warm launch
+   (batches of 128 and more: one timed launch alone) and held against the
+   planned instance's output. Only this part runs with the flag.
 Prints the card's name and power limit, then one JSON object per part.
 """
 
@@ -30,6 +38,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from rs_tfhe_tpu_torch import _build  # noqa: E402
 from rs_tfhe_tpu_torch import params as P  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_blind_rotate as CBR  # noqa: E402
 from rs_tfhe_tpu_torch.ops import cuda_launch  # noqa: E402
@@ -54,8 +63,9 @@ CROSSOVER = (
 )
 
 
-def cuda_ms(fn, reps: int = 2) -> float:
-    fn()
+def cuda_ms(fn, reps: int = 2, warm: bool = True) -> float:
+    if warm:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -85,7 +95,53 @@ def inputs(p, batch: int, g, dev, on_grid: bool):
     return rnd((batch,), 0, 2 * n), rnd((batch, p.n0), 0, 2 * n), rnd((2, n)), bsk
 
 
-def main(dev=None) -> dict:
+#: the NIBBLE product's rotation batches, and how many of the lowest-priced
+#: CUDA-core instances each is timed on
+PLANNER_BATCHES = (16, 32, 128, 512)
+PLANNER_CANDIDATES = 4
+
+
+def planner_table(dev, g, smi: str) -> dict:
+    """Part 3: the plan at N = 4096 against forced candidates."""
+    p = P.SECURITY_128_BIT_NIBBLE
+    log_n = p.n1.bit_length() - 1
+    slots = cuda_launch.cluster_slots(dev.index or 0, log_n, CBR.held_clusters)
+    max_tile = _build.load().tfhe_blind_rotate_max_tile(log_n)
+    print(f"clusters held at one block an SM, N=4096: {slots}; largest tile {max_tile}")
+    table = {}
+    for batch in PLANNER_BATCHES:
+        args = inputs(p, batch, g, dev, on_grid=False)
+        limbs = CBR.key_limbs(args[3], p)
+        planned = CBR.planned_instance(dev.index or 0, batch, p, limbs)
+        priced = sorted(  # rotation_instance's order: one wave first, then the price
+            (*cuda_launch.instance_cost(batch, tile, cluster, slots, p.n1), -cluster, tile)
+            for cluster in slots for tile in range(1, max_tile + 1) if cluster > 1 or not tile & (tile - 1))
+        forced = []
+        for _, price, neg_cluster, tile in priced[:PLANNER_CANDIDATES]:
+            cluster = -neg_cluster
+            fold = cuda_launch.takes_fold(p, tile, cluster)
+            forced += [(tile, cluster, True, price)] if fold else []
+            forced += [(tile, cluster, False, price)]
+        ref, (_, tile, cluster, unit) = launched(lambda: CBR.blind_rotate_kernel(*args, p))
+        row = {"planned": [tile, cluster, unit], "planned_ms": None, "candidates": []}
+        for tile, cluster, fold, price in forced:
+            def run(tile=tile, cluster=cluster, fold=fold):
+                return CBR.blind_rotate_kernel(*args, p, tile=tile, cluster=cluster, tensor_cores=None if fold else False)
+
+            out, (_, _, _, unit) = launched(run)
+            assert torch.equal(out, ref), (batch, tile, cluster, unit)
+            ms = cuda_ms(run, reps=1) if batch < 128 else cuda_ms(run, reps=1, warm=False)
+            row["candidates"].append({"tile": tile, "cluster": cluster, "unit": unit, "price": price, "ms": ms})
+            if [tile, cluster, unit] == row["planned"]:
+                row["planned_ms"] = ms
+            print(f"NIBBLE B={batch}: (tile {tile}, cluster {cluster}, {unit}) price {price:.4f}, {ms:.2f} ms"
+                  f"{'  <- planned' if [tile, cluster, unit] == row['planned'] else ''}", flush=True)
+        table[f"B={batch}"] = row
+    print(json.dumps({"card": smi, "planner_nibble": table}))
+    return table
+
+
+def main(dev=None, planner: bool = False) -> dict:
     if not torch.cuda.is_available():
         print("bench_hopper_rotation: no CUDA device available", file=sys.stderr)
         sys.exit(1)
@@ -94,6 +150,8 @@ def main(dev=None) -> dict:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
     g = torch.Generator(device=dev).manual_seed(7)
+    if planner:
+        return {"planner_nibble": planner_table(dev, g, smi)}
     fast = P.SECURITY_128_BIT_FAST
     slots = cuda_launch.cluster_slots(dev.index or 0, 10, CBR.held_clusters)
     print(f"clusters held at one block an SM, N=1024: {slots}")
@@ -143,4 +201,4 @@ def main(dev=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    main(planner="--planner" in sys.argv[1:])

@@ -255,7 +255,8 @@ _KEYS_AT_IMPORT = [
     "bsk.grid_checks", "bsk.strip_builds", "build.nvcc", "k1.launches", "k4.launches", "k5.launches",
     "keyswitch.route.product.calls", "keyswitch.route.product.ciphertexts", "keyswitch.route.select.calls",
     "keyswitch.route.select.ciphertexts", "ks.launches", "lut.tables_built", "netlist.index_placements",
-    "pbs.calls", "pbs.ciphertexts", "pbs.per_row_luts", "radix.ops.add", "radix.ops.compare", "radix.ops.mul",
+    "pbs.calls", "pbs.ciphertexts", "pbs.per_row_luts", "radix.mul.column_calls", "radix.mul.norm_rounds",
+    "radix.ops.add", "radix.ops.compare", "radix.ops.mul",
     "radix.ops.sub", "rotate.route.k1.calls", "rotate.route.k1.ciphertexts", "rotate.route.k4.calls",
     "rotate.route.k4.ciphertexts", "rotate.route.nussbaumer.calls", "rotate.route.nussbaumer.ciphertexts",
     "rotate.route.plain.calls", "rotate.route.plain.ciphertexts", "rotate.route.plain_mb.calls",
